@@ -6,19 +6,27 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel under space_gym_torch/csrc/ with nvcc for sm_90a,
      one nvcc per source, all at once; registers and spills per kernel;
-  3. kernels against their plain PyTorch twins on the card, same inputs:
-     K1 (csrc/fused_step.cu) and K3 (csrc/full_step.cu) at B=65536 on
-     states with live, truncating, crashing and goal-reaching lanes (phase 4
-     holds both against their twins again on the main path's own states);
+  3. kernels against their plain PyTorch twins on the card, same inputs, at
+     B=65536 on states with live, truncating, crashing and goal-reaching
+     lanes: K1 (csrc/fused_step.cu), K2 (csrc/env_step.cu, four env families,
+     both tableaux) and K3 (csrc/full_step.cu); the two in-kernel generators
+     (csrc/rng.cuh) bit for bit against ops/rng_plain.py, and K3-tf
+     (csrc/full_step_threefry.cu) and K3-hw (csrc/full_step_philox.cu) given
+     key words bit for bit against K3 fed the generator's block;
   4. the main path at full width: EnvEngine("GoalContinuous2P-v0") on the
      card, B=262144 lanes, random policy, BS3 x 1 substep / refine 8 for 256
-     steps (three repeats, the median reported) and DP5 x 2 / refine 12 for
-     64, each after 32 warm-up steps, with the K3 launch count, env
-     steps/s, kernel times and their bounds, and device time by kernel over
-     a short profiled window; the engine on the card is also held against the
-     engine on the CPU on a small input;
-  5. a `kernels` JSON line, the card line again, and the final
-     {"ok": true, "device": ...} line.
+     steps, once per source of uniforms (bulk draw: three repeats, the median
+     reported; "threefry"; "philox") and DP5 x 2 / refine 12 for 32, each
+     after 32 warm-up steps, with the launch counts, env steps/s, kernel
+     times and their bounds, and device time by kernel over a short profiled
+     window; the engine on the card is also held against the engine on the
+     CPU on a small input;
+  5. the other tiers at full width, a few steps each with the launch counts
+     set to 0 before: fuse="env" (K2), fuse="physics" (K1) and
+     physics="fixed" (no kernel), each held against fuse="full" from the same
+     states and uniforms on live lanes that did not reach their goal;
+  6. a `kernels` JSON line (K1, K2, K3, K3-tf, K3-hw), the card line again,
+     and the final {"ok": true, "device": ...} line.
 
 Everything is made from seeds; it needs no network and imports no JAX.
 """
@@ -41,6 +49,15 @@ OUT_DIR = os.path.join(HERE, "build", "reports")  # ptxas reports; gitignored
 # rate; the bound of a kernel is the larger of bytes/BW and ops/FLOPS.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# Integer operations of one uniform from the in-kernel generators
+# (csrc/rng.cuh): threefry2x32 is 20 rounds of add, rotate, xor, 5 key
+# injections of 3 adds, the index add and 4 for the float; Philox4x32-10 is 10
+# rounds of 4 multiplies and 4 xors plus 9 key bumps of 2 adds for 4 uniforms,
+# and 4 each for the float.  They are counted at the f32 rate: the card's
+# int32 rate is no higher, so the bound stays a lower bound.
+RNG_OPS_PER_UNIFORM = {False: 0, "threefry": 20 * 3 + 5 * 3 + 1 + 4,
+                       "philox": (10 * 8 + 9 * 2) / 4 + 4}
+RNG_NAMES = {False: "bulk draw", "threefry": "threefry", "philox": "philox"}
 
 MAIN_ENV = "GoalContinuous2P-v0"
 MAIN_B = 262144
@@ -52,6 +69,16 @@ CHECK_B = 65536
 TOL_STATE = 1e-5
 TOL_REWARD = 1e-3
 MIN_FLAG_AGREEMENT = 0.999
+# Tolerances of one tier against another from the same state and uniforms, on
+# live lanes that did not reach their goal (tests/test_pallas_full.py::
+# test_full_matches_env_fused_on_live_lanes).  The reward's is rtol 1e-3 as
+# in test_full_kernel_tiny_vs_fixed_always_on, with TOL_REWARD as atol: the
+# fixed tier's physics takes its norms and divisions in another order than
+# the kernels', and the Goal reward multiplies the position differences by
+# 500, so over 2e6 lane-steps the float32 tail reaches 1.1e-4.
+TOL_TIER = 2e-5
+TOL_TIER_REWARD = (1e-3, TOL_REWARD)  # rtol, atol
+TIER_STEPS = 8
 # Steps run before a timed window, so that clocks and caches settle.
 WARMUP_STEPS = 32
 
@@ -90,27 +117,36 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, kernel: str, iters: int = 50, warmup: int = 5) -> float:
+def kernel_device_ms(fn, kernel: str, iters: int = 50, warmup: int = 5, tries: int = 3) -> float:
     """Mean device time per launch of the kernel whose name contains `kernel`
-    over `iters` calls of fn (torch.profiler, the launches it recorded).  Unlike events around a loop of
-    calls, this excludes the host's time to make each call."""
+    over `iters` calls of fn (torch.profiler, the launches it recorded).
+    Unlike events around a loop of calls, this excludes the host's time to
+    make each call.  The profiler's buffer may drop events, at times a whole
+    window of them: a window with under 90% of the launches is taken again,
+    and after `tries` such windows the time is CUDA-event time per wrapper
+    call, which is printed as such."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    n = sum(e.count for e in hits)
-    # the profiler's buffer may drop an event at the window's edge
-    if n < 0.9 * iters:
-        fail(f"the profiler saw {n} launches of {kernel}, expected {iters}")
-    return sum(e.self_device_time_total for e in hits) / n / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        n = sum(e.count for e in hits)
+        if n >= 0.9 * iters:
+            return sum(e.self_device_time_total for e in hits) / n / 1e3
+        print(f"  the profiler saw {n} of {iters} launches of {kernel} (window {attempt + 1} "
+              f"of {tries})", flush=True)
+    ms = cuda_ms(fn, iters, warmup=0)
+    print(f"  {kernel}: no full profiler window; {ms:.5f} ms per wrapper call by CUDA events "
+          f"stands in for the device time", flush=True)
+    return ms
 
 
 # ------------------------------------------------------------- op counting --
@@ -277,6 +313,88 @@ def check_k3(dev, B):
     return worst
 
 
+def float_err(got, want, agree):
+    """Max |got - want| over the lanes in `agree`; NaN on both sides agrees."""
+    d = torch.where(torch.isnan(got) & torch.isnan(want), 0.0, (got - want).abs())
+    d = torch.where(agree[None, :], d, 0.0)
+    return torch.where(torch.isnan(d), float("inf"), d).max().item()
+
+
+def compare_k2(got, want):
+    """K2 outputs (y, terminated, obs, reward) vs the twin's: flag agreement
+    and the float errors on agreeing lanes, by K1's and K3's tolerance rules."""
+    agree = (got[1] == want[1])[0]
+    frac = agree.float().mean().item()
+    errs = [float_err(got[i], want[i], agree) for i in (0, 2, 3)]
+    for name, err, tol in zip(("y", "obs", "reward"), errs, (TOL_STATE, TOL_STATE, TOL_REWARD)):
+        if not err <= tol:
+            fail(f"K2 {name}: error {err:.3g} above {tol}")
+    return frac, errs
+
+
+def check_k2(dev, B):
+    """K2 against its plain twin on every task and both tableaux; returns the
+    max float error."""
+    from space_gym_torch import get_config
+    from space_gym_torch.ops.env_step import EnvStep
+    from space_gym_torch.ops.full_step import FullStep
+
+    worst = 0.0
+    for env_id in (MAIN_ENV, "GoalContinuous4P-v0", "KeplerRandomOrbits-v0",
+                   "DoNotCrashContinuous-v0"):
+        cfg = get_config(env_id)
+        rows = FullStep.to_rows(*scenario(cfg, B, seed=4, device=dev))[:5]
+        for tab, sub, ref in (("bs3", 1, 8), ("dp5", 2, 12)):
+            k2 = EnvStep(cfg, sub, ref, tab)
+            got = k2.step_rows(*rows)
+            want = k2.plain_rows(*rows)
+            frac, errs = compare_k2(got, want)
+            n_term = int(want[1].sum())
+            print(f"K2 {env_id} {tab}x{sub} r{ref} B={B}: flag agreement {frac:.6f}, terminated "
+                  f"{n_term}; max|err| state {errs[0]:.3g} obs {errs[1]:.3g} reward "
+                  f"{errs[2]:.3g}", flush=True)
+            if frac < MIN_FLAG_AGREEMENT or n_term == 0:
+                fail(f"K2 {env_id}: flags agree on {frac:.6f} of lanes, {n_term} terminated")
+            worst = max(worst, max(errs))
+    return worst
+
+
+def check_rng(dev, B):
+    """The in-kernel generators bit for bit against their plain versions, then
+    K3-tf and K3-hw given the key words against K3 fed the generator's block:
+    every output bit-identical."""
+    from space_gym_torch import get_config
+    from space_gym_torch.ops.full_step import FullStep
+    from space_gym_torch.ops.rng_plain import key_words
+
+    key = key_words([0xCAFEF00D, 0x80000042], dev)
+    for env_id, tab, sub, ref in ((MAIN_ENV, "bs3", 1, 8), (MAIN_ENV, "dp5", 2, 12),
+                                  ("GoalContinuous4P-v0", "bs3", 1, 8),
+                                  ("KeplerRandomOrbits-v0", "bs3", 1, 8),
+                                  ("DoNotCrashContinuous-v0", "bs3", 1, 8)):
+        cfg = get_config(env_id)
+        mem = FullStep(cfg, sub, ref, tab)
+        ops = scenario(cfg, B, seed=6, device=dev)
+        for mode in ("threefry", "philox"):
+            keyed = FullStep(cfg, sub, ref, tab, in_kernel_rng=mode)
+            u = keyed.kernel_uniforms(key, B)
+            want_u = keyed.plain_uniforms(key, B)
+            same = torch.equal(u.view(torch.int32), want_u.view(torch.int32))
+            in_range = bool(((u >= 0) & (u < 1)).all())
+            rows = mem.to_rows(*ops[:7], u.t())
+            got = keyed.step_rows(*rows[:6], key, rows[7])
+            want = mem.step_rows(*rows)
+            bad = [n for n, g, w in zip(OUT_NAMES + ("int_rows", "flags"), got, want)
+                   if not torch.equal(g.view(torch.int32), w.view(torch.int32))]
+            print(f"rng {mode} {env_id} {tab}x{sub} B={B}: ({keyed.n_uniform_rows}, {B}) block "
+                  f"bitwise equal to the plain version: {same}, in [0, 1): {in_range}, mean "
+                  f"{u.mean().item():.6f}; K3 with the key vs K3 fed the block: "
+                  f"{'all outputs bit-identical' if not bad else 'differ in ' + str(bad)}; "
+                  f"done lanes {int(want[-1][2].sum())}", flush=True)
+            if not (same and in_range) or bad or int(want[-1][2].sum()) == 0:
+                fail(f"in-kernel {mode} disagrees with its plain version or with K3")
+
+
 def check_engine(dev, small=512, steps=8):
     """The engine on `dev` against the engine on the CPU, same uniforms,
     teacher-forced from the CPU trajectory; returns the max obs error."""
@@ -307,17 +425,47 @@ def check_engine(dev, small=512, steps=8):
         fail("engine on the card disagrees with the engine on the CPU")
 
 
-def main_path(dev, card, B, tab, sub, ref, n_steps, time_ms=cuda_ms, plain_iters=3,
-              kernel_ms=None):
-    """The main path at full width; returns its measurements."""
-    kernel_ms = kernel_ms or kernel_device_ms
-    from space_gym_torch import get_config
-    from space_gym_torch.engine import EnvEngine
+def reset_launches():
+    """Set every wrapper's launch count to 0."""
+    from space_gym_torch.ops.env_step import EnvStep
     from space_gym_torch.ops.full_step import FullStep
     from space_gym_torch.ops.physics_step import PhysicsStep
 
+    FullStep.reset_launches()
+    EnvStep.launches = 0
+    PhysicsStep.launches = 0
+
+
+def read_launches():
+    """Launch counts by kernel since the last reset."""
+    from space_gym_torch.ops.env_step import EnvStep
+    from space_gym_torch.ops.full_step import FullStep
+    from space_gym_torch.ops.physics_step import PhysicsStep
+
+    by = FullStep.launches_by_rng
+    return {"full_step": by[False], "full_step_threefry": by["threefry"],
+            "full_step_philox": by["philox"], "env_step": EnvStep.launches,
+            "fused_step": PhysicsStep.launches}
+
+
+K3_NAMES = {False: "full_step", "threefry": "full_step_threefry", "philox": "full_step_philox"}
+
+
+def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, plain_iters=3,
+              kernel_ms=None):
+    """The main path at full width with K3's uniforms from `rng`; returns its
+    measurements.  With the bulk draw it also holds K1 and K2 against their
+    twins on the run's last state and times them there."""
+    kernel_ms = kernel_ms or kernel_device_ms
+    from space_gym_torch import get_config
+    from space_gym_torch.engine import EnvEngine
+    from space_gym_torch.ops.env_step import EnvStep
+    from space_gym_torch.ops.physics_step import PhysicsStep
+
     cfg = get_config(MAIN_ENV)
-    eng = EnvEngine(cfg, tableau=tab, substeps=sub, refine_iters=ref, device=dev)
+    eng = EnvEngine(cfg, tableau=tab, substeps=sub, refine_iters=ref, device=dev,
+                    in_kernel_rng=rng)
+    name = K3_NAMES[rng]
     g = eng.generator(0)
     policy = eng.random_policy()
     state, obs = eng.init(B, g)
@@ -337,15 +485,14 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, time_ms=cuda_ms, plain_iters
             done_sum += ts.done.sum()
             term_sum += ts.terminated.sum()
 
-    FullStep.launches = 0
-    PhysicsStep.launches = 0
+    reset_launches()
     w0 = time.perf_counter()
     ms_total = time_ms(run, iters=1, warmup=0)
     wall = time.perf_counter() - w0
+    launches = read_launches()
     clocks = gpu_clocks() if torch.device(dev).type == "cuda" else "n/a"
-    launches = {"full_step": FullStep.launches, "fused_step": PhysicsStep.launches}
-    if launches["full_step"] != n_steps:
-        fail(f"K3 launched {launches['full_step']} times in {n_steps} steps")
+    if launches[name] != n_steps or sum(launches.values()) != n_steps:
+        fail(f"{name} launched {launches[name]} times in {n_steps} steps: {launches}")
     if not all(torch.isfinite(t).all().item() for t in
                (state.y, state.planets_pos, state.goal_pos, obs)):
         fail("main path state or observation not finite")
@@ -356,40 +503,73 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, time_ms=cuda_ms, plain_iters
         fail("no lane reset in the main-path run")
 
     # K3 alone on this run's last state, held against its plain twin on the
-    # same operands (the main path's own shape and state), then timed.
+    # same operands (the main path's own shape and state), then timed.  With
+    # an in-kernel source the twin runs on the plain generator's block.
     full = eng.full
-    u = torch.rand((B, full.n_uniform_rows), generator=g, device=dev)
+    n_u = full.n_uniform_rows
+    u = eng.draw_key(g) if rng else torch.rand((B, n_u), generator=g, device=dev)
     a = eng._translate_action(policy(g, obs))
     rows = full.to_rows(*eng.kernel_operands(state, a, u))
+
+    def plain_call():
+        u_rows = full.plain_uniforms(rows[6], B) if rng else rows[6]
+        return full.plain(*rows[:6], u_rows, rows[7])
+
     out = full.step_rows(*rows)
-    want = full.plain(*rows)
+    want = plain_call()
     frac, n_bad, errs, where = compare(out, want, [TOL_STATE] * 7 + [TOL_REWARD])
     k3_err = max(errs)
-    print(f"K3 vs plain on the main path's state, {tab}x{sub} r{ref} B={B}: flag+int "
-          f"agreement {frac:.6f} ({n_bad} lanes); terminated/truncated/done "
+    print(f"K3 ({RNG_NAMES[rng]}) vs plain on the main path's state, {tab}x{sub} r{ref} B={B}: "
+          f"flag+int agreement {frac:.6f} ({n_bad} lanes); terminated/truncated/done "
           f"{want[-1].sum(1).tolist()}; max|err| {k3_err:.3g}; largest: {where}", flush=True)
     if frac < MIN_FLAG_AGREEMENT:
         fail(f"K3 on the main path's state: flags/int rows agree on {frac:.6f} of lanes")
     k3_call_ms = time_ms(lambda: full.step_rows(*rows), iters=200, warmup=20)
     k3_ms = kernel_ms(lambda: full.step_rows(*rows), "full_step_kernel")
-    k3_plain_ms = time_ms(lambda: full.plain(*rows), iters=plain_iters, warmup=1)
+    k3_plain_ms = time_ms(plain_call, iters=plain_iters, warmup=1)
+    # the one library call that computes the random part's function: the bulk draw
+    rand_ms = time_ms(lambda: torch.rand((B, n_u), generator=g, device=dev), iters=50, warmup=5)
     flags = out[-1]
     n_term, n_done1 = int(flags[0].sum()), int(flags[2].sum())
     n_reached = int(((out[2] != rows[3]).any(0) & (flags[2] == 0)).sum())
-    k3_ops = rhs_ops(cfg, tab, sub, B, n_term)
-    # The kernel reads a lane's resample rows of u only where it reached its
-    # goal and its reset rows only where it is done: count this data's reads.
+    # A lane takes its resample rows of u only where it reached its goal and
+    # its reset rows only where it is done: read from memory (bulk draw) or
+    # computed (in-kernel source).  Count what this data needs.
     gp = 3 + 3 * cfg.tiling.n_tiles
-    u_reads = n_reached * gp + n_done1 * (full.n_uniform_rows - gp)
-    k3_bytes = 4 * ((full.bytes_per_lane() // 4 - full.n_uniform_rows) * B + u_reads)
+    u_taken = n_reached * gp + n_done1 * (n_u - gp)
+    k3_ops = rhs_ops(cfg, tab, sub, B, n_term) + RNG_OPS_PER_UNIFORM[rng] * u_taken
+    k3_bytes = full.bytes_per_lane() * B + (8 if rng else 4 * (u_taken - n_u * B))
     k3_bound = bound(k3_bytes, k3_ops)
 
-    # K1 at the same shapes and configuration (not on the main path).
+    ms_step = ms_total / n_steps
+    sps = B * n_steps / (ms_total / 1e3)
+    print(f"main path {MAIN_ENV} B={B} {tab}x{sub} r{ref} uniforms by {RNG_NAMES[rng]}, "
+          f"{n_steps} steps on {card}: "
+          f"{sps:.6g} env-steps/s, {ms_step:.5f} ms/step (host wall {wall:.3f} s), "
+          f"K3 {k3_ms:.5f} ms/launch on the device ({100 * k3_ms / ms_step:.1f}% of the step; "
+          f"{k3_call_ms:.5f} ms per wrapper call back to back), "
+          f"plain twin {k3_plain_ms:.3f} ms/step; torch.rand(({B}, {n_u})) {rand_ms:.5f} ms; "
+          f"reward sum {rew_sum.item():.6g}, "
+          f"dones {n_done}, terminated {int(term_sum.item())}; launches {launches}; "
+          f"after the window sm clock, power: {clocks}", flush=True)
+    print(f"  K3 bound: operand list {full.bytes_per_lane()} B/lane-step -> "
+          f"{full.bytes_per_lane() * B / HBM_BYTES_PER_S * 1e3:.5f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s; this data's bytes {k3_bytes / B:.1f} B/lane -> "
+          f"{k3_bound['bytes']:.5f} ms ({n_done1} lanes done, {n_reached} reached, "
+          f"{u_taken / B:.2f} uniforms/lane taken); "
+          f"{k3_ops / B:.0f} ops/lane -> {k3_bound['operations']:.5f} ms at "
+          f"{F32_OPS_PER_S / 1e12} TFLOP/s f32", flush=True)
+    res = dict(rng=rng, launches=launches, k3_err=k3_err, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
+               k3_bound=k3_bound, rand_ms=rand_ms, sps=sps, ms_step=ms_step, dones=n_done)
+    if rng:
+        return res
+
+    # K1 and K2 at the same shapes and configuration, on the same rows.
     k1 = PhysicsStep(cfg, sub, ref, tab)
     yo, term = k1.step_rows(*rows[:3])
     yw, tw = k1.plain_rows(*rows[:3])
     agree = (term == tw)[0]
-    k1_err = (yo[:, agree] - yw[:, agree]).abs().max().item()
+    k1_err = float_err(yo, yw, agree)
     print(f"K1 vs plain on the main path's state, {tab}x{sub} r{ref} B={B}: flag agreement "
           f"{agree.float().mean().item():.6f}, max|err| {k1_err:.3g}", flush=True)
     if agree.float().mean().item() < MIN_FLAG_AGREEMENT or not k1_err <= TOL_STATE:
@@ -399,40 +579,121 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, time_ms=cuda_ms, plain_iters
     k1_plain_ms = time_ms(lambda: k1.plain_rows(*rows[:3]), iters=plain_iters, warmup=1)
     k1_bound = bound(4 * (6 + 2 + 2 * cfg.n_planets + 6 + 1) * B,
                      rhs_ops(cfg, tab, sub, B, int(tw.sum())))
-
-    ms_step = ms_total / n_steps
-    sps = B * n_steps / (ms_total / 1e3)
-    print(f"main path {MAIN_ENV} B={B} {tab}x{sub} r{ref} {n_steps} steps on {card}: "
-          f"{sps:.6g} env-steps/s, {ms_step:.5f} ms/step (host wall {wall:.3f} s), "
-          f"K3 {k3_ms:.5f} ms/launch on the device ({100 * k3_ms / ms_step:.1f}% of the step; "
-          f"{k3_call_ms:.5f} ms per wrapper call back to back), "
-          f"plain twin {k3_plain_ms:.3f} ms/step; reward sum {rew_sum.item():.6g}, "
-          f"dones {n_done}, terminated {int(term_sum.item())}; launches {launches}; "
-          f"after the window sm clock, power: {clocks}", flush=True)
-    print(f"  K3 bound: operand list {full.bytes_per_lane()} B/lane-step -> "
-          f"{full.bytes_per_lane() * B / HBM_BYTES_PER_S * 1e3:.5f} ms at "
-          f"{HBM_BYTES_PER_S / 1e12} TB/s; this data's reads {k3_bytes / B:.1f} B/lane -> "
-          f"{k3_bound['bytes']:.5f} ms ({n_done1} lanes done, {n_reached} reached); "
-          f"{k3_ops / B:.0f} ops/lane -> {k3_bound['operations']:.5f} ms at "
-          f"{F32_OPS_PER_S / 1e12} TFLOP/s f32", flush=True)
     print(f"  K1: {k1_ms:.5f} ms/launch on the device ({k1_call_ms:.5f} ms per wrapper call), "
           f"plain {k1_plain_ms:.3f} ms, bound bytes {k1_bound['bytes']:.5f} ms, operations "
           f"{k1_bound['operations']:.5f} ms", flush=True)
-    return dict(launches=launches, k3_err=k3_err, k1_err=k1_err, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_bound=k3_bound,
-                k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k1_bound=k1_bound, sps=sps,
-                ms_step=ms_step, dones=n_done)
+
+    k2 = EnvStep(cfg, sub, ref, tab)
+    got2 = k2.step_rows(*rows[:5])
+    want2 = k2.plain_rows(*rows[:5])
+    frac2, errs2 = compare_k2(got2, want2)
+    k2_err = max(errs2)
+    print(f"K2 vs plain on the main path's state, {tab}x{sub} r{ref} B={B}: flag agreement "
+          f"{frac2:.6f}, max|err| state {errs2[0]:.3g} obs {errs2[1]:.3g} reward {errs2[2]:.3g}",
+          flush=True)
+    if frac2 < MIN_FLAG_AGREEMENT:
+        fail("K2 disagrees with its plain twin on the main path's state")
+    k2_call_ms = time_ms(lambda: k2.step_rows(*rows[:5]), iters=200, warmup=20)
+    k2_ms = kernel_ms(lambda: k2.step_rows(*rows[:5]), "env_step_kernel")
+    k2_plain_ms = time_ms(lambda: k2.plain_rows(*rows[:5]), iters=plain_iters, warmup=1)
+    k2_bound = bound(k2.bytes_per_lane() * B, rhs_ops(cfg, tab, sub, B, int(want2[1].sum())))
+    print(f"  K2: {k2_ms:.5f} ms/launch on the device ({k2_call_ms:.5f} ms per wrapper call), "
+          f"plain {k2_plain_ms:.3f} ms, bound bytes {k2_bound['bytes']:.5f} ms "
+          f"({k2.bytes_per_lane()} B/lane), operations {k2_bound['operations']:.5f} ms", flush=True)
+    res.update(k1_err=k1_err, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k1_bound=k1_bound,
+               k2_err=k2_err, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_bound=k2_bound)
+    return res
 
 
-def profile_main_path(dev, B, tab, sub, ref, n_steps=8, top=10):
-    """Device time by kernel over a short window of the main path
-    (torch.profiler, CUDA activity); prints the largest entries."""
+def tier_path(dev, card, B, tier, n_steps=TIER_STEPS):
+    """One of the engine's other tiers at full width for a few steps, with the
+    launch counts set to 0 before, held step by step against fuse="full" from
+    the same state, actions and uniforms on live lanes that did not reach
+    their goal.  DP5 x 2 / refine 12, which every tier has.  Returns the
+    launch counts and ms/step."""
+    from space_gym_torch import get_config
+    from space_gym_torch.engine import EnvEngine
+
+    cfg = get_config(MAIN_ENV)
+    kw = {"fixed": dict(physics="fixed"), "env": dict(fuse="env"),
+          "physics": dict(fuse="physics")}[tier]
+    ref_eng = EnvEngine(cfg, device=dev)
+    eng = EnvEngine(cfg, device=dev, **kw)
+    if eng.n_step_rand != ref_eng.n_step_rand or eng.n_reset_rand != ref_eng.n_reset_rand:
+        fail(f"tier {tier} consumes {eng.n_step_rand} uniforms a step, fuse='full' "
+             f"{ref_eng.n_step_rand}")
+    g = ref_eng.generator(7)
+    policy = ref_eng.random_policy()
+    state, obs = ref_eng.init(B, g)
+    for _ in range(WARMUP_STEPS):
+        state, ts = ref_eng.step(state, policy(g, obs), g)
+        obs = ts.obs
+    eng.step(state, policy(g, obs), g)  # builds and loads the tier's kernel
+    torch.cuda.synchronize()
+
+    # the tier alone, on its own trajectory, between a reset and a read of
+    # the launch counts; every step's inputs and outputs are kept
+    reset_launches()
+    trace = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_steps):
+        a = policy(g, obs)
+        u = torch.rand((B, eng.n_step_rand), generator=g, device=dev)
+        new_state, ts = eng.step(state, a, u=u)
+        trace.append((state, a, u, new_state, ts))
+        state, obs = new_state, ts.obs
+    end.record()
+    torch.cuda.synchronize()
+    tier_ms = start.elapsed_time(end)
+    launches = read_launches()
+
+    # then fuse="full" from each step's state, action and uniforms
+    worst = {"y": 0.0, "obs": 0.0, "reward": 0.0}
+    compared = 0
+    rtol, atol = TOL_TIER_REWARD
+    for state0, a, u, st, tt in trace:
+        sf, tf = ref_eng.step(state0, a, u=u)
+        same = (tt.done == tf.done) & (tt.terminated == tf.terminated)
+        if same.float().mean().item() < MIN_FLAG_AGREEMENT:
+            fail(f"tier {tier}: done flags agree with fuse='full' on "
+                 f"{same.float().mean().item():.6f} of lanes")
+        reached = (state0.goal_pos - sf.y[:, :2]).norm(dim=1) < cfg.goal_radius
+        m = same & ~tf.done & ~reached
+        if int(m.sum()) < B // 2:
+            fail(f"tier {tier}: only {int(m.sum())} live lanes to compare")
+        compared += int(m.sum())
+        worst["y"] = max(worst["y"], (st.y - sf.y)[m].abs().max().item())
+        worst["obs"] = max(worst["obs"], (tt.obs - tf.obs)[m].abs().max().item())
+        over = ((tt.reward - tf.reward).abs() - rtol * tf.reward.abs())[m].max().item()
+        worst["reward"] = max(worst["reward"], over)
+        if not (worst["y"] <= TOL_TIER and worst["obs"] <= TOL_TIER and over <= atol):
+            fail(f"tier {tier} disagrees with fuse='full': {worst}")
+        if not all(torch.isfinite(t).all().item() for t in (st.y, tt.obs, tt.reward)):
+            fail(f"tier {tier}: state, observation or reward not finite")
+    want = {"env": "env_step", "physics": "fused_step", "fixed": None}[tier]
+    for k, v in launches.items():
+        if v != (n_steps if k == want else 0):
+            fail(f"tier {tier}: launches {launches} in {n_steps} steps")
+    print(f"tier {tier} {MAIN_ENV} B={B} dp5x2 r12, {n_steps} steps on {card}: "
+          f"{tier_ms / n_steps:.4f} ms/step, launches {launches}; against fuse='full' on "
+          f"{compared} live lane-steps: max|err| state {worst['y']:.3g} obs {worst['obs']:.3g}, "
+          f"reward error beyond rtol {TOL_TIER_REWARD[0]}: {worst['reward']:.3g}", flush=True)
+    return dict(launches=launches, ms_step=tier_ms / n_steps)
+
+
+def profile_main_path(dev, B, tab, sub, ref, rng=False, n_steps=8, top=10):
+    """Device time by kernel over a short window of the main path with K3's
+    uniforms from `rng` (torch.profiler, CUDA activity); prints the largest
+    entries."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from space_gym_torch import get_config
     from space_gym_torch.engine import EnvEngine
 
-    eng = EnvEngine(get_config(MAIN_ENV), tableau=tab, substeps=sub, refine_iters=ref, device=dev)
+    eng = EnvEngine(get_config(MAIN_ENV), tableau=tab, substeps=sub, refine_iters=ref, device=dev,
+                    in_kernel_rng=rng)
     g = eng.generator(1)
     policy = eng.random_policy()
     state, obs = eng.init(B, g)
@@ -453,18 +714,19 @@ def profile_main_path(dev, B, tab, sub, ref, n_steps=8, top=10):
         print("profiler: no device time recorded in this environment", flush=True)
         return
     busy = sum(r[1] for r in rows)
-    print(f"profile {MAIN_ENV} B={B} {tab}x{sub} r{ref}, {n_steps} steps: kernels busy "
+    print(f"profile {MAIN_ENV} B={B} {tab}x{sub} r{ref} uniforms by {RNG_NAMES[rng]}, "
+          f"{n_steps} steps: kernels busy "
           f"{busy / n_steps / 1e3:.4f} ms/step (profiler on)", flush=True)
     for key, us, count in rows[:top]:
         print(f"  {100 * us / busy:5.1f}%  {us / n_steps / 1e3:.4f} ms/step  "
               f"{count / n_steps:g}/step  {key[:100]}", flush=True)
 
 
-def kernel_entry(name, source, replaces, launches, err, ms, plain, bnd):
+def kernel_entry(name, source, replaces, launches, err, ms, plain, bnd, library=None):
     by = max(bnd, key=bnd.get)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd[by], "bound_by": by, "library_ms": None}
+            "bound_ms": bnd[by], "bound_by": by, "library_ms": library}
 
 
 def main():
@@ -495,7 +757,9 @@ def main():
 
     # ---------------------------------------------- 3. kernels vs twins --
     k1_check_err = check_k1(dev, CHECK_B)
+    k2_check_err = check_k2(dev, CHECK_B)
     k3_check_err = check_k3(dev, CHECK_B)
+    check_rng(dev, CHECK_B)
     check_engine(dev)
 
     # ---------------------------------------- 4. the main path, full width --
@@ -505,26 +769,60 @@ def main():
                   key=lambda r: r["sps"])
     main = runs[1]
     print("main path repeats, env-steps/s: " + ", ".join(f"{r['sps']:.6g}" for r in runs)
-          + f"; K3 ms/launch: " + ", ".join(f"{r['k3_ms']:.5f}" for r in runs), flush=True)
-    runs.append(main_path(dev, card, MAIN_B, "dp5", 2, 12, 64))
+          + "; K3 ms/launch: " + ", ".join(f"{r['k3_ms']:.5f}" for r in runs), flush=True)
+    keyed = {rng: main_path(dev, card, MAIN_B, "bs3", 1, 8, 256, rng=rng)
+             for rng in ("threefry", "philox")}
+    runs.append(main_path(dev, card, MAIN_B, "dp5", 2, 12, 32))
     # max_abs_err of the kernels line: the largest kernel-vs-plain error on
     # the main path's own states (every run above); the B=65536 branch
     # checks of phase 3 are printed above it
     k3_err = max(r["k3_err"] for r in runs)
+    k2_err = max(r["k2_err"] for r in runs)
     k1_err = max(r["k1_err"] for r in runs)
-    print(f"max|err| on the main path's states: K3 {k3_err:.3g}, K1 {k1_err:.3g}; in the "
-          f"B={CHECK_B} branch checks: K3 {k3_check_err:.3g}, K1 {k1_check_err:.3g}", flush=True)
+    print(f"max|err| on the main path's states: K3 {k3_err:.3g}, K2 {k2_err:.3g}, K1 {k1_err:.3g}, "
+          f"K3-tf {keyed['threefry']['k3_err']:.3g}, K3-hw {keyed['philox']['k3_err']:.3g}; in "
+          f"the B={CHECK_B} branch checks: K3 {k3_check_err:.3g}, K2 {k2_check_err:.3g}, "
+          f"K1 {k1_check_err:.3g}", flush=True)
+    print("main path by source of uniforms, env-steps/s: "
+          + ", ".join(f"{RNG_NAMES[r['rng']]} {r['sps']:.6g}" for r in [main, *keyed.values()])
+          + "; K3 ms/launch: "
+          + ", ".join(f"{RNG_NAMES[r['rng']]} {r['k3_ms']:.5f}" for r in [main, *keyed.values()]),
+          flush=True)
     profile_main_path(dev, MAIN_B, "bs3", 1, 8)
+    profile_main_path(dev, MAIN_B, "bs3", 1, 8, rng="philox")
 
-    # ------------------------------------------------------ 5. the lines --
+    # ----------------------------------------- 5. the other tiers' paths --
+    tiers = {tier: tier_path(dev, card, MAIN_B, tier) for tier in ("env", "physics", "fixed")}
+
+    # ------------------------------------------------------ 6. the lines --
+    # launches: K3, K3-tf and K3-hw from their main-path runs, K2 from the
+    # fuse="env" path, K1 from the fuse="physics" path.  library_ms of the two
+    # in-kernel variants is torch.rand of the (B, n_u) block: the one library
+    # call for the random part alone, not for the step.
+    csrc = "space_gym_torch/csrc/"
+    tf, hw = keyed["threefry"], keyed["philox"]
     kernels = {"kernels": [
-        kernel_entry("full_step", "space_gym_torch/csrc/full_step.cu",
-                     "space_gym_tpu/ops/pallas_full.py:500", main["launches"]["full_step"],
-                     k3_err, main["k3_ms"], main["k3_plain_ms"], main["k3_bound"]),
-        kernel_entry("fused_step", "space_gym_torch/csrc/fused_step.cu",
-                     "space_gym_tpu/ops/pallas_step.py:300", main["launches"]["fused_step"],
+        kernel_entry("fused_step", csrc + "fused_step.cu",
+                     "space_gym_tpu/ops/pallas_step.py:300",
+                     tiers["physics"]["launches"]["fused_step"],
                      k1_err, main["k1_ms"], main["k1_plain_ms"], main["k1_bound"]),
+        kernel_entry("env_step", csrc + "env_step.cu", "space_gym_tpu/ops/pallas_step.py:370",
+                     tiers["env"]["launches"]["env_step"],
+                     k2_err, main["k2_ms"], main["k2_plain_ms"], main["k2_bound"]),
+        kernel_entry("full_step", csrc + "full_step.cu", "space_gym_tpu/ops/pallas_full.py:500",
+                     main["launches"]["full_step"],
+                     k3_err, main["k3_ms"], main["k3_plain_ms"], main["k3_bound"]),
+        kernel_entry("full_step_threefry", csrc + "full_step_threefry.cu",
+                     "space_gym_tpu/ops/pallas_full.py:529",
+                     tf["launches"]["full_step_threefry"], tf["k3_err"], tf["k3_ms"],
+                     tf["k3_plain_ms"], tf["k3_bound"], tf["rand_ms"]),
+        kernel_entry("full_step_philox", csrc + "full_step_philox.cu",
+                     "space_gym_tpu/ops/pallas_full.py:518",
+                     hw["launches"]["full_step_philox"], hw["k3_err"], hw["k3_ms"],
+                     hw["k3_plain_ms"], hw["k3_bound"], hw["rand_ms"]),
     ]}
+    if any(k["launches"] <= 0 for k in kernels["kernels"]):
+        fail(f"a kernel was launched no time on its path: {kernels}")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,15 +1,41 @@
-"""Batched env engine on PyTorch: every env step is one CUDA kernel launch.
+"""Batched env engine on PyTorch, in the step tiers of the JAX engine.
 
-Port of space_gym_tpu/engine/core.py's main path, `EnvEngine(physics="pallas",
-pallas_fuse="full")`: per step one bulk `(B, n_u)` uniform draw, then the
-full-step kernel (ops/full_step.py, csrc/full_step.cu) does physics,
-observation, reward, Goal resample, TimeLimit and masked auto-reset.  The
-first state of an episode comes from the batched reset in plain PyTorch
-(`reset`), the twin of the JAX engine's XLA reset.
+Port of space_gym_tpu/engine/core.py.  Env state is a NamedTuple of tensors
+with the lane axis first; `step` covers action translation, ODE integration
+with terminal events, observation, reward (with Goal's mid-episode goal
+resample), TimeLimit truncation and masked auto-reset.  Four tiers compute the
+same step, from most to least of it in one CUDA kernel:
 
-State is a NamedTuple of tensors with the lane axis first.  Randomness comes
-from an explicit `torch.Generator`; tests may inject the uniforms instead
-(`u=`), so that both engines consume the same matrix.
+  * `physics="kernel", fuse="full"` (default): the whole step is one launch of
+    the full-step kernel K3 (ops/full_step.py, csrc/full_step.cuh), the
+    counterpart of `EnvEngine(physics="pallas", pallas_fuse="full")`.  Its
+    uniforms come from one bulk `(B, n_u)` draw per step
+    (`in_kernel_rng=False`), or the kernel computes them from two key words:
+    `in_kernel_rng="threefry"` (`True` is an alias), bit for bit the bulk
+    draw of `jax.random.uniform`, or `"philox"`, an own stream with the same
+    law.  `"philox"` stands where the JAX engine has `"hw"`, the TPU core's
+    hardware generator, which a CUDA card lacks.
+  * `fuse="env"`: physics, observation and reward in the env-step kernel K2
+    (ops/env_step.py), then the tail below for resample, truncation and reset
+    (`pallas_fuse="env"`).
+  * `fuse="physics"`: the physics kernel K1 (ops/physics_step.py), then the
+    tail for observation, reward, resample, truncation and reset
+    (`pallas_fuse="physics"`).
+  * `physics="fixed"`: no kernel; the fixed-substep Dormand-Prince integrator
+    in plain PyTorch (ops/fixed_rk.py) and the tail (`physics="fixed"`).
+    `physics="adaptive"` (the scipy-faithful RK45) is not ported yet.
+
+The tail (`_step_tail`) is the batched counterpart of the JAX engine's
+`_step_lane`: plain PyTorch on the engine's device, consuming one `(B, n)`
+block of uniforms through a `RandSource` in the JAX order, the Goal resample
+first and the reset second.  Only the tail tiers can step with
+`auto_reset=False`.  The first state of an episode comes from the batched
+reset in plain PyTorch (`reset`), the twin of the JAX engine's XLA reset.
+
+Randomness comes from an explicit `torch.Generator`; tests may inject the
+uniforms (`u=`) or the key words (`key=`) instead, so that both engines
+consume the same stream.  `obs_features` appends analytic functions of the
+raw observation (envs/*_math.py) after the step, for trainers.
 
 Auto-reset follows the lockstep-RL convention: when a lane terminates or
 truncates, `TimeStep.obs` is the first observation of the new episode and
@@ -21,14 +47,22 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..envs.config import DISCRETE_ACTIONS, TASK_GOAL, TASK_KEPLER, EnvConfig
-from ..ops.full_step import FullStep
-from ..ops.maths import onehot_take
+from ..envs import dnc_math, goal_math, kepler_math
+from ..envs.config import (DISCRETE_ACTIONS, TASK_DO_NOT_CRASH, TASK_GOAL, TASK_KEPLER,
+                           EnvConfig)
+from ..ops import events as events_mod
+from ..ops import field, fixed_rk
+from ..ops.constants import G
+from ..ops.env_step import EnvStep
+from ..ops.full_step import FullStep, normalize_rng_mode
+from ..ops.maths import norm2, onehot_take
+from ..ops.physics_step import PhysicsStep
+from ..ops.rng_plain import key_words
 from ..tiling import device as dtiling
 from ..utils.device import resolve_device
 from ..utils.randvec import RandSource
 
-_PROBE = 4096  # RandSource width used to count the reset's consumption
+_PROBE = 4096  # RandSource width used to count a reset's and a step's consumption
 
 
 class EnvState(NamedTuple):
@@ -58,6 +92,23 @@ class EnvEngine:
     >>> g = eng.generator(0)
     >>> state, obs = eng.init(4096, g)
     >>> state, ts = eng.step(state, actions, g)
+
+    Options (see the module docstring for the tiers):
+      physics        "kernel" (default) or "fixed"; "adaptive" is not ported.
+      fuse           "full" (default), "env" or "physics": how much of the
+                     step the kernel covers when physics="kernel".
+      in_kernel_rng  False (default), "threefry" (True is an alias) or
+                     "philox", for fuse="full": where K3's uniforms come from.
+                     "philox" is the counterpart of the JAX engine's "hw".
+      tableau        "dp5" or "bs3" for the kernels; "fixed" is DP5 only.
+      auto_reset     False leaves done lanes as they are (tail tiers only).
+      f32_actions    "fixed" only: the reference's float32 action arithmetic.
+      obs_features   None, "kepler", "goal" or "dnc": appended observation
+                     features; `obs_dim` includes them, `config.obs_dim` not.
+
+    `n_reset_rand` and `n_step_rand` are the uniforms one lane's reset and
+    step consume: K3's row count for fuse="full", the tail's counted
+    consumption otherwise.
     """
 
     def __init__(
@@ -68,18 +119,64 @@ class EnvEngine:
         refine_iters: int = 12,
         tableau: str = "dp5",
         device=None,
+        physics: str = "kernel",
+        fuse: str = "full",
+        in_kernel_rng=False,
+        auto_reset: bool = True,
+        f32_actions: bool = False,
+        obs_features: str | None = None,
     ):
+        if physics == "adaptive":
+            raise NotImplementedError("physics='adaptive' (ops.rk45.solve_step) is not ported yet")
+        if physics not in ("kernel", "fixed"):
+            raise ValueError(f"physics must be 'kernel' or 'fixed', got {physics!r}")
+        if fuse not in ("full", "env", "physics"):
+            raise ValueError(f"fuse must be 'full', 'env' or 'physics', got {fuse!r}")
+        self.tier = "fixed" if physics == "fixed" else fuse
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and dtype != torch.float32:
+        if self.device.type == "cuda" and physics == "kernel" and dtype != torch.float32:
             raise TypeError(f"the CUDA kernels take float32, got {dtype}")
+        if physics == "fixed" and tableau != "dp5":
+            raise ValueError("physics='fixed' integrates with DP5 only")
+        self.in_kernel_rng = normalize_rng_mode(in_kernel_rng)
+        if self.in_kernel_rng and (self.tier != "full" or dtype != torch.float32):
+            raise ValueError("in_kernel_rng needs physics='kernel', fuse='full' and float32")
+        if not auto_reset and self.tier == "full":
+            raise ValueError("auto_reset=False needs a tail tier: physics='fixed', or "
+                             "fuse='env' or 'physics'")
         self.config = config
+        self.physics = physics
+        self.fuse = fuse
         self.dtype = dtype
         self.substeps = substeps
         self.refine_iters = refine_iters
         self.tableau = tableau
-        self.full = FullStep(config, substeps, refine_iters, tableau)
-        self.n_step_rand = self.full.n_uniform_rows
+        self.auto_reset = auto_reset
+        self.f32_actions = f32_actions
+        self._event_comp_fns = events_mod.make_event_component_fns(
+            config.planet_radii, config.world_size, config.max_abs_vel_angle)
+        k = config.kepler
+        self._alpha_gm = G * k.planet_mass if k is not None else 0.0
+
+        if obs_features not in (None, "kepler", "goal", "dnc"):
+            raise ValueError(f"unknown obs_features {obs_features!r}")
+        needs = {"kepler": TASK_KEPLER, "goal": TASK_GOAL, "dnc": TASK_DO_NOT_CRASH}
+        if obs_features and config.task != needs[obs_features]:
+            raise ValueError(f"obs_features={obs_features!r} requires a {needs[obs_features]} env")
+        self.obs_features = obs_features
+        self.obs_dim = config.obs_dim + {
+            None: 0,
+            "kepler": kepler_math.N_ERROR_FEATURES,
+            "goal": goal_math.N_GOAL_FEATURES,
+            "dnc": dnc_math.N_DNC_FEATURES,
+        }[obs_features]
+
+        kernel_args = (config, substeps, refine_iters, tableau)
+        self.full = FullStep(*kernel_args, self.in_kernel_rng) if self.tier == "full" else None
+        self.env_step = EnvStep(*kernel_args) if self.tier == "env" else None
+        self.physics_step = PhysicsStep(*kernel_args) if self.tier == "physics" else None
         self.n_reset_rand = self._count_reset()
+        self.n_step_rand = self.full.n_uniform_rows if self.full else self._count_step()
 
     # ------------------------------------------------------------------ API --
     def generator(self, seed: int) -> torch.Generator:
@@ -89,25 +186,51 @@ class EnvEngine:
     def _uniforms(self, batch: int, n: int, generator) -> torch.Tensor:
         return torch.rand((batch, n), generator=generator, device=self.device, dtype=self.dtype)
 
+    def draw_key(self, generator) -> torch.Tensor:
+        """Two fresh 32-bit key words as the (2,) int32 tensor the kernel
+        reads, drawn and kept on the engine's device: no host round trip."""
+        return key_words(torch.randint(0, 1 << 32, (2,), generator=generator, device=self.device,
+                                       dtype=torch.int64))
+
     def init(self, batch_size: int, generator: torch.Generator | None = None):
         """Fresh batched state + first observations."""
         return self.reset(batch_size, generator)
 
     def reset(self, batch_size: int, generator=None, u: torch.Tensor | None = None):
         """Fresh state for every lane from one (B, n_reset_rand) draw (or the
-        injected `u`); returns (state, obs (B, D))."""
+        injected `u`); returns (state, obs (B, obs_dim))."""
         if u is None:
             u = self._uniforms(batch_size, self.n_reset_rand, generator)
         state = self._reset_lanes(RandSource(u))
-        return state, self._observe(state)
+        return state, self._augment_obs(self._observe(state))
 
     def step(self, state: EnvState, raw_action: torch.Tensor, generator=None,
-             u: torch.Tensor | None = None):
-        """One env step for every lane through the full-step kernel."""
+             u: torch.Tensor | None = None, key=None):
+        """One env step for every lane.  Randomness: the `generator`, or the
+        injected `(B, n_step_rand)` uniforms `u`, or with an in-kernel source
+        the injected `key` (two 32-bit words, see ops/rng_plain.py::key_words)."""
+        if self.in_kernel_rng:
+            if u is not None:
+                raise ValueError(f"in_kernel_rng={self.in_kernel_rng!r} takes key=, not u=")
+            rand = self.draw_key(generator) if key is None else key_words(key, self.device)
+        else:
+            if key is not None:
+                raise ValueError("key= needs an in-kernel random source; inject u= instead")
+            rand = self._uniforms(state.y.shape[0], self.n_step_rand, generator) if u is None else u
+        if self.tier == "full":
+            state, ts = self._step_full(state, raw_action, rand)
+        else:
+            state, ts = self._step_tail(state, raw_action, RandSource(rand))
+        if self.obs_features:
+            ts = ts._replace(obs=self._augment_obs(ts.obs),
+                             final_obs=self._augment_obs(ts.final_obs))
+        return state, ts
+
+    def _step_full(self, state: EnvState, raw_action: torch.Tensor, u: torch.Tensor):
+        """The whole step through the full-step kernel; `u` is the uniforms
+        block or the key words."""
         cfg = self.config
         batch = state.y.shape[0]
-        if u is None:
-            u = self._uniforms(batch, self.n_step_rand, generator)
         ins = self.kernel_operands(state, self._translate_action(raw_action), u)
         yo, po, go, ro, cso, obs, fobs, rew, tio, flags = self.full.apply(*ins)
         if cfg.task == TASK_GOAL:
@@ -143,7 +266,8 @@ class EnvEngine:
 
     def kernel_operands(self, state: EnvState, action_b: torch.Tensor, u: torch.Tensor):
         """The full-step kernel's (B, rows) operands, in `FullStep.apply`
-        order, for translated actions `action_b`.  The integer state is packed
+        order, for translated actions `action_b`; `u` is the uniforms block or
+        the key words.  The integer state is packed
         as free counts, ship tile, goal tile, steps, case, flip for Goal, and
         as steps and two zero rows otherwise (pallas_full.py:470, :640)."""
         batch, dev = state.y.shape[0], state.y.device
@@ -198,6 +322,35 @@ class EnvEngine:
         rs = RandSource(torch.full((1, _PROBE), 0.5, dtype=self.dtype))
         self._reset_lanes(rs)
         return rs.i
+
+    def _count_step(self) -> int:
+        """Uniforms one lane's step consumes in a tail tier, counted the same
+        way: the tail runs on one CPU lane of a wide probe."""
+        probe = torch.full((1, _PROBE), 0.5, dtype=self.dtype)
+        state = self._reset_lanes(RandSource(probe))
+        if self.config.continuous:
+            action = torch.zeros((1, 2), dtype=self.dtype)
+        else:
+            action = torch.zeros((1,), dtype=torch.int32)
+        rs = RandSource(probe)
+        self._step_tail(state, action, rs)
+        return rs.i
+
+    def _augment_obs(self, obs: torch.Tensor) -> torch.Tensor:
+        """Append the opt-in `obs_features` columns to a raw (..., D)
+        observation; the identity by default."""
+        if not self.obs_features:
+            return obs
+        d = self.config.obs_dim
+        if self.obs_features == "goal":
+            feats = goal_math.features_for_config(obs, self.config)
+        elif self.obs_features == "dnc":
+            feats = dnc_math.features_for_config(obs, self.config)
+        else:  # obs ends in [angle, ecc, a] (kepler.py:180-185)
+            feats = kepler_math.error_features(
+                self._alpha_gm, obs[..., 0:2], obs[..., 4:6], obs[..., d - 3], obs[..., d - 2],
+                obs[..., d - 1])
+        return torch.cat([obs, feats.to(obs.dtype)], dim=-1)
 
     def _translate_action(self, raw_action):
         """spaceship_env.py:189-214: continuous rescale or discrete table."""
@@ -284,6 +437,134 @@ class EnvEngine:
         return (None, y, self._fixed_planets(B, dev), torch.zeros((B, 2), dtype=dtype, device=dev),
                 torch.zeros((B, 3), dtype=dtype, device=dev))
 
+    # ------------------------------------------------------------ the tail --
+    def _physics(self, y0, action, planets_pos):
+        """physics="fixed": one control interval of every lane in plain
+        PyTorch; returns (y (B, 6), terminated (B,))."""
+        cfg = self.config
+        f32a = self.f32_actions and cfg.continuous
+
+        def rhs(_t, y):
+            return field.ship_vector_field(cfg.ship, cfg.planet_masses, planets_pos, action, y,
+                                           f32_action=f32a)
+
+        y0 = field.apply_steering_override(cfg.ship, y0, action, f32_action=f32a)
+        ev_fns = tuple((lambda y, f=f: f(planets_pos, y)) for f in self._event_comp_fns)
+        out = fixed_rk.fixed_solve_step(rhs, ev_fns, y0, cfg.step_size,
+                                        n_substeps=self.substeps, refine_iters=self.refine_iters)
+        return field.wrap_ship_angle(out.y), out.terminated
+
+    def _step_tail(self, state: EnvState, raw_action, rs: RandSource):
+        """The step of the tail tiers: what the tier's kernel (if any) leaves
+        out runs here in plain PyTorch.  The RandSource is consumed as in the
+        JAX `_step_lane`: the Goal resample, then the reset."""
+        cfg = self.config
+        action = self._translate_action(raw_action)
+        last_xy = state.y[:, 0:2]
+
+        if self.tier == "env":
+            # physics, observation and reward came out of the kernel; only the
+            # goal resample, which consumes uniforms, remains
+            y, terminated, final_obs, reward = self.env_step(
+                state.y, action, state.planets_pos, state.goal_pos, state.ref_orbit)
+            if cfg.task == TASK_GOAL:
+                _, goal_pos, tiling = self._goal_resample(state, y, rs)
+            else:
+                goal_pos, tiling = state.goal_pos, state.tiling
+        else:
+            if self.tier == "physics":
+                y, terminated = self.physics_step(state.y, action, state.planets_pos)
+            else:
+                y, terminated = self._physics(state.y, action, state.planets_pos)
+            reward, goal_pos, tiling = self._reward(state, y, last_xy, action, rs)
+            # the observation shows the goal that was reached; the new goal
+            # enters the next step's state (spaceship_env.py:76-77)
+            final_obs = self._observe(state._replace(y=y))
+
+        steps = state.steps + 1
+        truncated = (steps >= cfg.max_episode_steps) & ~terminated
+        done = terminated | truncated
+        cont = EnvState(y=y, planets_pos=state.planets_pos, goal_pos=goal_pos,
+                        ref_orbit=state.ref_orbit, tiling=tiling, steps=steps)
+        if self.auto_reset:
+            fresh = self._reset_lanes(rs)
+            new_state = _select_state(done, fresh, cont)
+            obs = torch.where(done[:, None], self._observe(fresh), final_obs)
+        else:
+            new_state = cont
+            obs = final_obs
+        return new_state, TimeStep(obs=obs, reward=reward, terminated=terminated,
+                                   truncated=truncated, done=done, final_obs=final_obs)
+
+    def _reward(self, state: EnvState, y, last_xy, action, rs: RandSource):
+        """(reward (B,), goal_pos, tiling) after the step."""
+        cfg = self.config
+        if cfg.task == TASK_GOAL:
+            return self._goal_reward(state, y, last_xy, rs)
+        if cfg.task == TASK_KEPLER:
+            r = self._kepler_reward(state, y, action)
+        else:
+            r = torch.full((y.shape[0],), cfg.dnc.reward_per_step, dtype=self.dtype,
+                           device=y.device)
+        return r, state.goal_pos, state.tiling
+
+    def _goal_resample(self, state: EnvState, y, rs: RandSource):
+        """Goal-reach resample (goal.py:154-157): a new goal is drawn for
+        every lane, consuming tiling randomness, and taken where the old one
+        was reached.  Returns (reached, goal_pos, tiling)."""
+        cfg = self.config
+        reached = norm2(state.goal_pos - y[:, 0:2]) < cfg.goal_radius
+        new_tiling, new_goal = dtiling.find_new_goal(cfg.tiling, state.tiling, rs, self.dtype)
+        tiling = dtiling.TilingState(*[_select(reached, a, b)
+                                       for a, b in zip(new_tiling, state.tiling)])
+        goal_pos = torch.where(reached[:, None], new_goal, state.goal_pos)
+        return reached, goal_pos, tiling
+
+    def _goal_reward(self, state: EnvState, y, last_xy, rs: RandSource):
+        """goal.py:147-158 (+ _goal_vel_reward2 :160-164,
+        _safety_reward_simple2 :204-227), with the goal resample on reach."""
+        cfg = self.config
+        p = cfg.goal
+        pos = y[:, 0:2]
+
+        cur_dist = norm2(state.goal_pos - pos)
+        last_dist = norm2(state.goal_pos - last_xy)
+        goal_vel_reward = (last_dist - cur_dist) * p.distance_fctr
+
+        def scalar_dist(a, b):
+            d = a - b
+            return torch.sqrt(d[..., 0] ** 2 + d[..., 1] ** 2)
+
+        dists = scalar_dist(pos[:, None, :], state.planets_pos)          # (B, P)
+        mindist, closest = dists.min(dim=1)
+        closest = closest.to(torch.int32)
+        radius = onehot_take(torch.tensor(cfg.planet_radii, dtype=self.dtype, device=y.device),
+                             closest)
+        oh = closest[:, None] == torch.arange(cfg.n_planets, dtype=torch.int32, device=y.device)
+        closest_pos = torch.where(oh[:, :, None], state.planets_pos,
+                                  torch.zeros((), dtype=self.dtype, device=y.device)).sum(1)
+        prev_dist = scalar_dist(last_xy, closest_pos)
+        in_danger = (mindist - radius) < p.danger_zone
+        approaching = prev_dist > mindist
+        safety = torch.where(in_danger & approaching, -p.distance_fctr * (prev_dist - mindist),
+                             torch.zeros_like(mindist))
+
+        reward = (p.survival_reward_scale + p.goal_vel_reward_scale * goal_vel_reward
+                  + p.safety_reward_scale * safety)
+        reached, goal_pos, tiling = self._goal_resample(state, y, rs)
+        reward = reward + torch.where(reached, p.goal_sparse_reward, 0.0)
+        return reward.to(self.dtype), goal_pos, tiling
+
+    def _kepler_reward(self, state: EnvState, y, action):
+        """_dense_reward5 (kepler.py:111-150)."""
+        k = self.config.kepler
+        ref = state.ref_orbit
+        return kepler_math.dense_reward(
+            self._alpha_gm, y[:, 0:2], y[:, 3:5], norm2(action), ref[:, 0], ref[:, 2], ref[:, 1],
+            k.numerator_C, k.rad_penalty_C, k.act_penalty_C,
+        ).to(self.dtype)
+
+    # ---------------------------------------------------------- observation --
     def _observe(self, state: EnvState) -> torch.Tensor:
         """spaceship_env.py:113-140 (raw, unnormalised) + Kepler's appended
         orbit parameters (kepler.py:172-187); the reset observation."""
@@ -308,3 +589,20 @@ class EnvEngine:
         dist = torch.sqrt((v * v).sum(-1))
         scale = (dist - obj_radius) * 2 / self.config.world_size
         return torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1) * scale[..., None]
+
+
+def _select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per lane, a where mask (B,) else b; trailing axes broadcast."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def _select_state(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
+    """Per lane, state a where mask else state b."""
+    tiling = None
+    if a.tiling is not None:
+        tiling = dtiling.TilingState(*[_select(mask, x, y) for x, y in zip(a.tiling, b.tiling)])
+    return EnvState(y=_select(mask, a.y, b.y),
+                    planets_pos=_select(mask, a.planets_pos, b.planets_pos),
+                    goal_pos=_select(mask, a.goal_pos, b.goal_pos),
+                    ref_orbit=_select(mask, a.ref_orbit, b.ref_orbit),
+                    tiling=tiling, steps=_select(mask, a.steps, b.steps))

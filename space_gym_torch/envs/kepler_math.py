@@ -1,0 +1,121 @@
+"""Kepler reference-orbit maths on tensors (gym_space/envs/kepler.py:43-150).
+
+The port's own copy of space_gym_tpu/envs/kepler_math.py, in the reference's
+operation order; every function broadcasts over leading lane axes.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def semi_minor(a, ecc):
+    """Semi-minor axis (kepler.py:43-45)."""
+    return torch.sqrt(a * a * (1 - ecc * ecc))
+
+
+def focal_dist(a, b):
+    """Focal-point distance from the ellipse centre (kepler.py:47-49)."""
+    return torch.sqrt(a * a - b * b)
+
+
+def rotate(pos_xy, alpha):
+    """Rotation by alpha, the reference's 2x2 matrix product (kepler.py:51-58)."""
+    c, s = torch.cos(alpha), torch.sin(alpha)
+    x, y = pos_xy[..., 0], pos_xy[..., 1]
+    return torch.stack([c * x + s * y, -s * x + c * y], dim=-1)
+
+
+def orbit_vel(alpha_gm, r, ref_a):
+    """Vis-viva speed on the reference orbit (kepler.py:60-62)."""
+    return torch.sqrt(alpha_gm * (2 / r - 1 / ref_a))
+
+
+def _norm(v):
+    return torch.linalg.norm(v, dim=-1)
+
+
+def _shifted_wz(pos_xy, ref_angle, a, ecc):
+    b = semi_minor(a, ecc)
+    pos_wz = rotate(pos_xy, ref_angle)
+    c = focal_dist(a, b)
+    return torch.stack([pos_wz[..., 0] - c, pos_wz[..., 1]], dim=-1), b, c
+
+
+def orbit_target_vel(alpha_gm, pos_xy, ref_angle, ref_a, ecc, curl=1.0):
+    """Tangential target velocity on the reference ellipse (kepler.py:64-88)."""
+    a = ref_a
+    pos_wz, b, c = _shifted_wz(pos_xy, ref_angle, a, ecc)
+    theta = torch.atan2(pos_wz[..., 1], pos_wz[..., 0])
+    target_rad = b / torch.sqrt(1 - (ecc * torch.cos(theta)) ** 2)
+    pos_wz = pos_wz * target_rad[..., None] / _norm(pos_wz)[..., None]
+    vt = torch.stack([-curl * a / b * pos_wz[..., 1], curl * b / a * pos_wz[..., 0]], dim=-1)
+    r = _norm(pos_wz + torch.stack([c, torch.zeros_like(c)], dim=-1))
+    vt = vt * orbit_vel(alpha_gm, r, a)[..., None] / _norm(vt)[..., None]
+    return rotate(vt, -ref_angle)
+
+
+def orbit_cur_rad(pos_xy, ref_angle, ref_a, ecc):
+    """Current radius from the occupied focal point (kepler.py:90-96)."""
+    return _norm(_shifted_wz(pos_xy, ref_angle, ref_a, ecc)[0])
+
+
+def orbit_target_rad(pos_xy, ref_angle, ref_a, ecc):
+    """Reference-orbit radius at the current angle (kepler.py:98-109)."""
+    pos_wz, b, _ = _shifted_wz(pos_xy, ref_angle, ref_a, ecc)
+    theta = torch.atan2(pos_wz[..., 1], pos_wz[..., 0])
+    return b / torch.sqrt(1 - (ecc * torch.cos(theta)) ** 2)
+
+
+def dense_reward(alpha_gm, pos_xy, vel_xy, act_penalty, ref_angle, ref_a, ecc,
+                 numerator_C, rad_penalty_C, act_penalty_C):
+    """_dense_reward5 (kepler.py:111-150): approaches 1 as the radius, velocity
+    and action-energy deviations from the reference orbit vanish."""
+    cur_rad = orbit_cur_rad(pos_xy, ref_angle, ref_a, ecc)
+    target_vel = orbit_target_vel(alpha_gm, pos_xy, ref_angle, ref_a, ecc)
+    target_rad = orbit_target_rad(pos_xy, ref_angle, ref_a, ecc)
+    rad_penalty = torch.abs(cur_rad - target_rad)
+    vel_x_penalty = torch.abs(target_vel[..., 0] - vel_xy[..., 0])
+    vel_y_penalty = torch.abs(target_vel[..., 1] - vel_xy[..., 1])
+    C = numerator_C
+    return C / (rad_penalty_C * rad_penalty + vel_x_penalty + vel_y_penalty
+                + act_penalty_C * act_penalty + C)
+
+
+# Multi-scale tanh gains of `error_features`: one feature stays in its linear
+# range at every error magnitude from O(1) down to ~1e-5.
+FEATURE_GAINS = (1.0, 8.0, 64.0, 512.0)
+N_ERROR_FEATURES = 3 * len(FEATURE_GAINS)  # (rad_err, vel_err_x, vel_err_y)
+
+
+def error_features(alpha_gm, pos_xy, vel_xy, ref_angle, ecc, a):
+    """Orbit-deviation features, analytic functions of the raw observation:
+    the radial error and both components of target_vel - vel (the penalty
+    terms of _dense_reward5), each through tanh at FEATURE_GAINS.
+    Returns (..., N_ERROR_FEATURES)."""
+    ca, sa = torch.cos(ref_angle), torch.sin(ref_angle)
+    x, y = pos_xy[..., 0], pos_xy[..., 1]
+    b = torch.sqrt(a * a * (1.0 - ecc * ecc))
+    c = torch.sqrt(torch.clamp(a * a - b * b, min=0.0))
+    w = ca * x + sa * y - c
+    z = -sa * x + ca * y
+    cur_rad = torch.sqrt(w * w + z * z)
+    theta = torch.atan2(z, w)
+    ecos = ecc * torch.cos(theta)
+    target_rad = b / torch.sqrt(1.0 - ecos * ecos)
+    rad_err = cur_rad - target_rad
+
+    scale = target_rad / torch.clamp(cur_rad, min=1e-8)
+    pw, pz = w * scale, z * scale
+    vtw = -(a / b) * pz
+    vtz = (b / a) * pw
+    r = torch.sqrt((pw + c) ** 2 + pz * pz)
+    speed = torch.sqrt(torch.clamp(alpha_gm * (2.0 / r - 1.0 / a), min=0.0))
+    vn = torch.clamp(torch.sqrt(vtw * vtw + vtz * vtz), min=1e-8)
+    vtw, vtz = vtw * speed / vn, vtz * speed / vn
+    tvx = ca * vtw - sa * vtz
+    tvy = sa * vtw + ca * vtz
+    ev_x = tvx - vel_xy[..., 0]
+    ev_y = tvy - vel_xy[..., 1]
+
+    errs = torch.stack([rad_err, ev_x, ev_y], dim=-1)
+    return torch.cat([torch.tanh(g * errs) for g in FEATURE_GAINS], dim=-1)

@@ -1,7 +1,31 @@
-"""Small batched lookups used by the reset path."""
+"""Small batched maths: lookups of the reset path and the vector primitives
+of the fixed-substep physics (space_gym_tpu/ops/maths.py, lane axis first)."""
 from __future__ import annotations
 
 import torch
+
+from .constants import G
+
+
+def angle_to_unit_vector(angle: torch.Tensor) -> torch.Tensor:
+    """[cos a, sin a] stacked on a trailing axis (helpers.py:4-5)."""
+    return torch.stack([torch.cos(angle), torch.sin(angle)], dim=-1)
+
+
+def norm2(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the trailing axis."""
+    return torch.linalg.norm(v, dim=-1)
+
+
+def gravity_force(from_pos, toward_pos, from_mass: float, toward_mass: float) -> torch.Tensor:
+    """Newtonian gravity force vector from `from_pos` toward `toward_pos`
+    (helpers.py:22-35), in the reference's order: the direction is normalised
+    first, then scaled by G*m1*m2/d^2."""
+    pos_diff = toward_pos - from_pos
+    center_distance = norm2(pos_diff)[..., None]
+    force_direction = pos_diff / center_distance
+    scalar_force = G * from_mass * toward_mass / center_distance.squeeze(-1) ** 2
+    return force_direction * scalar_force[..., None]
 
 
 def onehot_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

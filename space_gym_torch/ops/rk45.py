@@ -1,10 +1,15 @@
 """Runge-Kutta tableaux of the fixed-substep physics.
 
 Dormand-Prince 5(4) (Dormand & Prince 1980; scipy rk.RK45.{A,B,P}) and
-Bogacki-Shampine 3(2) (scipy rk.RK23.{A,B,P}).  Only the coefficients: the
-integrator is the physics body in ops/physics.py and csrc/physics.cuh.
+Bogacki-Shampine 3(2) (scipy rk.RK23.{A,B,P}), and the Dormand-Prince step
+and dense output of space_gym_tpu/ops/rk45.py on lane-first `(B, n)` states,
+used by the fixed-substep tier (ops/fixed_rk.py).  The kernels' integrator is
+the physics body in ops/physics.py and csrc/physics.cuh.
 """
 
+import torch
+
+DP_C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0)
 DP_A = (
     (),
     (1 / 5,),
@@ -45,3 +50,41 @@ TABLEAUX = {
     "dp5": (DP_A, DP_B, DP_P, N_STAGES),
     "bs3": (BS3_A, BS3_B, BS3_P, BS3_N_STAGES),
 }
+
+
+def _wsum(vectors, coeffs):
+    """Weighted sum of vectors[j] * coeffs[j], accumulated in ascending j."""
+    acc = vectors[0] * coeffs[0]
+    for v, c in zip(vectors[1:], coeffs[1:]):
+        acc = acc + v * c
+    return acc
+
+
+def rk_step(rhs, t, y, f, h):
+    """One Dormand-Prince step of y (B, n); returns (y_new, f_new, K list of
+    the 7 stage derivatives)."""
+    K = [f]
+    for s in range(1, N_STAGES):
+        dy = _wsum(K, DP_A[s]) * h
+        K.append(rhs(t + DP_C[s] * h, y + dy))
+    y_new = y + h * _wsum(K, DP_B)
+    f_new = rhs(t + h, y_new)
+    K.append(f_new)
+    return y_new, f_new, K
+
+
+def dense_q(K):
+    """Dense-output coefficients Q = K^T P, shape (B, n, 4)."""
+    cols = [_wsum(K, tuple(DP_P[j][m] for j in range(7))) for m in range(4)]
+    return torch.stack(cols, dim=-1)
+
+
+def dense_eval(t_old, h, y_old, Q, t):
+    """The quartic interpolant at per-lane times t (B,) -> (B, n)."""
+    x = ((t - t_old) / h)[:, None]
+    p1 = x
+    p2 = p1 * x
+    p3 = p2 * x
+    p4 = p3 * x
+    y = h * (Q[..., 0] * p1 + Q[..., 1] * p2 + Q[..., 2] * p3 + Q[..., 3] * p4)
+    return y + y_old

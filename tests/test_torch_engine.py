@@ -157,8 +157,9 @@ def test_entry_point_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             EnvEngine(cfg)
-    with pytest.raises(TypeError):  # only the full-step kernel's physics is ported
-        EnvEngine(cfg, physics="fixed", device="cpu")
+    with pytest.raises(NotImplementedError):  # the adaptive integrator is not ported yet
+        EnvEngine(cfg, physics="adaptive", device="cpu")
+    assert EnvEngine(cfg, physics="fixed", device="cpu").device.type == "cpu"
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
