@@ -25,8 +25,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      set to 0 before: fuse="env" (K2), fuse="physics" (K1) and
      physics="fixed" (no kernel), each held against fuse="full" from the same
      states and uniforms on live lanes that did not reach their goal;
-  6. a `kernels` JSON line (K1, K2, K3, K3-tf, K3-hw), the card line again,
-     and the final {"ok": true, "device": ...} line.
+  6. the learner kernels K4 (csrc/sac_update.cu) and K5
+     (csrc/sac_update_fold.cu) against their plain version
+     `update_k_reference` on the card at K=4, B=8192, H=256, from gathered
+     minibatches and from rows of a replay ring, in float32 and with
+     bfloat16-rounded products; each call twice, equal bits; K updates in one
+     launch against K launches of one update, equal bits; K5 against K4,
+     equal bits; one check at H=512;
+  7. the training path at full width: SACTrainer on GoalContinuous2P-v0,
+     lanes 2048, rollout 8, K=32 updates of B=8192 per train_iter, H=256,
+     ring of 2048 rows, `fused_fold` False (K4) then True (K5): launch counts
+     set to 0 before and read after, the warm-up gate, finite losses, ms per
+     train_iter split into rollout and K-update, device time per launch;
+  8. a `kernels` JSON line (K1, K2, K3, K3-tf, K3-hw, K4, K5), the card line
+     again, and the final {"ok": true, "device": ...} line.
 
 Everything is made from seeds; it needs no network and imports no JAX.
 """
@@ -49,6 +61,7 @@ OUT_DIR = os.path.join(HERE, "build", "reports")  # ptxas reports; gitignored
 # rate; the bound of a kernel is the larger of bytes/BW and ops/FLOPS.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 # Integer operations of one uniform from the in-kernel generators
 # (csrc/rng.cuh): threefry2x32 is 20 rounds of add, rotate, xor, 5 key
 # injections of 3 adds, the index add and 4 for the float; Philox4x32-10 is 10
@@ -427,6 +440,7 @@ def check_engine(dev, small=512, steps=8):
 
 def reset_launches():
     """Set every wrapper's launch count to 0."""
+    from space_gym_torch.models import fused_sac
     from space_gym_torch.ops.env_step import EnvStep
     from space_gym_torch.ops.full_step import FullStep
     from space_gym_torch.ops.physics_step import PhysicsStep
@@ -434,10 +448,12 @@ def reset_launches():
     FullStep.reset_launches()
     EnvStep.launches = 0
     PhysicsStep.launches = 0
+    fused_sac.reset_launches()
 
 
 def read_launches():
     """Launch counts by kernel since the last reset."""
+    from space_gym_torch.models import fused_sac
     from space_gym_torch.ops.env_step import EnvStep
     from space_gym_torch.ops.full_step import FullStep
     from space_gym_torch.ops.physics_step import PhysicsStep
@@ -445,7 +461,7 @@ def read_launches():
     by = FullStep.launches_by_rng
     return {"full_step": by[False], "full_step_threefry": by["threefry"],
             "full_step_philox": by["philox"], "env_step": EnvStep.launches,
-            "fused_step": PhysicsStep.launches}
+            "fused_step": PhysicsStep.launches, **fused_sac.LAUNCHES}
 
 
 K3_NAMES = {False: "full_step", "threefry": "full_step_threefry", "philox": "full_step_philox"}
@@ -722,6 +738,335 @@ def profile_main_path(dev, B, tab, sub, ref, rng=False, n_steps=8, top=10):
               f"{count / n_steps:g}/step  {key[:100]}", flush=True)
 
 
+# ------------------------------------------------ the learner kernels K4, K5 --
+SAC_LANES, SAC_ROLLOUT, SAC_K, SAC_B, SAC_H, SAC_ROWS = 2048, 8, 32, 8192, 256, 2048
+SAC_HYPER = dict(gamma=0.99, tau=0.005, lr=3e-4, target_entropy=-2.0)
+SAC_STATE = ("w", "vec", "mw", "mvec", "vw", "vvec")
+# Kernel vs plain version, float32 (the tolerances of tests/test_torch_fused_sac.py:
+# float32 sums in another order, through Adam's division by sqrt(v)):
+# (rtol, atol) by kind of tensor.
+TOL_SAC = {"w": (2e-4, 2e-5), "vec": (2e-4, 2e-5), "mw": (2e-3, 2e-5), "mvec": (2e-3, 2e-5),
+           "vw": (2e-3, 2e-5), "vvec": (2e-3, 2e-5), "closs": (1e-4, 1e-5),
+           "aloss": (1e-3, 1e-5)}
+# With bfloat16-rounded products the kernel rounds dq and the rank-one
+# products where its plain version does not, and bf16 can flip the sign of a
+# near-zero gradient: an element may move by 2.5 lr per update, while 99% of
+# each tensor agree to 1e-4 and the losses to rtol 1e-3.
+BF16_STEP, BF16_MOST, BF16_LOSS_RTOL = 2.5 * SAC_HYPER["lr"], 1e-4, 1e-3
+
+
+def sac_inputs(dev, h, K, B, lanes, rows=64, seed=11, obs_dim=13):
+    """A learner state that has taken two updates (moments not zero), a replay
+    ring of `rows` x `lanes` from a seed, K * B // lanes row indices with a
+    repeated row, the same minibatches gathered, and the normals."""
+    from space_gym_torch.models import fused_sac, networks
+    from space_gym_torch.models.replay import Transition, pack_slab, replay_cols, unpack_flat
+
+    ns = fused_sac.build(h)
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    actor = networks.TanhGaussianActor(obs_dim, 2, (h, h), generator=g)
+    critic = networks.DoubleCritic(obs_dim, 2, (h, h), generator=g)
+    target = networks.DoubleCritic(obs_dim, 2, (h, h), generator=g)
+    packed = ns.pack_params(actor, critic, target, torch.tensor(np.log(0.1)))
+    packed = fused_sac.PackedParams(*[x.to(dev) for x in packed])
+
+    def f32(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    slab = Transition(obs=f32(rng.standard_normal((rows, lanes, obs_dim))),
+                      action=f32(rng.uniform(-1, 1, (rows, lanes, 2))),
+                      reward=f32(rng.standard_normal((rows, lanes))),
+                      next_obs=f32(rng.standard_normal((rows, lanes, obs_dim))),
+                      discount=f32(rng.random((rows, lanes)) > 0.1))
+    ring = pack_slab(slab, obs_dim, 2)
+    rpb = B // lanes
+    idx = rng.integers(0, rows, K * rpb)
+    idx[-1] = idx[0]
+    row_idx = torch.as_tensor(idx, device=dev)
+    w = replay_cols(obs_dim, 2)[-1]
+    batches = unpack_flat(ring[row_idx].transpose(1, 2).reshape(K, B, w), obs_dim, 2)
+    noises = f32(rng.standard_normal((K, B, 2, 2)))
+    warm = Transition(*[x[:2] for x in batches])
+    packed, adam, _, _ = ns.update_k_reference(packed, ns.adam_init(packed), warm, noises[:2],
+                                               obs_dim, **SAC_HYPER)
+    return ns, obs_dim, packed, adam, ring, row_idx, batches, noises
+
+
+def sac_state_equal(a, b):
+    """Equal bits of two (FusedState, closs, aloss) results."""
+    return (all(torch.equal(x, y) for x, y in zip(a[0][:6], b[0][:6]))
+            and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]))
+
+
+def check_sac_kernel(dev, fold, h=SAC_H, K=4, B=SAC_B, lanes=SAC_LANES, modes=(False, True)):
+    """K4 (fold False) or K5 (fold True) against `update_k_reference` on the
+    card, from gathered minibatches and from the ring; then the same call
+    twice.  Returns ({mm_bf16: max abs error over the state}, the results by
+    (mm_bf16, data mode)) for the K5-against-K4 comparison."""
+    name = "K5" if fold else "K4"
+    ns, od, packed, adam, ring, row_idx, batches, noises = sac_inputs(dev, h, K, B, lanes)
+    hyper = dict(SAC_HYPER, obs_dim=od)
+    errs, results = {}, {}
+    for bf in modes:
+        want_p, want_ad, want_cl, want_al = ns.update_k_reference(
+            packed, adam, batches, noises, mm_bf16=bf, **hyper)
+        want = ns.fused_init(want_p, want_ad)
+        for mode in ("batches", "ring"):
+            runs = []
+            for _ in range(2):
+                f0 = ns.fused_init(packed, adam)
+                if mode == "ring":
+                    out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
+                                                 mm_bf16=bf, fold=fold, **hyper)
+                else:
+                    out = ns.fused_update_k_wmat_batches(f0, batches, noises, block=2048,
+                                                         mm_bf16=bf, fold=fold, **hyper)
+                torch.cuda.synchronize()
+                runs.append((out[0], out[1].clone(), out[2].clone()))
+            if not sac_state_equal(runs[0], runs[1]):
+                fail(f"{name} {mode} mm_bf16={bf}: two calls on the same inputs differ")
+            results[(bf, mode)] = runs[0]
+            got, cl, al = runs[0]
+            if got.count != want.count:
+                fail(f"{name}: count {got.count} after {K} updates from {adam.count}")
+            worst = 0.0
+            for f in SAC_STATE:
+                g_, w_ = getattr(got, f), getattr(want, f)
+                d = (g_ - w_).abs()
+                if not torch.isfinite(g_).all():
+                    fail(f"{name} {mode} mm_bf16={bf}: {f} not finite")
+                if bf:
+                    ok = (d.max().item() <= BF16_STEP * K
+                          and (d <= BF16_MOST).float().mean().item() > 0.99)
+                else:
+                    rtol, atol = TOL_SAC[f]
+                    ok = bool((d <= atol + rtol * w_.abs()).all())
+                if not ok:
+                    fail(f"{name} {mode} mm_bf16={bf}: {f} differs from the plain version by "
+                         f"{d.max().item():.3g}")
+                if f in ("w", "vec"):
+                    worst = max(worst, d.max().item())
+            for lname, g_, w_ in (("closs", cl, want_cl), ("aloss", al, want_al)):
+                rtol, atol = (BF16_LOSS_RTOL, 1e-5) if bf else TOL_SAC[lname]
+                if not bool(((g_ - w_).abs() <= atol + rtol * w_.abs()).all()):
+                    fail(f"{name} {mode} mm_bf16={bf}: {lname} {g_.tolist()} vs {w_.tolist()}")
+            errs[bf] = max(errs.get(bf, 0.0), worst)
+            print(f"{name} H={h} K={K} B={B} {mode} mm_bf16={bf}: max|err| of w, vec against the "
+                  f"plain version {worst:.3g}; critic loss {cl[-1].item():.6g} (plain "
+                  f"{want_cl[-1].item():.6g}), actor loss {al[-1].item():.6g} (plain "
+                  f"{want_al[-1].item():.6g}); second call bit-identical", flush=True)
+        if not sac_state_equal(results[(bf, "batches")], results[(bf, "ring")]):
+            fail(f"{name} mm_bf16={bf}: the ring and the gathered minibatches give other bits")
+        # K updates in one launch against K launches of one update: between
+        # launches every write is visible to every block, so equal bits show
+        # that the grid barriers inside a launch order memory as well
+        rpb = B // lanes
+        f0 = ns.fused_init(packed, adam)
+        cls, als = [], []
+        for k in range(K):
+            f0, cl, al = ns.fused_update_k_wmat(
+                f0, ring, row_idx[k * rpb:(k + 1) * rpb], noises[k:k + 1], block=2048,
+                mm_bf16=bf, fold=fold, **hyper)
+            cls.append(cl.clone())
+            als.append(al.clone())
+        torch.cuda.synchronize()
+        if not sac_state_equal((f0, torch.cat(cls), torch.cat(als)), results[(bf, "ring")]):
+            fail(f"{name} mm_bf16={bf}: {K} updates in one launch and {K} launches of one "
+                 f"update give other bits")
+    print(f"{name} H={h}: {K} updates in one launch equal {K} launches of one update and the "
+          f"ring equals the gathered minibatches, bit for bit", flush=True)
+    return errs, results
+
+
+def check_k4(dev):
+    """K4 against the plain version at H=256 (both modes) and at H=512."""
+    errs, results = check_sac_kernel(dev, fold=False)
+    _, r512 = check_sac_kernel(dev, fold=False, h=512, K=2, B=4096, modes=(False,))
+    return errs, {**results, **{(512,) + k: v for k, v in r512.items()}}
+
+
+def check_k5(dev, k4_results):
+    """K5 against the plain version, then against K4: equal bits."""
+    errs, results = check_sac_kernel(dev, fold=True)
+    _, r512 = check_sac_kernel(dev, fold=True, h=512, K=2, B=4096, modes=(False,))
+    results.update({(512,) + k: v for k, v in r512.items()})
+    for key, res in results.items():
+        if not sac_state_equal(res, k4_results[key]):
+            fail(f"K5 and K4 differ in bits at {key}")
+    print(f"K5 against K4 on {len(results)} cases (H=256 and 512, both data modes, float32 and "
+          f"bf16-rounded): all outputs bit-identical", flush=True)
+    return errs
+
+
+def sac_work(h, K, B, W, od, bf):
+    """(bytes, {rate: operations}) one launch must move and do.  Multiply-adds
+    per sample and update: 16 (1, H) x (H, H) products (critic phase 9: actor,
+    two targets, two critics forward, two weight gradients, two input
+    gradients; actor phase 7); the obs rows of the eleven first-layer products
+    (forward and weight gradient), 11 od H; heads, q, their gradients and the
+    action gradient, 28 H; and in float32 whatever the mode the action rows of
+    the first layers and the dq x w3 products, 20 H.  Two operations per
+    multiply-add, and about 12 per trainable element and update for Adam and
+    polyak.  With mm_bf16 the products that the Pallas body sends through its
+    bf16 `dot` count at the tensor cores' bf16 rate, the rest at float32.
+    Bytes: each sampled row and the normals read once, the six state tensors
+    read and written once, the losses written."""
+    dotted = 16 * h * h + 11 * od * h + 28 * h
+    plain32 = 20 * h
+    trainable = 3 * h * h + 3 * (od + 2) * h + 9 * h + 16
+    f32_ops = 2 * plain32 * K * B + 12 * trainable * K
+    dot_ops = 2 * dotted * K * B
+    ops = {"bf16": dot_ops, "f32": f32_ops} if bf else {"bf16": 0, "f32": f32_ops + dot_ops}
+    wrows = 128 + h + 4 * (128 + h) + 8
+    byts = 4 * (K * B * W + K * 4 * B + 2 * 3 * (wrows + 16) * h + 2 * K + K * B // SAC_LANES)
+    return byts, ops
+
+
+def sac_bound(h, K, B, W, od, bf):
+    byts, ops = sac_work(h, K, B, W, od, bf)
+    return {"bytes": byts / HBM_BYTES_PER_S * 1e3,
+            "operations": (ops["bf16"] / BF16_OPS_PER_S + ops["f32"] / F32_OPS_PER_S) * 1e3}
+
+
+def train_path(dev, card, fold, n_iters=9, kernel_ms=None):
+    """The training path at full width: SACTrainer over the engine's default
+    tier, fused updates through K4 (fold False) or K5 (fold True).  Returns
+    its measurements."""
+    kernel_ms = kernel_ms or kernel_device_ms
+    from space_gym_torch import get_config
+    from space_gym_torch.engine import EnvEngine
+    from space_gym_torch.models import SACConfig, SACTrainer, fused_sac
+    from space_gym_torch.models.replay import unpack_flat
+
+    name = "sac_update_fold" if fold else "sac_update"
+    cfg = SACConfig(lanes=SAC_LANES, rollout_len=SAC_ROLLOUT, updates_per_iter=SAC_K,
+                    batch_size=SAC_B, replay_rows=SAC_ROWS, hidden=(SAC_H, SAC_H),
+                    fused_updates=True, fused_block=2048, fused_fold=fold)
+    tr = SACTrainer(EnvEngine(get_config(MAIN_ENV), device=dev), cfg)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    st = tr.init(0)
+    g = tr.generator(1)
+    if tuple(st.replay.data.shape) != (SAC_ROWS, 40, SAC_LANES):
+        fail(f"replay ring of shape {tuple(st.replay.data.shape)}")
+    dead = -(-cfg.warmup_rows // cfg.rollout_len) - 1   # iterations before the gate opens
+    live = n_iters - dead
+
+    spans = {"rollout": [], "update": []}
+
+    def timed(fn, bucket):
+        def wrapper(*a, **k):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            bucket.append((s, e))
+            return out
+        return wrapper
+
+    tr._rollout = timed(tr._rollout, spans["rollout"])
+    tr._update_fused = timed(tr._update_fused, spans["update"])
+
+    w0 = st.fused.w.clone()
+    la0 = st.log_alpha.clone()
+    reset_launches()
+    iter_spans, metrics, moved_at = [], [], None
+    for i in range(n_iters):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        st, m = tr.train_iter(st, g)
+        e.record()
+        iter_spans.append((s, e))
+        metrics.append(m)
+        changed = not torch.equal(st.fused.w, w0) or not torch.equal(st.log_alpha, la0)
+        if changed and moved_at is None:
+            moved_at = i
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if moved_at != dead:
+        fail(f"the learner state first changed in train_iter {moved_at}, the warm-up gate opens "
+             f"in {dead}")
+    want = {name: live, "full_step": n_iters * cfg.rollout_len}
+    if any(v != want.get(k, 0) for k, v in launches.items()):
+        fail(f"train path fold={fold}: launches {launches}, expected {want}")
+    actor_moved = max((st.actor_params[k] - tr._fs.unpack_actor(w0, st.fused.vec, tr.obs_dim)[k])
+                      .abs().max().item() for k in ("mlp.layers.0.kernel", "mlp.layers.1.kernel"))
+    last = {k: float(v) for k, v in metrics[-1].items()}
+    if not all(np.isfinite(v) for v in last.values()) or actor_moved <= 0:
+        fail(f"train path fold={fold}: metrics {last}, actor moved by {actor_moved}")
+    for m in metrics[:dead]:
+        if not np.isnan(float(m["critic_loss"])):
+            fail("a loss was reported before the warm-up gate opened")
+    if not all(torch.isfinite(t).all().item() for t in st.fused[:6]):
+        fail("fused state not finite")
+    if st.fused.count != live * SAC_K or (st.replay.cursor, st.replay.filled) != (
+            n_iters * SAC_ROLLOUT, min(n_iters * SAC_ROLLOUT, SAC_ROWS)):
+        fail(f"count {st.fused.count}, cursor {st.replay.cursor}, filled {st.replay.filled}")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    ms = lambda pairs: [s.elapsed_time(e) for s, e in pairs]
+    # steady state: the live iterations after the first (it builds and loads the library)
+    it_ms = ms(iter_spans)[dead + 1:]
+    roll_ms = ms(spans["rollout"])[dead + 1:]
+    upd_ms = ms(spans["update"])[1:]
+    it_mean, roll_mean, upd_mean = (sum(x) / len(x) for x in (it_ms, roll_ms, upd_ms))
+    sps = SAC_LANES * SAC_ROLLOUT / (it_mean / 1e3)
+
+    # device time per launch over three more live train_iters under the profiler
+    def one_iter():
+        nonlocal st
+        st, _ = tr.train_iter(st, g)
+
+    dev_ms = kernel_ms(one_iter, "sac_update_kernel", iters=3, warmup=0)
+
+    # the plain version and the library yardstick at the launch's shapes
+    ns = tr._fs
+    row_idx = torch.randint(0, st.replay.filled, (SAC_K * SAC_B // SAC_LANES,), generator=g,
+                            device=dev)
+    noises = torch.randn((SAC_K, SAC_B, 2, 2), generator=g, device=dev)
+    hyper = dict(SAC_HYPER, obs_dim=tr.obs_dim)
+    batches = unpack_flat(st.replay.data[row_idx].transpose(1, 2).reshape(SAC_K, SAC_B, -1),
+                          tr.obs_dim, 2)
+    packed, adam = ns.fused_unpack(st.fused)
+    plain_ms = cuda_ms(lambda: ns.update_k_reference(packed, adam, batches, noises, mm_bf16=True,
+                                                     **hyper), iters=1, warmup=1)
+    a = torch.randn((SAC_B, SAC_H), device=dev)
+    b = torch.randn((SAC_H, SAC_H), device=dev)
+    matmul_ms = cuda_ms(lambda: torch.matmul(a, b), iters=200, warmup=20)
+    # both modes back to back on a copy of the state, by CUDA events
+    call_ms = {}
+    for bf in (True, False):
+        f0 = fused_sac.FusedState(*[t.clone() for t in st.fused[:6]], st.fused.count)
+        call_ms[bf] = cuda_ms(lambda: ns.fused_update_k_wmat(
+            f0, st.replay.data, row_idx, noises, block=2048, fold=fold, mm_bf16=bf, **hyper),
+            iters=3, warmup=1)
+    W = st.replay.data.shape[1]
+    bnd = sac_bound(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, True)
+    bnd_f32 = sac_bound(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, False)
+    byts, ops = sac_work(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, False)
+    print(f"train path {MAIN_ENV} lanes={SAC_LANES} rollout={SAC_ROLLOUT} K={SAC_K} B={SAC_B} "
+          f"H={SAC_H} ring {tuple(st.replay.data.shape)} fused_fold={fold} on {card}: "
+          f"{n_iters} train_iters, {dead} before the warm-up gate, launches {launches}; "
+          f"steady train_iter {it_mean:.3f} ms = rollout {roll_mean:.3f} ms + K-update "
+          f"{upd_mean:.3f} ms + {it_mean - roll_mean - upd_mean:.3f} ms (replay insert, metrics); "
+          f"{sps:.6g} env-steps/s; {name} {dev_ms:.3f} ms/launch on the device (profiler), "
+          f"{call_ms[True]:.3f} ms per call back to back with bf16-rounded products, "
+          f"{call_ms[False]:.3f} ms in float32; plain version {plain_ms:.1f} ms; "
+          f"torch.matmul(({SAC_B}, {SAC_H}) x ({SAC_H}, {SAC_H})) {matmul_ms:.5f} ms x "
+          f"{16 * SAC_K} products = {matmul_ms * 16 * SAC_K:.3f} ms; peak device memory "
+          f"{peak_mb:.0f} MiB; last metrics {last}", flush=True)
+    print(f"  {name} bound: {ops['f32'] / 1e9:.1f} G operations and {byts / 1e6:.1f} MB "
+          f"per launch; bytes {bnd['bytes']:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s; operations "
+          f"{bnd_f32['operations']:.3f} ms all at {F32_OPS_PER_S / 1e12} TFLOP/s float32 (what "
+          f"the kernel's CUDA-core products could reach), {bnd['operations']:.3f} ms with the "
+          f"bf16-rounded products at {BF16_OPS_PER_S / 1e12} TFLOP/s (what the card could reach "
+          f"for the main path's mm_bf16=True)", flush=True)
+    return dict(launches=launches, ms=dev_ms, plain_ms=plain_ms, bound=bnd, bound_f32=bnd_f32,
+                library_ms=matmul_ms * 16 * SAC_K, it_ms=it_mean, roll_ms=roll_mean,
+                upd_ms=upd_mean, sps=sps, call_ms=call_ms, peak_mb=peak_mb)
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain, bnd, library=None):
     by = max(bnd, key=bnd.get)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -794,11 +1139,28 @@ def main():
     # ----------------------------------------- 5. the other tiers' paths --
     tiers = {tier: tier_path(dev, card, MAIN_B, tier) for tier in ("env", "physics", "fixed")}
 
-    # ------------------------------------------------------ 6. the lines --
+    # ------------------------------- 6. the learner kernels vs plain version --
+    k4_errs, k4_results = check_k4(dev)
+    k5_errs = check_k5(dev, k4_results)
+    del k4_results
+
+    # ---------------------------------------------- 7. the training path --
+    train = {fold: train_path(dev, card, fold) for fold in (False, True)}
+    print("train path by kernel: "
+          + ", ".join(f"fused_fold={f} {r['sps']:.6g} env-steps/s, train_iter {r['it_ms']:.3f} ms, "
+                      f"kernel {r['ms']:.3f} ms/launch" for f, r in train.items()), flush=True)
+
+    # ------------------------------------------------------ 8. the lines --
     # launches: K3, K3-tf and K3-hw from their main-path runs, K2 from the
     # fuse="env" path, K1 from the fuse="physics" path.  library_ms of the two
     # in-kernel variants is torch.rand of the (B, n_u) block: the one library
-    # call for the random part alone, not for the step.
+    # call for the random part alone, not for the step.  K4 and K5: launches,
+    # device time and plain version from the training path (mm_bf16=True, one
+    # launch per live train_iter); max_abs_err the largest error of w and vec
+    # against the plain version in phase 6, either mode; library_ms is
+    # torch.matmul of one (8192, 256) x (256, 256) product times the 512 such
+    # products of a launch: a yardstick for the products alone, no single
+    # PyTorch call computes the update.
     csrc = "space_gym_torch/csrc/"
     tf, hw = keyed["threefry"], keyed["philox"]
     kernels = {"kernels": [
@@ -820,6 +1182,16 @@ def main():
                      "space_gym_tpu/ops/pallas_full.py:518",
                      hw["launches"]["full_step_philox"], hw["k3_err"], hw["k3_ms"],
                      hw["k3_plain_ms"], hw["k3_bound"], hw["rand_ms"]),
+        kernel_entry("sac_update", csrc + "sac_update.cu",
+                     "space_gym_tpu/models/fused_sac.py:759",
+                     train[False]["launches"]["sac_update"], max(k4_errs.values()),
+                     train[False]["ms"], train[False]["plain_ms"], train[False]["bound"],
+                     train[False]["library_ms"]),
+        kernel_entry("sac_update_fold", csrc + "sac_update_fold.cu",
+                     "space_gym_tpu/models/fused_sac.py:866",
+                     train[True]["launches"]["sac_update_fold"], max(k5_errs.values()),
+                     train[True]["ms"], train[True]["plain_ms"], train[True]["bound"],
+                     train[True]["library_ms"]),
     ]}
     if any(k["launches"] <= 0 for k in kernels["kernels"]):
         fail(f"a kernel was launched no time on its path: {kernels}")

@@ -4,9 +4,19 @@ The JAX package `space_gym_tpu` stays the reference; this package imports
 nothing of it (nor of jax).  Public surface of this slice:
 
   * env_ids() / get_config      — the same typed-config registry
-  * space_gym_torch.engine      — batched env engine whose step is one
-                                  hand-written CUDA kernel (csrc/full_step.cu)
-  * space_gym_torch.ops         — the kernel wrappers and their plain twins
+  * space_gym_torch.engine      — batched env engine in four step tiers; the
+                                  default steps through one hand-written CUDA
+                                  kernel (csrc/full_step.cu), the others
+                                  through csrc/env_step.cu, csrc/fused_step.cu
+                                  or plain PyTorch
+  * space_gym_torch.ops         — the env kernels' wrappers and plain twins
+  * space_gym_torch.models      — the SAC learner: replay ring, networks,
+                                  SACTrainer, and the fused K-update whose
+                                  kernels are csrc/sac_update.cu and
+                                  csrc/sac_update_fold.cu (models/fused_sac.py,
+                                  plain version `update_k_reference`);
+                                  models/convert.py carries parameters and
+                                  learner state to and from the JAX package
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 `device="cpu"`, where every kernel wrapper takes its plain PyTorch twin.

@@ -1,0 +1,128 @@
+"""Carry a learner between space_gym_tpu and this package as numpy arrays.
+
+Nothing here imports jax, flax or optax: the JAX side hands over trees whose
+leaves are numpy arrays (`jax.tree.map(np.asarray, tree)`), and gets such
+trees back.
+
+  * flax parameter trees of `TanhGaussianActor` and `DoubleCritic`
+    (`{"params": {"MLP_0": {"Dense_0": {"kernel", "bias"}, ...}, ...}}`)
+    <-> the port's parameter dicts, named like the modules' state dicts
+    (`"mlp.layers.0.kernel"`, ...).  Kernels keep their (in, out) layout.
+  * an optax Adam state (`(ScaleByAdamState(count, mu, nu), EmptyState())`)
+    <-> `models.sac.AdamState`.
+  * `PackedParams`, `PackedAdam` and `FusedState` of the JAX package, or any
+    object or mapping with their fields <-> the port's tuples of the same
+    names.  `load_learner_npz` reads a fused-layout learner file (the fields of
+    FusedState and `log_alpha`, as `docs/goal2p_sac_best.npz` holds them).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .fused_sac import FusedState, PackedAdam, PackedParams
+from .sac import AdamState
+
+# (flax path, port name) of every layer, by network
+_ACTOR_LAYERS = (
+    (("MLP_0", "Dense_0"), "mlp.layers.0"), (("MLP_0", "Dense_1"), "mlp.layers.1"),
+    (("Dense_0",), "mean_head"), (("Dense_1",), "log_std_head"),
+)
+_CRITIC_LAYERS = tuple(
+    ((f"MLP_{i}", f"Dense_{j}"), f"q{i + 1}.layers.{j}") for i in range(2) for j in range(3))
+_LAYERS = {"actor": _ACTOR_LAYERS, "critic": _CRITIC_LAYERS}
+
+
+def _tensor(a, device):
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, dict) or hasattr(obj, "keys") else getattr(obj, name)
+
+
+def params_from_flax(tree, kind: str, device="cpu") -> dict:
+    """A flax tree of the `kind` ("actor" or "critic") network -> the port's
+    parameter dict."""
+    out = {}
+    node0 = tree["params"]
+    for path, name in _LAYERS[kind]:
+        node = node0
+        for p in path:
+            node = node[p]
+        out[name + ".kernel"] = _tensor(node["kernel"], device)
+        out[name + ".bias"] = _tensor(node["bias"], device)
+    return out
+
+
+def params_to_flax(params: dict, kind: str) -> dict:
+    """The port's parameter dict -> the flax tree, numpy leaves."""
+    tree: dict = {}
+    for path, name in _LAYERS[kind]:
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node["kernel"] = params[name + ".kernel"].detach().cpu().numpy()
+        node["bias"] = params[name + ".bias"].detach().cpu().numpy()
+    return {"params": tree}
+
+
+def adam_from_optax(opt_state, kind: str | None, device="cpu") -> AdamState:
+    """An optax.adam state with numpy leaves -> AdamState.  `kind` names the
+    network whose parameters it follows, None for a single array
+    (log_alpha)."""
+    st = opt_state[0]
+    conv = ((lambda t: params_from_flax(t, kind, device)) if kind
+            else (lambda t: _tensor(t, device)))
+    return AdamState(int(np.asarray(st.count)), conv(st.mu), conv(st.nu))
+
+
+def adam_to_optax(st: AdamState, kind: str | None) -> dict:
+    """AdamState -> the fields of optax's ScaleByAdamState, numpy leaves."""
+    conv = ((lambda t: params_to_flax(t, kind)) if kind
+            else (lambda t: t.detach().cpu().numpy()))
+    return {"count": np.asarray(st.count, np.int32), "mu": conv(st.mu), "nu": conv(st.nu)}
+
+
+def packed_from_numpy(p, device="cpu") -> PackedParams:
+    return PackedParams(*[_tensor(_get(p, f), device) for f in PackedParams._fields])
+
+
+def packed_to_numpy(p: PackedParams) -> PackedParams:
+    return PackedParams(*[x.detach().cpu().numpy() for x in p])
+
+
+def packed_adam_from_numpy(a, device="cpu") -> PackedAdam:
+    return PackedAdam(m=packed_from_numpy(_get(a, "m"), device),
+                      v=packed_from_numpy(_get(a, "v"), device),
+                      count=int(np.asarray(_get(a, "count"))))
+
+
+def packed_adam_to_numpy(a: PackedAdam) -> PackedAdam:
+    return PackedAdam(m=packed_to_numpy(a.m), v=packed_to_numpy(a.v),
+                      count=np.asarray(a.count, np.int32))
+
+
+_FUSED_ARRAYS = ("w", "vec", "mw", "mvec", "vw", "vvec")
+
+
+def fused_from_numpy(f, device="cpu") -> FusedState:
+    """Any object or mapping with FusedState's fields -> FusedState on `device`."""
+    arrays = {k: _tensor(_get(f, k), device).to(torch.float32).contiguous()
+              for k in _FUSED_ARRAYS}
+    return FusedState(count=int(np.asarray(_get(f, "count"))), **arrays)
+
+
+def fused_to_numpy(f: FusedState) -> FusedState:
+    arrays = {k: getattr(f, k).detach().cpu().numpy() for k in _FUSED_ARRAYS}
+    return FusedState(count=np.asarray(f.count, np.int32), **arrays)
+
+
+def load_learner_npz(path, device="cpu"):
+    """A fused-layout learner file -> (FusedState, log_alpha, meta), where
+    meta holds the file's other entries (obs_dim, env_id, ...)."""
+    with np.load(path, allow_pickle=False) as z:
+        fused = fused_from_numpy(z, device)
+        log_alpha = _tensor(z["log_alpha"], device)
+        meta = {k: z[k][()] for k in z.files if k not in _FUSED_ARRAYS + ("count", "log_alpha")}
+    return fused, log_alpha, meta

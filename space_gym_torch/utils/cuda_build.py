@@ -4,8 +4,15 @@ Each `csrc/<name>.cu` becomes `build/kernels/lib<name>.so` under the
 repository (or installed package) root, compiled for Hopper
 (`-gencode arch=compute_90a,code=sm_90a`) with a plain C interface; nothing
 includes PyTorch's headers, so one file builds in seconds.  A library is
-rebuilt when the hash of its sources (the .cu and every csrc/*.cuh) no longer
-matches the stamp written beside it after the last successful build.
+rebuilt when the hash of its sources (the .cu and every csrc/*.cuh) and flags
+no longer matches the stamp written beside it after the last successful build.
+
+The env kernels (fused_step, env_step, full_step, full_step_threefry,
+full_step_philox) build with `-fmad=false`: they are held to their plain
+versions operation for operation.  The learner kernels (sac_update,
+sac_update_fold: `FMA_SOURCES`) build with nvcc's default contraction into
+fused multiply-adds: they are chains of matrix products held to a tolerance,
+and the flag would cost up to half the multiply-add rate.
 
 `build_all()` starts one nvcc per stale source at once, waits for all of them
 and returns each build's seconds and ptxas report; `load(name)` builds on
@@ -25,13 +32,20 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
-# -fmad=false: no contraction of a*b+c into an FMA, so every operation rounds
-# as in the JAX and PyTorch twins; contracted, a*a - b*b of the Kepler reward
-# went negative for near-circular orbits and its square root NaN.
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
+# Every source but these builds with -fmad=false: no contraction of a*b+c into
+# an FMA, so every operation rounds as in the JAX and PyTorch twins;
+# contracted, a*a - b*b of the Kepler reward went negative for near-circular
+# orbits and its square root NaN.
+FMA_SOURCES = frozenset({"sac_update", "sac_update_fold"})
+
+
+def nvcc_flags(name: str) -> list[str]:
+    """The flags of csrc/<name>.cu: `-fmad=false` unless it is in FMA_SOURCES."""
+    return NVCC_FLAGS + ([] if name in FMA_SOURCES else ["-fmad=false"])
 
 _build_lock = threading.Lock()
 
@@ -43,12 +57,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def _digest(src: str) -> str:
+def _digest(name: str) -> str:
+    src = _paths(name)[0]
     h = hashlib.sha256()
     for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return h.hexdigest()
 
 
@@ -59,17 +74,17 @@ def _paths(name: str):
 
 
 def _fresh(name: str) -> bool:
-    src, lib, stamp = _paths(name)
+    _, lib, stamp = _paths(name)
     if not (os.path.exists(lib) and os.path.exists(stamp)):
         return False
     with open(stamp) as f:
-        return f.read().strip() == _digest(src)
+        return f.read().strip() == _digest(name)
 
 
 def _start(name: str):
     src, lib, _ = _paths(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", lib + ".tmp", src]
+    cmd = [_nvcc(), *nvcc_flags(name), "-o", lib + ".tmp", src]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -80,7 +95,7 @@ def _finish(name: str, proc) -> str:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out[-8000:]}")
     os.replace(lib + ".tmp", lib)
     with open(stamp, "w") as f:  # only after a successful build
-        f.write(_digest(src))
+        f.write(_digest(name))
     return out
 
 

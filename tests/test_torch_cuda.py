@@ -11,7 +11,10 @@ Tolerances (float32, kernel vs twin on the same inputs): states and
 observations atol 1e-5, rewards atol 1e-3 (the Goal reward multiplies
 position differences by goal_vel_reward_scale * distance_fctr = 500); the
 kernels are built without FMA contraction, so the two differ by the ulps of
-rsqrtf/sinf/cosf/logf.
+rsqrtf/sinf/cosf/logf.  The learner kernels K4 and K5 (models/fused_sac.py)
+are held to `update_k_reference` at the tolerances of
+tests/test_torch_fused_sac.py, to themselves bit for bit on a second call, and
+to each other bit for bit.
 """
 import numpy as np
 import pytest
@@ -19,6 +22,8 @@ import torch
 
 from space_gym_torch import get_config
 from space_gym_torch.engine import EnvEngine, state_from_numpy, state_to_numpy
+from space_gym_torch.models import SACConfig, SACTrainer, fused_sac, networks
+from space_gym_torch.models.replay import Transition, pack_slab, replay_cols, unpack_flat
 from space_gym_torch.ops.env_step import EnvStep
 from space_gym_torch.ops.full_step import FullStep
 from space_gym_torch.ops.physics_step import PhysicsStep
@@ -183,3 +188,174 @@ def test_cuda_tier_matches_its_cpu_engine(kw):
     assert torch.allclose(tg.final_obs.cpu(), tc.final_obs, rtol=0, atol=TOL_STATE)
     assert torch.allclose(tg.obs.cpu(), tc.obs, rtol=0, atol=TOL_STATE)
     assert torch.allclose(tg.reward.cpu(), tc.reward, rtol=0, atol=TOL_REWARD)
+
+
+# ------------------------------------------------ the learner kernels K4, K5 --
+SAC_HYPER = dict(gamma=0.99, tau=0.005, lr=3e-4, target_entropy=-2.0)
+
+
+def _sac_case(h, K, B, lanes, obs_dim=13, rows=8, seed=3):
+    """A learner state after one plain update, a ring, row indices with a
+    repeated row, the same minibatches gathered, normals; all on the card."""
+    ns = fused_sac.build(h)
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    nets = [networks.TanhGaussianActor(obs_dim, 2, (h, h), generator=g)] + [
+        networks.DoubleCritic(obs_dim, 2, (h, h), generator=g) for _ in range(2)]
+    packed = fused_sac.PackedParams(
+        *[x.cuda() for x in ns.pack_params(*nets, torch.tensor(-2.0))])
+
+    def f32(a):
+        return torch.as_tensor(a.astype(np.float32)).cuda()
+
+    ring = pack_slab(Transition(
+        obs=f32(rng.standard_normal((rows, lanes, obs_dim))),
+        action=f32(rng.uniform(-1, 1, (rows, lanes, 2))),
+        reward=f32(rng.standard_normal((rows, lanes))),
+        next_obs=f32(rng.standard_normal((rows, lanes, obs_dim))),
+        discount=f32(rng.random((rows, lanes)) > 0.1)), obs_dim, 2)
+    idx = rng.integers(0, rows, K * B // lanes)
+    idx[-1] = idx[0]
+    row_idx = torch.as_tensor(idx).cuda()
+    w = replay_cols(obs_dim, 2)[-1]
+    batches = unpack_flat(ring[row_idx].transpose(1, 2).reshape(K, B, w), obs_dim, 2)
+    noises = f32(rng.standard_normal((K, B, 2, 2)))
+    packed, adam, _, _ = ns.update_k_reference(
+        packed, ns.adam_init(packed), Transition(*[x[:1] for x in batches]), noises[:1],
+        obs_dim, **SAC_HYPER)
+    return ns, obs_dim, packed, adam, ring, row_idx, batches, noises
+
+
+def _same_bits(a, b):
+    return (all(torch.equal(x, y) for x, y in zip(a[0][:6], b[0][:6]))
+            and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,K,B,lanes", [(256, 2, 4096, 2048), (512, 1, 2048, 1024),
+                                         (128, 2, 1024, 512)])
+def test_cuda_sac_update_kernels_match_the_plain_version(h, K, B, lanes):
+    """K4 and K5, from the ring and from gathered minibatches, float32."""
+    _need_card()
+    ns, od, packed, adam, ring, row_idx, batches, noises = _sac_case(h, K, B, lanes)
+    hyper = dict(SAC_HYPER, obs_dim=od, mm_bf16=False)
+    want_p, want_ad, want_cl, want_al = ns.update_k_reference(packed, adam, batches, noises,
+                                                              **hyper)
+    outs = {}
+    for fold, lib in ((False, "sac_update"), (True, "sac_update_fold")):
+        for mode in ("ring", "batches"):
+            runs = []
+            for _ in range(2):
+                f0 = ns.fused_init(packed, adam)
+                before = fused_sac.LAUNCHES[lib]
+                if mode == "ring":
+                    out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, fold=fold, **hyper)
+                else:
+                    out = ns.fused_update_k_wmat_batches(f0, batches, noises, fold=fold, **hyper)
+                torch.cuda.synchronize()
+                assert fused_sac.LAUNCHES[lib] == before + 1
+                assert out[0].w is f0.w, "the state is updated in place"
+                runs.append((out[0], out[1].clone(), out[2].clone()))
+            assert _same_bits(*runs), "a second call gives the same bits"
+            outs[(fold, mode)] = runs[0]
+            got_p, got_ad = ns.fused_unpack(runs[0][0])
+            assert got_ad.count == want_ad.count == adam.count + K
+            assert torch.allclose(runs[0][1], want_cl, rtol=1e-4, atol=1e-5)
+            assert torch.allclose(runs[0][2], want_al, rtol=1e-3, atol=1e-5)
+            for f in fused_sac.PackedParams._fields:
+                assert torch.allclose(getattr(got_p, f), getattr(want_p, f), rtol=2e-4,
+                                      atol=2e-5), f
+                assert torch.allclose(getattr(got_ad.m, f), getattr(want_ad.m, f), rtol=2e-3,
+                                      atol=2e-5), f
+                assert torch.allclose(getattr(got_ad.v, f), getattr(want_ad.v, f), rtol=2e-3,
+                                      atol=2e-5), f
+    first = outs[(False, "ring")]
+    assert all(_same_bits(first, o) for o in outs.values()), "K5 = K4, ring = batches, bit for bit"
+    # K updates in one launch equal K launches of one update: the grid barriers
+    # inside a launch order memory as the end of a launch does
+    rpb = B // lanes
+    for fold in (False, True):
+        f0 = ns.fused_init(packed, adam)
+        cls, als = [], []
+        for k in range(K):
+            f0, cl, al = ns.fused_update_k_wmat(f0, ring, row_idx[k * rpb:(k + 1) * rpb],
+                                                noises[k:k + 1], fold=fold, **hyper)
+            cls.append(cl.clone())
+            als.append(al.clone())
+        assert _same_bits((f0, torch.cat(cls), torch.cat(als)), first)
+
+
+@pytest.mark.cuda
+def test_cuda_sac_update_bf16_mode_and_floor():
+    """mm_bf16=True (the trainer's mode on the card) against the plain
+    version's: an element may move by 2.5 lr per update where bf16 flips the
+    sign of a near-zero gradient, 99% agree to 1e-4; alpha_floor clamps."""
+    _need_card()
+    ns, od, packed, adam, ring, row_idx, batches, noises = _sac_case(256, 2, 4096, 2048)
+    hyper = dict(SAC_HYPER, obs_dim=od, mm_bf16=True, alpha_floor=0.5)
+    want_p, _, want_cl, _ = ns.update_k_reference(packed, adam, batches, noises, **hyper)
+    outs = []
+    for fold in (False, True):
+        f1, cl, _ = ns.fused_update_k_wmat(ns.fused_init(packed, adam), ring, row_idx, noises,
+                                           fold=fold, **hyper)
+        outs.append(f1)
+        got_p, _ = ns.fused_unpack(f1)
+        assert torch.allclose(cl, want_cl, rtol=1e-3)
+        assert float(got_p.log_alpha) == pytest.approx(np.log(0.5), abs=1e-6)
+        for f in ("a_w1", "a_w2", "c_w1", "c_w2"):
+            d = (getattr(got_p, f) - getattr(want_p, f)).abs()
+            assert d.max().item() <= 2 * 2.5 * SAC_HYPER["lr"], f
+            assert (d <= 1e-4).float().mean().item() > 0.99, f
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][:6], outs[1][:6]))
+
+
+@pytest.mark.cuda
+def test_cuda_sac_entry_points_reject_what_the_kernels_do_not_take():
+    _need_card()
+    ns, od, packed, adam, ring, row_idx, batches, noises = _sac_case(256, 2, 4096, 2048)
+    hyper = dict(SAC_HYPER, obs_dim=od)
+    f0 = ns.fused_init(packed, adam)
+    with pytest.raises(TypeError):      # the ring in float64
+        ns.fused_update_k_wmat(f0, ring.double(), row_idx, noises, **hyper)
+    with pytest.raises(ValueError):     # a batch that is no multiple of the kernel's tile
+        ns.fused_update_k_wmat_batches(f0, Transition(*[x[:, :100] for x in batches]),
+                                       noises[:, :100], **hyper)
+    with pytest.raises(TypeError):      # row indices on the CPU
+        ns.fused_update_k_wmat(f0, ring, row_idx.cpu(), noises, **hyper)
+    ns640 = fused_sac.build(640)
+    nets = [networks.TanhGaussianActor(od, 2, (640, 640))] + [
+        networks.DoubleCritic(od, 2, (640, 640)) for _ in range(2)]
+    p640 = fused_sac.PackedParams(*[x.cuda() for x in ns640.pack_params(*nets, torch.tensor(0.))])
+    with pytest.raises(ValueError):     # a width the kernels are not built for
+        ns640.fused_update_k_wmat(ns640.fused_init(p640, ns640.adam_init(p640)), ring, row_idx,
+                                  noises, **hyper)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", [False, True], ids=["k4", "k5"])
+def test_cuda_trainer_launches_its_kernel_every_live_iteration(fold):
+    _need_card()
+    tr = SACTrainer(EnvEngine(get_config("GoalContinuous2P-v0")),
+                    SACConfig(lanes=512, rollout_len=4, replay_rows=64, batch_size=1024,
+                              updates_per_iter=4, warmup_rows=8, fused_updates=True,
+                              fused_fold=fold))
+    assert tr.device.type == "cuda"
+    st = tr.init(0)
+    g = tr.generator(1)
+    lib = "sac_update_fold" if fold else "sac_update"
+    before = fused_sac.LAUNCHES[lib]
+    w0 = st.fused.w.clone()
+    st, m = tr.train_iter(st, g)
+    assert torch.equal(st.fused.w, w0) and fused_sac.LAUNCHES[lib] == before
+    for _ in range(3):
+        st, m = tr.train_iter(st, g)
+    assert fused_sac.LAUNCHES[lib] == before + 3 and st.fused.count == 12
+    assert not torch.equal(st.fused.w, w0)
+    assert all(np.isfinite(float(v)) for v in m.values())
+    # a batch that is no multiple of the lanes goes through the kernel's batches mode
+    tr2 = SACTrainer(EnvEngine(get_config("GoalContinuous2P-v0")),
+                     SACConfig(lanes=512, rollout_len=4, replay_rows=64, batch_size=768,
+                               updates_per_iter=2, warmup_rows=4, fused_updates=True,
+                               fused_fold=fold))
+    st2, m2 = tr2.train_iter(tr2.init(0), tr2.generator(2))
+    assert fused_sac.LAUNCHES[lib] == before + 4 and np.isfinite(float(m2["critic_loss"]))
