@@ -32,15 +32,26 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      bfloat16-rounded products; each call twice, equal bits; K updates in one
      launch against K launches of one update, equal bits; K5 against K4,
      equal bits; one check at H=512;
-  7. the training path at full width: SACTrainer on GoalContinuous2P-v0,
-     lanes 2048, rollout 8, K=32 updates of B=8192 per train_iter, H=256,
-     ring of 2048 rows, `fused_fold` False (K4) then True (K5): launch counts
-     set to 0 before and read after, the warm-up gate, finite losses, ms per
-     train_iter split into rollout and K-update, device time per launch;
-  8. a `kernels` JSON line (K1, K2, K3, K3-tf, K3-hw, K4, K5), the card line
-     again, and the final {"ok": true, "device": ...} line.
+     the TD3 learner kernel K6 (csrc/td3_update.cu) against its plain version
+     the same way, with policy_delay 2 and 3 from an odd update count, the two
+     step counts held to the plain version's;
+  7. the training paths at full width on GoalContinuous2P-v0, lanes 2048,
+     rollout 8, K=32 updates of B=8192 per train_iter, H=256, ring of 2048
+     rows: SACTrainer with `fused_fold` False (K4) then True (K5), then
+     TD3Trainer (K6); for each the launch counts set to 0 before and read
+     after, the warm-up gate, finite losses, ms per train_iter split into
+     rollout and K-update, device time per launch;
+  8. a `kernels` JSON line (K1, K2, K3, K3-tf, K3-hw, K4, K5, K6), the card
+     line again, and the final {"ok": true, "device": ...} line.
 
 Everything is made from seeds; it needs no network and imports no JAX.
+
+    python3 chip_smoke.py --sac-bits
+
+prints instead, for the checkout the script lies in, a SHA-256 of K4's and
+K5's outputs (w, vec, the moments, the losses) on the inputs of phase 6's
+cases at H=256 and their ms per launch at the training path's shapes: two
+checkouts that print the same digests on one card compute the same bits.
 """
 from __future__ import annotations
 
@@ -440,7 +451,7 @@ def check_engine(dev, small=512, steps=8):
 
 def reset_launches():
     """Set every wrapper's launch count to 0."""
-    from space_gym_torch.models import fused_sac
+    from space_gym_torch.models import fused_sac, fused_td3
     from space_gym_torch.ops.env_step import EnvStep
     from space_gym_torch.ops.full_step import FullStep
     from space_gym_torch.ops.physics_step import PhysicsStep
@@ -449,11 +460,12 @@ def reset_launches():
     EnvStep.launches = 0
     PhysicsStep.launches = 0
     fused_sac.reset_launches()
+    fused_td3.reset_launches()
 
 
 def read_launches():
     """Launch counts by kernel since the last reset."""
-    from space_gym_torch.models import fused_sac
+    from space_gym_torch.models import fused_sac, fused_td3
     from space_gym_torch.ops.env_step import EnvStep
     from space_gym_torch.ops.full_step import FullStep
     from space_gym_torch.ops.physics_step import PhysicsStep
@@ -461,7 +473,7 @@ def read_launches():
     by = FullStep.launches_by_rng
     return {"full_step": by[False], "full_step_threefry": by["threefry"],
             "full_step_philox": by["philox"], "env_step": EnvStep.launches,
-            "fused_step": PhysicsStep.launches, **fused_sac.LAUNCHES}
+            "fused_step": PhysicsStep.launches, **fused_sac.LAUNCHES, **fused_td3.LAUNCHES}
 
 
 K3_NAMES = {False: "full_step", "threefry": "full_step_threefry", "philox": "full_step_philox"}
@@ -738,13 +750,14 @@ def profile_main_path(dev, B, tab, sub, ref, rng=False, n_steps=8, top=10):
               f"{count / n_steps:g}/step  {key[:100]}", flush=True)
 
 
-# ------------------------------------------------ the learner kernels K4, K5 --
+# ------------------------------------------- the learner kernels K4, K5, K6 --
 SAC_LANES, SAC_ROLLOUT, SAC_K, SAC_B, SAC_H, SAC_ROWS = 2048, 8, 32, 8192, 256, 2048
 SAC_HYPER = dict(gamma=0.99, tau=0.005, lr=3e-4, target_entropy=-2.0)
+TD3_HYPER = dict(gamma=0.99, tau=0.005, lr=3e-4, smooth_std=0.2, smooth_clip=0.5)
 SAC_STATE = ("w", "vec", "mw", "mvec", "vw", "vvec")
-# Kernel vs plain version, float32 (the tolerances of tests/test_torch_fused_sac.py:
-# float32 sums in another order, through Adam's division by sqrt(v)):
-# (rtol, atol) by kind of tensor.
+# Kernel vs plain version, float32 (the tolerances of tests/test_torch_fused_sac.py
+# and tests/test_torch_fused_td3.py: float32 sums in another order, through
+# Adam's division by sqrt(v)): (rtol, atol) by kind of tensor.
 TOL_SAC = {"w": (2e-4, 2e-5), "vec": (2e-4, 2e-5), "mw": (2e-3, 2e-5), "mvec": (2e-3, 2e-5),
            "vw": (2e-3, 2e-5), "vvec": (2e-3, 2e-5), "closs": (1e-4, 1e-5),
            "aloss": (1e-3, 1e-5)}
@@ -755,21 +768,10 @@ TOL_SAC = {"w": (2e-4, 2e-5), "vec": (2e-4, 2e-5), "mw": (2e-3, 2e-5), "mvec": (
 BF16_STEP, BF16_MOST, BF16_LOSS_RTOL = 2.5 * SAC_HYPER["lr"], 1e-4, 1e-3
 
 
-def sac_inputs(dev, h, K, B, lanes, rows=64, seed=11, obs_dim=13):
-    """A learner state that has taken two updates (moments not zero), a replay
-    ring of `rows` x `lanes` from a seed, K * B // lanes row indices with a
-    repeated row, the same minibatches gathered, and the normals."""
-    from space_gym_torch.models import fused_sac, networks
+def learner_data(dev, rng, K, B, lanes, rows, obs_dim):
+    """A replay ring of `rows` x `lanes` from `rng`, K * B // lanes row indices
+    with a repeated row, and the same minibatches gathered."""
     from space_gym_torch.models.replay import Transition, pack_slab, replay_cols, unpack_flat
-
-    ns = fused_sac.build(h)
-    rng = np.random.default_rng(seed)
-    g = torch.Generator().manual_seed(seed)
-    actor = networks.TanhGaussianActor(obs_dim, 2, (h, h), generator=g)
-    critic = networks.DoubleCritic(obs_dim, 2, (h, h), generator=g)
-    target = networks.DoubleCritic(obs_dim, 2, (h, h), generator=g)
-    packed = ns.pack_params(actor, critic, target, torch.tensor(np.log(0.1)))
-    packed = fused_sac.PackedParams(*[x.to(dev) for x in packed])
 
     def f32(a):
         return torch.as_tensor(a.astype(np.float32), device=dev)
@@ -780,33 +782,78 @@ def sac_inputs(dev, h, K, B, lanes, rows=64, seed=11, obs_dim=13):
                       next_obs=f32(rng.standard_normal((rows, lanes, obs_dim))),
                       discount=f32(rng.random((rows, lanes)) > 0.1))
     ring = pack_slab(slab, obs_dim, 2)
-    rpb = B // lanes
-    idx = rng.integers(0, rows, K * rpb)
+    idx = rng.integers(0, rows, K * (B // lanes))
     idx[-1] = idx[0]
     row_idx = torch.as_tensor(idx, device=dev)
     w = replay_cols(obs_dim, 2)[-1]
     batches = unpack_flat(ring[row_idx].transpose(1, 2).reshape(K, B, w), obs_dim, 2)
-    noises = f32(rng.standard_normal((K, B, 2, 2)))
+    return ring, row_idx, batches
+
+
+def sac_inputs(dev, h, K, B, lanes, rows=64, seed=11, obs_dim=13):
+    """A SAC learner state that has taken two updates (moments not zero), a
+    replay ring from a seed, row indices, the same minibatches gathered, the
+    normals, and the hyperparameters."""
+    from space_gym_torch.models import fused_sac, networks
+    from space_gym_torch.models.replay import Transition
+
+    ns = fused_sac.build(h)
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    actor = networks.TanhGaussianActor(obs_dim, 2, (h, h), generator=g)
+    critic = networks.DoubleCritic(obs_dim, 2, (h, h), generator=g)
+    target = networks.DoubleCritic(obs_dim, 2, (h, h), generator=g)
+    packed = ns.pack_params(actor, critic, target, torch.tensor(np.log(0.1)))
+    packed = fused_sac.PackedParams(*[x.to(dev) for x in packed])
+    ring, row_idx, batches = learner_data(dev, rng, K, B, lanes, rows, obs_dim)
+    noises = torch.as_tensor(rng.standard_normal((K, B, 2, 2)).astype(np.float32), device=dev)
+    hyper = dict(SAC_HYPER, obs_dim=obs_dim)
     warm = Transition(*[x[:2] for x in batches])
     packed, adam, _, _ = ns.update_k_reference(packed, ns.adam_init(packed), warm, noises[:2],
-                                               obs_dim, **SAC_HYPER)
-    return ns, obs_dim, packed, adam, ring, row_idx, batches, noises
+                                               **hyper)
+    return ns, packed, adam, ring, row_idx, batches, noises, hyper
+
+
+def td3_inputs(dev, h, K, B, lanes, delay=2, warm=3, rows=64, seed=12, obs_dim=13):
+    """The same for TD3: the learner has taken `warm` updates, so the kernel
+    starts from that count; targets drawn apart from the online networks."""
+    from space_gym_torch.models import fused_td3, networks
+    from space_gym_torch.models.replay import Transition
+
+    ns = fused_td3.build(h)
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    actors = [networks.DeterministicActor(obs_dim, 2, (h, h), generator=g) for _ in range(2)]
+    critics = [networks.DoubleCritic(obs_dim, 2, (h, h), generator=g) for _ in range(2)]
+    packed = fused_td3.PackedParams(*[x.to(dev) for x in ns.pack_params(*actors, *critics)])
+    ring, row_idx, batches = learner_data(dev, rng, K, B, lanes, rows, obs_dim)
+    noises = torch.as_tensor(rng.standard_normal((K, B, 2)).astype(np.float32), device=dev)
+    hyper = dict(TD3_HYPER, obs_dim=obs_dim, policy_delay=delay)
+    reps = -(-warm // K)
+    first = Transition(*[x.repeat(reps, *[1] * (x.dim() - 1))[:warm] for x in batches])
+    packed, adam, _, _ = ns.update_k_reference(packed, ns.adam_init(packed), first,
+                                               noises.repeat(reps, 1, 1)[:warm], **hyper)
+    return ns, packed, adam, ring, row_idx, batches, noises, hyper
 
 
 def sac_state_equal(a, b):
-    """Equal bits of two (FusedState, closs, aloss) results."""
-    return (all(torch.equal(x, y) for x, y in zip(a[0][:6], b[0][:6]))
+    """Equal bits and equal counts of two (FusedState, closs, aloss) results."""
+    return (all(torch.equal(x, y) for x, y in zip(a[0][:6], b[0][:6])) and a[0][6:] == b[0][6:]
             and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]))
 
 
-def check_sac_kernel(dev, fold, h=SAC_H, K=4, B=SAC_B, lanes=SAC_LANES, modes=(False, True)):
-    """K4 (fold False) or K5 (fold True) against `update_k_reference` on the
-    card, from gathered minibatches and from the ring; then the same call
-    twice.  Returns ({mm_bf16: max abs error over the state}, the results by
-    (mm_bf16, data mode)) for the K5-against-K4 comparison."""
-    name = "K5" if fold else "K4"
-    ns, od, packed, adam, ring, row_idx, batches, noises = sac_inputs(dev, h, K, B, lanes)
-    hyper = dict(SAC_HYPER, obs_dim=od)
+def check_learner_kernel(dev, name, inputs, K, B, lanes, modes, **kw):
+    """A learner kernel against its namespace's `update_k_reference` on the
+    card, from gathered minibatches and from the ring; the same call twice;
+    K updates in one launch against K launches of one update.  `inputs` is
+    what sac_inputs or td3_inputs returned, `kw` the kernel's own options.
+    Returns ({mm_bf16: max abs error over w and vec}, the results by
+    (mm_bf16, data mode))."""
+    ns, packed, adam, ring, row_idx, batches, noises, hyper = inputs
+    h = packed.a_w2.shape[0]
+    tag = f"{name} H={h} K={K} B={B}" + (
+        f" policy_delay={hyper['policy_delay']} from count {adam.count}"
+        if "policy_delay" in hyper else "")
     errs, results = {}, {}
     for bf in modes:
         want_p, want_ad, want_cl, want_al = ns.update_k_reference(
@@ -818,24 +865,24 @@ def check_sac_kernel(dev, fold, h=SAC_H, K=4, B=SAC_B, lanes=SAC_LANES, modes=(F
                 f0 = ns.fused_init(packed, adam)
                 if mode == "ring":
                     out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
-                                                 mm_bf16=bf, fold=fold, **hyper)
+                                                 mm_bf16=bf, **kw, **hyper)
                 else:
                     out = ns.fused_update_k_wmat_batches(f0, batches, noises, block=2048,
-                                                         mm_bf16=bf, fold=fold, **hyper)
+                                                         mm_bf16=bf, **kw, **hyper)
                 torch.cuda.synchronize()
                 runs.append((out[0], out[1].clone(), out[2].clone()))
             if not sac_state_equal(runs[0], runs[1]):
-                fail(f"{name} {mode} mm_bf16={bf}: two calls on the same inputs differ")
+                fail(f"{tag} {mode} mm_bf16={bf}: two calls on the same inputs differ")
             results[(bf, mode)] = runs[0]
             got, cl, al = runs[0]
-            if got.count != want.count:
-                fail(f"{name}: count {got.count} after {K} updates from {adam.count}")
+            if got[6:] != want[6:]:
+                fail(f"{tag}: counts {got[6:]} after {K} updates, the plain version's {want[6:]}")
             worst = 0.0
             for f in SAC_STATE:
                 g_, w_ = getattr(got, f), getattr(want, f)
                 d = (g_ - w_).abs()
                 if not torch.isfinite(g_).all():
-                    fail(f"{name} {mode} mm_bf16={bf}: {f} not finite")
+                    fail(f"{tag} {mode} mm_bf16={bf}: {f} not finite")
                 if bf:
                     ok = (d.max().item() <= BF16_STEP * K
                           and (d <= BF16_MOST).float().mean().item() > 0.99)
@@ -843,21 +890,22 @@ def check_sac_kernel(dev, fold, h=SAC_H, K=4, B=SAC_B, lanes=SAC_LANES, modes=(F
                     rtol, atol = TOL_SAC[f]
                     ok = bool((d <= atol + rtol * w_.abs()).all())
                 if not ok:
-                    fail(f"{name} {mode} mm_bf16={bf}: {f} differs from the plain version by "
+                    fail(f"{tag} {mode} mm_bf16={bf}: {f} differs from the plain version by "
                          f"{d.max().item():.3g}")
                 if f in ("w", "vec"):
                     worst = max(worst, d.max().item())
             for lname, g_, w_ in (("closs", cl, want_cl), ("aloss", al, want_al)):
                 rtol, atol = (BF16_LOSS_RTOL, 1e-5) if bf else TOL_SAC[lname]
                 if not bool(((g_ - w_).abs() <= atol + rtol * w_.abs()).all()):
-                    fail(f"{name} {mode} mm_bf16={bf}: {lname} {g_.tolist()} vs {w_.tolist()}")
+                    fail(f"{tag} {mode} mm_bf16={bf}: {lname} {g_.tolist()} vs {w_.tolist()}")
             errs[bf] = max(errs.get(bf, 0.0), worst)
-            print(f"{name} H={h} K={K} B={B} {mode} mm_bf16={bf}: max|err| of w, vec against the "
+            print(f"{tag} {mode} mm_bf16={bf}: max|err| of w, vec against the "
                   f"plain version {worst:.3g}; critic loss {cl[-1].item():.6g} (plain "
                   f"{want_cl[-1].item():.6g}), actor loss {al[-1].item():.6g} (plain "
-                  f"{want_al[-1].item():.6g}); second call bit-identical", flush=True)
+                  f"{want_al[-1].item():.6g}); counts {got[6:]}; second call bit-identical",
+                  flush=True)
         if not sac_state_equal(results[(bf, "batches")], results[(bf, "ring")]):
-            fail(f"{name} mm_bf16={bf}: the ring and the gathered minibatches give other bits")
+            fail(f"{tag} mm_bf16={bf}: the ring and the gathered minibatches give other bits")
         # K updates in one launch against K launches of one update: between
         # launches every write is visible to every block, so equal bits show
         # that the grid barriers inside a launch order memory as well
@@ -867,16 +915,22 @@ def check_sac_kernel(dev, fold, h=SAC_H, K=4, B=SAC_B, lanes=SAC_LANES, modes=(F
         for k in range(K):
             f0, cl, al = ns.fused_update_k_wmat(
                 f0, ring, row_idx[k * rpb:(k + 1) * rpb], noises[k:k + 1], block=2048,
-                mm_bf16=bf, fold=fold, **hyper)
+                mm_bf16=bf, **kw, **hyper)
             cls.append(cl.clone())
             als.append(al.clone())
         torch.cuda.synchronize()
         if not sac_state_equal((f0, torch.cat(cls), torch.cat(als)), results[(bf, "ring")]):
-            fail(f"{name} mm_bf16={bf}: {K} updates in one launch and {K} launches of one "
-                 f"update give other bits")
-    print(f"{name} H={h}: {K} updates in one launch equal {K} launches of one update and the "
+            fail(f"{tag} mm_bf16={bf}: {K} updates in one launch and {K} launches of one "
+                 f"update give other bits or counts")
+    print(f"{tag}: {K} updates in one launch equal {K} launches of one update and the "
           f"ring equals the gathered minibatches, bit for bit", flush=True)
     return errs, results
+
+
+def check_sac_kernel(dev, fold, h=SAC_H, K=4, B=SAC_B, lanes=SAC_LANES, modes=(False, True)):
+    """K4 (fold False) or K5 (fold True) against the plain version."""
+    return check_learner_kernel(dev, "K5" if fold else "K4", sac_inputs(dev, h, K, B, lanes),
+                                K, B, lanes, modes, fold=fold)
 
 
 def check_k4(dev):
@@ -896,6 +950,21 @@ def check_k5(dev, k4_results):
             fail(f"K5 and K4 differ in bits at {key}")
     print(f"K5 against K4 on {len(results)} cases (H=256 and 512, both data modes, float32 and "
           f"bf16-rounded): all outputs bit-identical", flush=True)
+    return errs
+
+
+def check_k6(dev):
+    """K6 against the plain version at H=256 with policy_delay 2 and 3, each
+    from an odd update count and in both modes, and at H=512.  Returns
+    {mm_bf16: max abs error}."""
+    errs = {}
+    for h, K, B, delay, warm, modes in ((SAC_H, 4, SAC_B, 2, 3, (False, True)),
+                                        (SAC_H, 4, SAC_B, 3, 1, (False, True)),
+                                        (512, 3, 4096, 2, 1, (False,))):
+        inputs = td3_inputs(dev, h, K, B, SAC_LANES, delay=delay, warm=warm)
+        e, _ = check_learner_kernel(dev, "K6", inputs, K, B, SAC_LANES, modes)
+        for bf, v in e.items():
+            errs[bf] = max(errs.get(bf, 0.0), v)
     return errs
 
 
@@ -923,27 +992,74 @@ def sac_work(h, K, B, W, od, bf):
     return byts, ops
 
 
-def sac_bound(h, K, B, W, od, bf):
-    byts, ops = sac_work(h, K, B, W, od, bf)
+def td3_products(K, n_act):
+    """(1, H) x (H, H) products per sample of one K6 launch with `n_act`
+    delayed updates: 9 in the critic stage (target actor, two target critics,
+    two critics forward, two weight and two input gradients), 2 in the actor
+    stage (actor and critic 0 forward), 3 more on a delayed update (critic 0's
+    input gradient, the actor's weight and input gradients)."""
+    return 11 * K + 3 * n_act
+
+
+def td3_work(h, K, B, W, od, bf, n_act):
+    """(bytes, {rate: operations}) one K6 launch with `n_act` delayed updates
+    must move and do, counted from csrc/td3_update.cuh.  Multiply-adds per
+    sample: td3_products() H x H products; the obs rows of the first layers,
+    od H each: 7 in the critic stage (target actor, two target critics, two
+    critics forward, their two weight gradients), 2 in the actor stage, 1 more
+    when delayed; heads, q, w3 and head gradients, 8 H + 3 H and 6 H more when
+    delayed; and in float32 whatever the mode the action rows and bias sums of
+    the critics' first layers and dq x w3, 16 H + 2 H and 2 H more when
+    delayed.  Two operations per multiply-add; about 10 per element of the
+    critics for Adam on every update, and on a delayed one 10 per element of
+    the actor and 3 per element of both for the polyak steps.  Bytes: each
+    sampled row and the normals read once, the six state tensors read and
+    written once, the losses written."""
+    dotted = (td3_products(K, n_act) * h * h + (9 * K + n_act) * od * h
+              + (11 * K + 6 * n_act) * h)
+    plain32 = (18 * K + 2 * n_act) * h
+    critics = 2 * (h * h + (od + 2) * h + 3 * h + 1)
+    actor = h * h + od * h + 4 * h + 2
+    f32_ops = 2 * plain32 * B + 10 * critics * K + n_act * (10 * actor + 3 * (actor + critics))
+    dot_ops = 2 * dotted * B
+    ops = {"bf16": dot_ops, "f32": f32_ops} if bf else {"bf16": 0, "f32": f32_ops + dot_ops}
+    wrows = 6 * (128 + h) + 8
+    byts = 4 * (K * B * W + K * 2 * B + 2 * 3 * (wrows + 24) * h + 2 * K + K * B // SAC_LANES)
+    return byts, ops
+
+
+def work_bound(work):
+    byts, ops = work
     return {"bytes": byts / HBM_BYTES_PER_S * 1e3,
             "operations": (ops["bf16"] / BF16_OPS_PER_S + ops["f32"] / F32_OPS_PER_S) * 1e3}
 
 
-def train_path(dev, card, fold, n_iters=9, kernel_ms=None):
-    """The training path at full width: SACTrainer over the engine's default
-    tier, fused updates through K4 (fold False) or K5 (fold True).  Returns
-    its measurements."""
+def train_path(dev, card, algo, fold=False, n_iters=9, kernel_ms=None):
+    """The training path at full width: SACTrainer (algo "sac": fused updates
+    through K4, or K5 with `fold`) or TD3Trainer (algo "td3": K6) over the
+    engine's default tier.  Returns its measurements."""
     kernel_ms = kernel_ms or kernel_device_ms
     from space_gym_torch import get_config
     from space_gym_torch.engine import EnvEngine
-    from space_gym_torch.models import SACConfig, SACTrainer, fused_sac
+    from space_gym_torch.models import SACConfig, SACTrainer, TD3Config, TD3Trainer, fused_td3
     from space_gym_torch.models.replay import unpack_flat
 
-    name = "sac_update_fold" if fold else "sac_update"
-    cfg = SACConfig(lanes=SAC_LANES, rollout_len=SAC_ROLLOUT, updates_per_iter=SAC_K,
-                    batch_size=SAC_B, replay_rows=SAC_ROWS, hidden=(SAC_H, SAC_H),
-                    fused_updates=True, fused_block=2048, fused_fold=fold)
-    tr = SACTrainer(EnvEngine(get_config(MAIN_ENV), device=dev), cfg)
+    shape = dict(lanes=SAC_LANES, rollout_len=SAC_ROLLOUT, updates_per_iter=SAC_K,
+                 batch_size=SAC_B, replay_rows=SAC_ROWS, hidden=(SAC_H, SAC_H),
+                 fused_updates=True, fused_block=2048)
+    eng = EnvEngine(get_config(MAIN_ENV), device=dev)
+    if algo == "sac":
+        name, label = ("sac_update_fold" if fold else "sac_update"), f"SAC fused_fold={fold}"
+        cfg = SACConfig(fused_fold=fold, **shape)
+        tr = SACTrainer(eng, cfg)
+        ns, kw, noise_shape = tr._fs, dict(fold=fold), (SAC_K, SAC_B, 2, 2)
+        hyper = dict(SAC_HYPER, obs_dim=tr.obs_dim)
+    else:
+        name, label = "td3_update", "TD3"
+        cfg = TD3Config(**shape)
+        tr = TD3Trainer(eng, cfg)
+        ns, kw, noise_shape = tr._ft, {}, (SAC_K, SAC_B, 2)
+        hyper = dict(TD3_HYPER, obs_dim=tr.obs_dim, policy_delay=cfg.policy_delay)
     if torch.device(dev).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     st = tr.init(0)
@@ -968,8 +1084,7 @@ def train_path(dev, card, fold, n_iters=9, kernel_ms=None):
     tr._rollout = timed(tr._rollout, spans["rollout"])
     tr._update_fused = timed(tr._update_fused, spans["update"])
 
-    w0 = st.fused.w.clone()
-    la0 = st.log_alpha.clone()
+    w0, vec0 = st.fused.w.clone(), st.fused.vec.clone()
     reset_launches()
     iter_spans, metrics, moved_at = [], [], None
     for i in range(n_iters):
@@ -979,7 +1094,7 @@ def train_path(dev, card, fold, n_iters=9, kernel_ms=None):
         e.record()
         iter_spans.append((s, e))
         metrics.append(m)
-        changed = not torch.equal(st.fused.w, w0) or not torch.equal(st.log_alpha, la0)
+        changed = not torch.equal(st.fused.w, w0) or not torch.equal(st.fused.vec, vec0)
         if changed and moved_at is None:
             moved_at = i
     torch.cuda.synchronize()
@@ -989,20 +1104,22 @@ def train_path(dev, card, fold, n_iters=9, kernel_ms=None):
              f"in {dead}")
     want = {name: live, "full_step": n_iters * cfg.rollout_len}
     if any(v != want.get(k, 0) for k, v in launches.items()):
-        fail(f"train path fold={fold}: launches {launches}, expected {want}")
-    actor_moved = max((st.actor_params[k] - tr._fs.unpack_actor(w0, st.fused.vec, tr.obs_dim)[k])
+        fail(f"train path {label}: launches {launches}, expected {want}")
+    actor_moved = max((st.actor_params[k] - ns.unpack_actor(w0, st.fused.vec, tr.obs_dim)[k])
                       .abs().max().item() for k in ("mlp.layers.0.kernel", "mlp.layers.1.kernel"))
     last = {k: float(v) for k, v in metrics[-1].items()}
     if not all(np.isfinite(v) for v in last.values()) or actor_moved <= 0:
-        fail(f"train path fold={fold}: metrics {last}, actor moved by {actor_moved}")
+        fail(f"train path {label}: metrics {last}, actor moved by {actor_moved}")
     for m in metrics[:dead]:
         if not np.isnan(float(m["critic_loss"])):
             fail("a loss was reported before the warm-up gate opened")
     if not all(torch.isfinite(t).all().item() for t in st.fused[:6]):
         fail("fused state not finite")
-    if st.fused.count != live * SAC_K or (st.replay.cursor, st.replay.filled) != (
+    counts = (live * SAC_K,) if algo == "sac" else (
+        live * SAC_K, fused_td3.applied_steps(0, live * SAC_K, cfg.policy_delay))
+    if st.fused[6:] != counts or (st.replay.cursor, st.replay.filled) != (
             n_iters * SAC_ROLLOUT, min(n_iters * SAC_ROLLOUT, SAC_ROWS)):
-        fail(f"count {st.fused.count}, cursor {st.replay.cursor}, filled {st.replay.filled}")
+        fail(f"counts {st.fused[6:]}, cursor {st.replay.cursor}, filled {st.replay.filled}")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     ms = lambda pairs: [s.elapsed_time(e) for s, e in pairs]
@@ -1018,14 +1135,12 @@ def train_path(dev, card, fold, n_iters=9, kernel_ms=None):
         nonlocal st
         st, _ = tr.train_iter(st, g)
 
-    dev_ms = kernel_ms(one_iter, "sac_update_kernel", iters=3, warmup=0)
+    dev_ms = kernel_ms(one_iter, name.split("_")[0] + "_update_kernel", iters=3, warmup=0)
 
     # the plain version and the library yardstick at the launch's shapes
-    ns = tr._fs
     row_idx = torch.randint(0, st.replay.filled, (SAC_K * SAC_B // SAC_LANES,), generator=g,
                             device=dev)
-    noises = torch.randn((SAC_K, SAC_B, 2, 2), generator=g, device=dev)
-    hyper = dict(SAC_HYPER, obs_dim=tr.obs_dim)
+    noises = torch.randn(noise_shape, generator=g, device=dev)
     batches = unpack_flat(st.replay.data[row_idx].transpose(1, 2).reshape(SAC_K, SAC_B, -1),
                           tr.obs_dim, 2)
     packed, adam = ns.fused_unpack(st.fused)
@@ -1037,16 +1152,24 @@ def train_path(dev, card, fold, n_iters=9, kernel_ms=None):
     # both modes back to back on a copy of the state, by CUDA events
     call_ms = {}
     for bf in (True, False):
-        f0 = fused_sac.FusedState(*[t.clone() for t in st.fused[:6]], st.fused.count)
+        f0 = type(st.fused)(*[t.clone() for t in st.fused[:6]], *st.fused[6:])
         call_ms[bf] = cuda_ms(lambda: ns.fused_update_k_wmat(
-            f0, st.replay.data, row_idx, noises, block=2048, fold=fold, mm_bf16=bf, **hyper),
+            f0, st.replay.data, row_idx, noises, block=2048, mm_bf16=bf, **kw, **hyper),
             iters=3, warmup=1)
     W = st.replay.data.shape[1]
-    bnd = sac_bound(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, True)
-    bnd_f32 = sac_bound(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, False)
-    byts, ops = sac_work(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, False)
-    print(f"train path {MAIN_ENV} lanes={SAC_LANES} rollout={SAC_ROLLOUT} K={SAC_K} B={SAC_B} "
-          f"H={SAC_H} ring {tuple(st.replay.data.shape)} fused_fold={fold} on {card}: "
+    if algo == "sac":
+        products = 16 * SAC_K
+        work = lambda bf: sac_work(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, bf)
+    else:
+        # every launch of this path starts from a count that is a multiple of
+        # K, so it has K / policy_delay delayed updates
+        n_act = fused_td3.applied_steps(0, SAC_K, cfg.policy_delay)
+        products = td3_products(SAC_K, n_act)
+        work = lambda bf: td3_work(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, bf, n_act)
+    bnd, bnd_f32 = work_bound(work(True)), work_bound(work(False))
+    byts, ops = work(False)
+    print(f"train path {label} {MAIN_ENV} lanes={SAC_LANES} rollout={SAC_ROLLOUT} K={SAC_K} "
+          f"B={SAC_B} H={SAC_H} ring {tuple(st.replay.data.shape)} on {card}: "
           f"{n_iters} train_iters, {dead} before the warm-up gate, launches {launches}; "
           f"steady train_iter {it_mean:.3f} ms = rollout {roll_mean:.3f} ms + K-update "
           f"{upd_mean:.3f} ms + {it_mean - roll_mean - upd_mean:.3f} ms (replay insert, metrics); "
@@ -1054,8 +1177,8 @@ def train_path(dev, card, fold, n_iters=9, kernel_ms=None):
           f"{call_ms[True]:.3f} ms per call back to back with bf16-rounded products, "
           f"{call_ms[False]:.3f} ms in float32; plain version {plain_ms:.1f} ms; "
           f"torch.matmul(({SAC_B}, {SAC_H}) x ({SAC_H}, {SAC_H})) {matmul_ms:.5f} ms x "
-          f"{16 * SAC_K} products = {matmul_ms * 16 * SAC_K:.3f} ms; peak device memory "
-          f"{peak_mb:.0f} MiB; last metrics {last}", flush=True)
+          f"{products} products = {matmul_ms * products:.3f} ms; peak device memory "
+          f"{peak_mb:.0f} MiB; counts {st.fused[6:]}; last metrics {last}", flush=True)
     print(f"  {name} bound: {ops['f32'] / 1e9:.1f} G operations and {byts / 1e6:.1f} MB "
           f"per launch; bytes {bnd['bytes']:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s; operations "
           f"{bnd_f32['operations']:.3f} ms all at {F32_OPS_PER_S / 1e12} TFLOP/s float32 (what "
@@ -1063,8 +1186,46 @@ def train_path(dev, card, fold, n_iters=9, kernel_ms=None):
           f"bf16-rounded products at {BF16_OPS_PER_S / 1e12} TFLOP/s (what the card could reach "
           f"for the main path's mm_bf16=True)", flush=True)
     return dict(launches=launches, ms=dev_ms, plain_ms=plain_ms, bound=bnd, bound_f32=bnd_f32,
-                library_ms=matmul_ms * 16 * SAC_K, it_ms=it_mean, roll_ms=roll_mean,
+                library_ms=matmul_ms * products, it_ms=it_mean, roll_ms=roll_mean,
                 upd_ms=upd_mean, sps=sps, call_ms=call_ms, peak_mb=peak_mb)
+
+
+def sac_bits(dev, card):
+    """A SHA-256 of what K4 and K5 write (w, vec, the moments, the losses) on
+    the inputs of check_k4's cases at H=256, and their ms per launch at the
+    training path's shapes by CUDA events.  Uses the SAC kernels alone."""
+    import hashlib
+
+    ns, packed, adam, ring, row_idx, batches, noises, hyper = sac_inputs(
+        dev, SAC_H, 4, SAC_B, SAC_LANES)
+    for fold in (False, True):
+        name = "K5" if fold else "K4"
+        for bf in (False, True):
+            for mode in ("batches", "ring"):
+                f0 = ns.fused_init(packed, adam)
+                if mode == "ring":
+                    out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
+                                                 mm_bf16=bf, fold=fold, **hyper)
+                else:
+                    out = ns.fused_update_k_wmat_batches(f0, batches, noises, block=2048,
+                                                         mm_bf16=bf, fold=fold, **hyper)
+                torch.cuda.synchronize()
+                h = hashlib.sha256()
+                for t in (*out[0][:6], out[1], out[2]):
+                    h.update(t.detach().cpu().numpy().tobytes())
+                print(f"bits {name} H={SAC_H} K=4 B={SAC_B} {mode} mm_bf16={bf}: sha256 "
+                      f"{h.hexdigest()[:16]} sum(w) {out[0].w.double().sum().item():.12g} "
+                      f"sum(vec) {out[0].vec.double().sum().item():.12g} sum(mw) "
+                      f"{out[0].mw.double().sum().item():.12g}", flush=True)
+    ns, packed, adam, ring, row_idx, batches, noises, hyper = sac_inputs(
+        dev, SAC_H, SAC_K, SAC_B, SAC_LANES)
+    for fold in (False, True, True, False):
+        f0 = ns.fused_init(packed, adam)
+        ms = cuda_ms(lambda: ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
+                                                    mm_bf16=True, fold=fold, **hyper),
+                     iters=5, warmup=2)
+        print(f"time {'K5' if fold else 'K4'} H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16=True "
+              f"on {card}: {ms:.4f} ms per call by CUDA events", flush=True)
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain, bnd, library=None):
@@ -1093,6 +1254,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     os.makedirs(OUT_DIR, exist_ok=True)
+    if sys.argv[1:] == ["--sac-bits"]:
+        t0 = time.perf_counter()
+        reports = cuda_build.build_all(["sac_update", "sac_update_fold"])
+        print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(reports)}", flush=True)
+        sac_bits(dev, card)
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}")
 
     # --------------------------------------------------------- 2. build --
     t0 = time.perf_counter()
@@ -1143,12 +1312,15 @@ def main():
     k4_errs, k4_results = check_k4(dev)
     k5_errs = check_k5(dev, k4_results)
     del k4_results
+    k6_errs = check_k6(dev)
 
-    # ---------------------------------------------- 7. the training path --
-    train = {fold: train_path(dev, card, fold) for fold in (False, True)}
+    # --------------------------------------------- 7. the training paths --
+    train = {fold: train_path(dev, card, "sac", fold) for fold in (False, True)}
+    train["td3"] = train_path(dev, card, "td3")
     print("train path by kernel: "
-          + ", ".join(f"fused_fold={f} {r['sps']:.6g} env-steps/s, train_iter {r['it_ms']:.3f} ms, "
-                      f"kernel {r['ms']:.3f} ms/launch" for f, r in train.items()), flush=True)
+          + ", ".join(f"{'TD3' if f == 'td3' else f'SAC fused_fold={f}'} {r['sps']:.6g} "
+                      f"env-steps/s, train_iter {r['it_ms']:.3f} ms, kernel {r['ms']:.3f} "
+                      f"ms/launch" for f, r in train.items()), flush=True)
 
     # ------------------------------------------------------ 8. the lines --
     # launches: K3, K3-tf and K3-hw from their main-path runs, K2 from the
@@ -1160,7 +1332,8 @@ def main():
     # against the plain version in phase 6, either mode; library_ms is
     # torch.matmul of one (8192, 256) x (256, 256) product times the 512 such
     # products of a launch: a yardstick for the products alone, no single
-    # PyTorch call computes the update.
+    # PyTorch call computes the update.  K6 the same from the TD3 training
+    # path, whose launches have 400 such products (16 of 32 updates delayed).
     csrc = "space_gym_torch/csrc/"
     tf, hw = keyed["threefry"], keyed["philox"]
     kernels = {"kernels": [
@@ -1192,6 +1365,11 @@ def main():
                      train[True]["launches"]["sac_update_fold"], max(k5_errs.values()),
                      train[True]["ms"], train[True]["plain_ms"], train[True]["bound"],
                      train[True]["library_ms"]),
+        kernel_entry("td3_update", csrc + "td3_update.cu",
+                     "space_gym_tpu/models/fused_td3.py:421",
+                     train["td3"]["launches"]["td3_update"], max(k6_errs.values()),
+                     train["td3"]["ms"], train["td3"]["plain_ms"], train["td3"]["bound"],
+                     train["td3"]["library_ms"]),
     ]}
     if any(k["launches"] <= 0 for k in kernels["kernels"]):
         fail(f"a kernel was launched no time on its path: {kernels}")

@@ -5,7 +5,8 @@
 // barriers, shared memory as one array per block.  It says nothing about
 // registers, memory coherence or speed; it finds wrong indices, missing
 // barriers and wrong arithmetic where there is no card.  Used by
-// tests/test_torch_sac_kernel_host.py through sac_update_host.cpp.
+// tests/test_torch_sac_kernel_host.py through sac_update_host.cpp and by
+// tests/test_torch_td3_kernel_host.py through td3_update_host.cpp.
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -64,7 +65,7 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, int a, int) {
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
-namespace sac { struct Args; inline float* host_shared_memory() { return tctx.smem; } }
+inline float* host_shared_memory() { return tctx.smem; }
 template <class A>
 cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, size_t smem) {
     A args = *static_cast<A*>(params[0]);

@@ -1,0 +1,618 @@
+// Device code shared by the fused learner kernels: K4 and K5 (sac_update.cuh)
+// and K6 (td3_update.cuh).  Nothing here knows the algorithm: a thread's 8 x 8
+// output tile, the three kinds of (batch, H) x (H, H) product on shared-memory
+// activation buffers, the ReLU stores and masks, the minibatch tile loads from
+// the replay ring, and the parts of an update that SAC and TD3 have in common
+// (a critic's forward and backward against a given target, the critics' Adam
+// stage, the actor's backward from its head gradients).
+//
+// The algorithm's header supplies `Args` (the launch's operands; the functions
+// here are templates over it and read the fields w, vec, mw, vw, mvec, vvec,
+// data, row_idx, noise, losses, partials, wt, B, W, lanes, rpb, od, tau) and a
+// layout class `LY` with the row offsets r_cw1(c), r_tw1(c) in `w` and the
+// rows V_CB1, V_CB2, V_CW3, V_TB1, V_TB2, V_TW3, V_MISC and columns M_CB3,
+// M_TB3 in `vec`.
+//
+// Under a host compiler (no __CUDACC__) the same source runs on the CPU against
+// the stand-in headers of csrc/host/.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+namespace tiles {
+
+constexpr int IN1 = 128;      // padded first-layer input width
+constexpr int KC = 16;        // weight rows per shared-memory chunk
+constexpr float ADAM_B1 = 0.9f;
+constexpr float ADAM_B2 = 0.999f;
+constexpr float ADAM_1MB1 = (float)(1.0 - 0.9);
+constexpr float ADAM_1MB2 = (float)(1.0 - 0.999);
+constexpr float ADAM_EPS = 1e-8f;
+constexpr float LOG_B1 = -0.10536051565782628f;    // log(0.9)
+constexpr float LOG_B2 = -0.0010005003335835344f;  // log(0.999)
+
+__host__ __device__ constexpr int row_groups(int H) { return H <= 128 ? 16 : H <= 256 ? 8 : 4; }
+__host__ __device__ constexpr int ceil8(int x) { return (x + 7) / 8 * 8; }
+
+__device__ __forceinline__ float rnd(float x, int bf) {
+    return bf ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+__device__ __forceinline__ float4 rnd4(float4 v, int bf) {
+    if (bf) { v.x = rnd(v.x, 1); v.y = rnd(v.y, 1); v.z = rnd(v.z, 1); v.w = rnd(v.w, 1); }
+    return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+// One thread's 8 x 8 tile of a (TS, H) output: rows ty*8 + i, columns
+// tx*4 + j (j < 4) and H/2 + tx*4 + j - 4 (j >= 4).
+template <int H>
+struct Tile {
+    static constexpr int RG = row_groups(H);
+    static constexpr int TS = 8 * RG;
+    static constexpr int NT = (H / 8) * RG;
+    float acc[8][8];
+    int tx, ty;
+    __device__ Tile() : tx(threadIdx.x % (H / 8)), ty(threadIdx.x / (H / 8)) {}
+    __device__ void zero() {
+#pragma unroll
+        for (int i = 0; i < 8; i++)
+#pragma unroll
+            for (int j = 0; j < 8; j++) acc[i][j] = 0.0f;
+    }
+    __device__ void fma_row(const float (&a)[8], float4 w0, float4 w1) {
+#pragma unroll
+        for (int i = 0; i < 8; i++) {
+            acc[i][0] += a[i] * w0.x; acc[i][1] += a[i] * w0.y;
+            acc[i][2] += a[i] * w0.z; acc[i][3] += a[i] * w0.w;
+            acc[i][4] += a[i] * w1.x; acc[i][5] += a[i] * w1.y;
+            acc[i][6] += a[i] * w1.z; acc[i][7] += a[i] * w1.w;
+        }
+    }
+};
+
+// Stage KC rows k0.. of the global row-major (Kdim, H) matrix Wg into wch;
+// rows below `nround` are rounded in bf mode, rows past Kdim are zero.
+template <int H>
+__device__ void stage_rows(const float* Wg, int k0, int Kdim, int nround, int bf, float* wch) {
+    constexpr int NT = Tile<H>::NT;
+    for (int idx = threadIdx.x; idx < KC * H / 4; idx += NT) {
+        int r = idx / (H / 4), c4 = idx % (H / 4);
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + r < Kdim) {
+            v = *reinterpret_cast<const float4*>(Wg + (size_t)(k0 + r) * H + c4 * 4);
+            v = rnd4(v, bf && (k0 + r < nround));
+        }
+        reinterpret_cast<float4*>(wch)[idx] = v;
+    }
+}
+
+// acc = A . Wg with A (TS, H) in shared memory (row stride H) and Wg (H, H)
+// in device memory.  Starts with a block barrier, ends without one.
+template <int H>
+__device__ void gemm_sk(Tile<H>& t, const float* A, const float* Wg, int bf, float* wch) {
+    t.zero();
+    for (int k0 = 0; k0 < H; k0 += KC) {
+        __syncthreads();
+        stage_rows<H>(Wg, k0, H, H, bf, wch);
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += 4) {
+            float4 a4[8];
+#pragma unroll
+            for (int i = 0; i < 8; i++)
+                a4[i] = *reinterpret_cast<const float4*>(A + (t.ty * 8 + i) * H + k0 + kk);
+#pragma unroll
+            for (int q = 0; q < 4; q++) {
+                float a[8];
+#pragma unroll
+                for (int i = 0; i < 8; i++)
+                    a[i] = q == 0 ? a4[i].x : q == 1 ? a4[i].y : q == 2 ? a4[i].z : a4[i].w;
+                const float* wr = wch + (kk + q) * H;
+                t.fma_row(a, *reinterpret_cast<const float4*>(wr + t.tx * 4),
+                          *reinterpret_cast<const float4*>(wr + H / 2 + t.tx * 4));
+            }
+        }
+    }
+}
+
+// acc = xin^T . Wg with xin (Kdim, TS) in shared memory (feature-major, as the
+// replay ring stores a tile) and Wg (Kdim, H) in device memory: a first
+// layer.  Rows below `nround` of Wg are rounded in bf mode.
+template <int H>
+__device__ void gemm_ks(Tile<H>& t, const float* xin, const float* Wg, int Kdim, int nround,
+                        int bf, float* wch) {
+    constexpr int TS = Tile<H>::TS;
+    t.zero();
+    for (int k0 = 0; k0 < Kdim; k0 += KC) {
+        __syncthreads();
+        stage_rows<H>(Wg, k0, Kdim, nround, bf, wch);
+        __syncthreads();
+        int kn = min(KC, Kdim - k0);
+        for (int kk = 0; kk < kn; kk++) {
+            const float* xr = xin + (k0 + kk) * TS + t.ty * 8;
+            float4 x0 = *reinterpret_cast<const float4*>(xr);
+            float4 x1 = *reinterpret_cast<const float4*>(xr + 4);
+            float a[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+            const float* wr = wch + kk * H;
+            t.fma_row(a, *reinterpret_cast<const float4*>(wr + t.tx * 4),
+                      *reinterpret_cast<const float4*>(wr + H / 2 + t.tx * 4));
+        }
+    }
+}
+
+// out (+)= A^T . Bm over the tile's samples: a weight gradient.  A and Bm are
+// (TS, H) in shared memory, out is (H, H) in this block's partial slot.
+// Needs a block barrier before; reads shared memory only.
+template <int H>
+__device__ void gemm_wgrad(Tile<H>& t, const float* A, const float* Bm, float* out, bool first) {
+    constexpr int TS = Tile<H>::TS;
+    for (int i0 = t.ty * 8; i0 < H; i0 += TS) {
+        t.zero();
+#pragma unroll 4
+        for (int s = 0; s < TS; s++) {
+            float4 a0 = *reinterpret_cast<const float4*>(A + s * H + i0);
+            float4 a1 = *reinterpret_cast<const float4*>(A + s * H + i0 + 4);
+            float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            t.fma_row(a, *reinterpret_cast<const float4*>(Bm + s * H + t.tx * 4),
+                      *reinterpret_cast<const float4*>(Bm + s * H + H / 2 + t.tx * 4));
+        }
+#pragma unroll
+        for (int i = 0; i < 8; i++) {
+#pragma unroll
+            for (int hf = 0; hf < 2; hf++) {
+                float4* p = reinterpret_cast<float4*>(out + (size_t)(i0 + i) * H + hf * (H / 2)
+                                                      + t.tx * 4);
+                float4 v = make_float4(t.acc[i][hf * 4], t.acc[i][hf * 4 + 1],
+                                       t.acc[i][hf * 4 + 2], t.acc[i][hf * 4 + 3]);
+                if (!first) {
+                    float4 o = *p;
+                    v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
+                }
+                *p = v;
+            }
+        }
+    }
+}
+
+// dst = relu(acc + bias), rounded in bf mode; also to `gdst` where given.
+template <int H>
+__device__ void store_relu(const Tile<H>& t, const float* bias, float* dst, int bf, float* gdst) {
+#pragma unroll
+    for (int hf = 0; hf < 2; hf++) {
+        int col = hf * (H / 2) + t.tx * 4;
+        float4 b = *reinterpret_cast<const float4*>(bias + col);
+#pragma unroll
+        for (int i = 0; i < 8; i++) {
+            float4 v;
+            v.x = rnd(fmaxf(t.acc[i][hf * 4 + 0] + b.x, 0.f), bf);
+            v.y = rnd(fmaxf(t.acc[i][hf * 4 + 1] + b.y, 0.f), bf);
+            v.z = rnd(fmaxf(t.acc[i][hf * 4 + 2] + b.z, 0.f), bf);
+            v.w = rnd(fmaxf(t.acc[i][hf * 4 + 3] + b.w, 0.f), bf);
+            *reinterpret_cast<float4*>(dst + (t.ty * 8 + i) * H + col) = v;
+            if (gdst) *reinterpret_cast<float4*>(gdst + (t.ty * 8 + i) * H + col) = v;
+        }
+    }
+}
+
+// A = A > 0 ? acc : 0, in place: a ReLU's backward from its own output.
+template <int H>
+__device__ void store_masked_inplace(const Tile<H>& t, float* A) {
+#pragma unroll
+    for (int hf = 0; hf < 2; hf++) {
+        int col = hf * (H / 2) + t.tx * 4;
+#pragma unroll
+        for (int i = 0; i < 8; i++) {
+            float4* p = reinterpret_cast<float4*>(A + (t.ty * 8 + i) * H + col);
+            float4 h = *p;
+            *p = make_float4(h.x > 0.f ? t.acc[i][hf * 4 + 0] : 0.f,
+                             h.y > 0.f ? t.acc[i][hf * 4 + 1] : 0.f,
+                             h.z > 0.f ? t.acc[i][hf * 4 + 2] : 0.f,
+                             h.w > 0.f ? t.acc[i][hf * 4 + 3] : 0.f);
+        }
+    }
+}
+
+__device__ __forceinline__ bool mask_bit(const unsigned* m, int s, int j, int H) {
+    return (m[s * (H / 32) + j / 32] >> (j % 32)) & 1u;
+}
+
+// dst = mask ? acc : 0 with the mask kept as bits.
+template <int H>
+__device__ void store_masked_bits(const Tile<H>& t, const unsigned* m, float* dst) {
+#pragma unroll
+    for (int hf = 0; hf < 2; hf++) {
+        int col = hf * (H / 2) + t.tx * 4;
+#pragma unroll
+        for (int i = 0; i < 8; i++) {
+            int s = t.ty * 8 + i;
+            unsigned bits = m[s * (H / 32) + col / 32] >> (col % 32);
+            *reinterpret_cast<float4*>(dst + s * H + col) =
+                make_float4((bits & 1u) ? t.acc[i][hf * 4 + 0] : 0.f,
+                            (bits & 2u) ? t.acc[i][hf * 4 + 1] : 0.f,
+                            (bits & 4u) ? t.acc[i][hf * 4 + 2] : 0.f,
+                            (bits & 8u) ? t.acc[i][hf * 4 + 3] : 0.f);
+        }
+    }
+}
+
+// The bits of buf > 0, one word per 32 columns of a sample.
+template <int H>
+__device__ void make_mask(const float* buf, unsigned* m) {
+    constexpr int TS = Tile<H>::TS, NT = Tile<H>::NT;
+    for (int s = 0; s < TS; s++)
+        for (int j = threadIdx.x; j < H; j += NT) {
+            unsigned word = __ballot_sync(0xffffffffu, buf[s * H + j] > 0.f);
+            if ((threadIdx.x & 31) == 0) m[s * (H / 32) + j / 32] = word;
+        }
+}
+
+// out[s] = sum_j buf[s][j] * rnd(wrow[j]) + add, one warp per sample.
+template <int H>
+__device__ void row_dot(const float* buf, const float* wrow, float add, int bf, float* out) {
+    constexpr int TS = Tile<H>::TS, NT = Tile<H>::NT;
+    int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int s = warp; s < TS; s += NT / 32) {
+        float v = 0.f;
+        for (int j = lane; j < H; j += 32) v += buf[s * H + j] * rnd(wrow[j], bf);
+        v = warp_sum(v);
+        if (lane == 0) out[s] = v + add;
+    }
+}
+
+// Sum of x[0..TS) by warp 0, the same value in all its lanes.
+template <int TS>
+__device__ float tile_sum(const float* x) {
+    float v = 0.f;
+    for (int s = threadIdx.x % 32; s < TS; s += 32) v += x[s];
+    return warp_sum(v);
+}
+
+__device__ __forceinline__ void put(float* p, float v, bool first) { *p = first ? v : *p + v; }
+
+// cp.async in 16-byte pieces, its group commit and its wait for all but the
+// newest `N` groups.  Under a host compiler (no __CUDACC__: the kernel's logic
+// run on the CPU against stand-in headers) the copy is synchronous.
+#ifdef __CUDACC__
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+#else
+inline void cp_async16(void* smem, const void* gmem) {
+    *static_cast<float4*>(smem) = *static_cast<const float4*>(gmem);
+}
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
+#endif
+
+// Where tile t of minibatch k starts in `data`, and its row stride: in ring
+// mode lane block (t*TS) % lanes of ring row row_idx[k*rpb + (t*TS) / lanes].
+template <int TS, class Args>
+__device__ const float* tile_base(const Args& g, int k, int t, int& ld) {
+    int b0 = t * TS;
+    if (g.rpb == 0) {
+        ld = g.B;
+        return g.data + (size_t)k * g.W * g.B + b0;
+    }
+    int row = g.row_idx[k * g.rpb + b0 / g.lanes];
+    ld = g.lanes;
+    return g.data + (size_t)row * g.W * g.lanes + b0 % g.lanes;
+}
+
+// Copy a tile's W data rows and NZ noise rows (of the (K, NZ, B) normals) into
+// shared memory: plain loads, or cp.async (completed by the caller).
+template <int TS, int NZ, bool ASYNC, class Args>
+__device__ void load_tile(const Args& g, int k, int t, float* xs, float* nz) {
+    int ld;
+    const float* base = tile_base<TS>(g, k, t, ld);
+    const float* nbase = g.noise + (size_t)k * NZ * g.B + t * TS;
+    int n_data = g.W * TS / 4;
+    for (int idx = threadIdx.x; idx < n_data + NZ * TS / 4; idx += blockDim.x) {
+        const float* src;
+        float* dst;
+        if (idx < n_data) {
+            src = base + (size_t)(idx / (TS / 4)) * ld + (idx % (TS / 4)) * 4;
+            dst = xs + idx * 4;
+        } else {
+            int i = idx - n_data;
+            src = nbase + (size_t)(i / (TS / 4)) * g.B + (i % (TS / 4)) * 4;
+            dst = nz + i * 4;
+        }
+        if (ASYNC) cp_async16(dst, src);
+        else *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    }
+}
+
+// Rows [r0, r0 + n) of the tile -> rows [d0, d0 + n) of xin, rounded in bf mode.
+template <int TS>
+__device__ void copy_rows(const float* xs, int r0, float* xin, int d0, int n, int bf) {
+    for (int idx = threadIdx.x; idx < n * TS; idx += blockDim.x)
+        xin[d0 * TS + idx] = rnd(xs[r0 * TS + idx], bf);
+}
+
+// The activation buffers every stage works in: A and Bm (TS, H), the weight
+// chunk wch (KC, H), and xin (W, TS), the first layer's feature-major input.
+struct Bufs {
+    float *A, *Bm, *wch, *xin;
+};
+
+// One Adam step of one element; returns the new weight.
+__device__ __forceinline__ float adam_elem(float* wp, float* mp, float* vp, float gr, float a_lr,
+                                           float c_eps) {
+    float m = ADAM_B1 * *mp + ADAM_1MB1 * gr;
+    float v = ADAM_B2 * *vp + ADAM_1MB2 * gr * gr;
+    *mp = m; *vp = v;
+    float wn = *wp - a_lr * m / (sqrtf(v) + c_eps);
+    *wp = wn;
+    return wn;
+}
+
+// The folded Adam scalars of step t (float): the update of an element is
+// -a_lr m / (sqrt(v) + c_eps); b**t as exp(t log b).
+__device__ __forceinline__ void adam_scalars(float tstep, float lr, float& a_lr, float& c_eps) {
+    float bc1 = 1.0f - expf(tstep * LOG_B1);
+    float sb2 = sqrtf(1.0f - expf(tstep * LOG_B2));
+    a_lr = lr * sb2 / bc1;
+    c_eps = ADAM_EPS * sb2;
+}
+
+// ---------------------------------------------------------------- forward --
+// An actor's operands: its rows of `w` (wh: the NH rows of head^T) and `vec`
+// (bh: the head's biases in the misc row).
+struct ActorRefs {
+    const float *w1, *w2, *wh, *b1, *b2, *bh;
+};
+
+// One critic's operands: its rows of `w` and `vec`; w2t, the transposed copy
+// of its W2, only where it is trained.
+struct CriticRefs {
+    const float *w1, *w2, *w2t, *b1, *b2, *w3;
+    float b3;
+};
+
+// head (NH, TS) = the actor's head outputs on xin's od rounded obs rows.  h1
+// stays in A and h2 in Bm, and both go to `stash` ((2, TS, H) in device memory)
+// where given.  Ends with a block barrier.
+template <int H, int NH>
+__device__ void actor_forward(Tile<H>& t, const Bufs& S, const ActorRefs& ar, int od, int bf,
+                              float* head, float* stash) {
+    constexpr int TS = Tile<H>::TS;
+    gemm_ks<H>(t, S.xin, ar.w1, od, od, bf, S.wch);
+    store_relu<H>(t, ar.b1, S.A, bf, stash);
+    gemm_sk<H>(t, S.A, ar.w2, bf, S.wch);
+    store_relu<H>(t, ar.b2, S.Bm, bf, stash ? stash + TS * H : nullptr);
+    __syncthreads();
+    for (int e = 0; e < NH; e++)
+        row_dot<H>(S.Bm, ar.wh + (size_t)e * H, ar.bh[e], bf, head + e * TS);
+    __syncthreads();
+}
+
+// q (TS,) = one critic on xin = (od rounded obs rows | 2 action rows): the obs
+// rows go through the rounded product, the action rows and the bias stay
+// float32.  h1 stays in A and h2 in Bm.  Ends without a barrier.
+template <int H>
+__device__ void critic_forward(Tile<H>& t, const Bufs& S, const CriticRefs& cr, int od, int bf,
+                               float* q) {
+    gemm_ks<H>(t, S.xin, cr.w1, od + 2, od, bf, S.wch);
+    store_relu<H>(t, cr.b1, S.A, bf, nullptr);
+    gemm_sk<H>(t, S.A, cr.w2, bf, S.wch);
+    store_relu<H>(t, cr.b2, S.Bm, bf, nullptr);
+    __syncthreads();
+    row_dot<H>(S.Bm, cr.w3, cr.b3, bf, q);
+}
+
+// ---------------------------------------------------------------- critic --
+// One critic's forward on xin = (obs rounded | action) and its hand-written
+// backward against the target tq, over one tile.  Gradient rows in pc: [0, n1)
+// W1 (obs rows then the two action rows), n1 b1, n1+1 b2, n1+2 w3, [n1+3,
+// n1+3+H) W2; pm[0] takes the b3 gradient and pm[2] the loss sum.  q, dq and
+// lsum are (TS,) scratch.  The obs rows go through the rounded product, the
+// action rows, the bias and dq x w3 stay float32.
+template <int H>
+__device__ void critic_grad(Tile<H>& t, const Bufs& S, const CriticRefs& cr, const float* tq,
+                            float* q, float* dq, float* lsum, float* pc, float* pm, int od, int B,
+                            int bf, bool first) {
+    constexpr int TS = Tile<H>::TS, NT = Tile<H>::NT;
+    const int n1 = od + 2, tid = threadIdx.x;
+    const float invb = (float)(1.0 / B);
+    critic_forward<H>(t, S, cr, od, bf, q);
+    __syncthreads();
+    if (tid < TS) {
+        float d = q[tid] - tq[tid];
+        dq[tid] = 2.0f * d * invb;
+        lsum[tid] = d * d * invb;
+    }
+    __syncthreads();
+    // w3 and b2 gradients; h2 becomes dz2 in place
+    for (int j = tid; j < H; j += NT) {
+        float w3j = cr.w3[j], gw3 = 0.f, gb2 = 0.f;
+        for (int s = 0; s < TS; s++) {
+            float h = S.Bm[s * H + j];
+            gw3 += rnd(dq[s], bf) * h;
+            float dz = h > 0.f ? dq[s] * w3j : 0.f;
+            gb2 += dz;
+            S.Bm[s * H + j] = rnd(dz, bf);
+        }
+        put(pc + (size_t)(n1 + 2) * H + j, gw3, first);
+        put(pc + (size_t)(n1 + 1) * H + j, gb2, first);
+    }
+    if (tid < 32) {
+        float gb3 = tile_sum<TS>(dq), ls = tile_sum<TS>(lsum);
+        if (tid == 0) {
+            put(pm, gb3, first);
+            put(pm + 2, ls, first);
+        }
+    }
+    __syncthreads();
+    gemm_wgrad<H>(t, S.A, S.Bm, pc + (size_t)(n1 + 3) * H, first);
+    gemm_sk<H>(t, S.Bm, cr.w2t, bf, S.wch);
+    store_masked_inplace<H>(t, S.A);      // dz1
+    __syncthreads();
+    // W1 and b1 gradients: obs rows through the rounded product, action
+    // rows and bias in float32
+    for (int j = tid; j < H; j += NT) {
+        float gb1 = 0.f;
+        for (int s = 0; s < TS; s++) gb1 += S.A[s * H + j];
+        put(pc + (size_t)n1 * H + j, gb1, first);
+        for (int r0 = 0; r0 < n1; r0 += 8) {
+            float ga[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            for (int s = 0; s < TS; s++) {
+                float dz = S.A[s * H + j], dzr = rnd(dz, bf);
+#pragma unroll
+                for (int i = 0; i < 8; i++)
+                    if (r0 + i < n1) ga[i] += S.xin[(r0 + i) * TS + s] * (r0 + i < od ? dzr : dz);
+            }
+#pragma unroll
+            for (int i = 0; i < 8; i++)
+                if (r0 + i < n1) put(pc + (size_t)(r0 + i) * H + j, ga[i], first);
+        }
+    }
+    __syncthreads();
+}
+
+// Adam on both critics from the partial slots summed in index order, and with
+// POLYAK the targets' polyak step from the new weights; the whole grid takes
+// part.  A slot holds critic 0's CS = n1 + 3 + H rows, critic 1's, and a row
+// with the two b3 gradients [0, 2) and the two loss sums [2, 4); the critic
+// loss of update k goes to losses[2 k].
+template <int H, class LY, bool POLYAK, class Args>
+__device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c_eps) {
+    const int n1 = g.od + 2, CS = n1 + 3 + H, prows = 2 * CS + 1;
+    const float tau = g.tau, omt = 1.0f - g.tau;
+    const size_t slot = (size_t)prows * H;
+    const int total = 2 * CS * H;
+    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += grid * blockDim.x) {
+        int c = e / (CS * H), lr = (e / H) % CS, j = e % H;
+        const float* p = g.partials + (size_t)(c * CS + lr) * H + j;
+        float gr = 0.f;
+        for (int b = 0; b < grid; b++) gr += p[b * slot];
+        float *wp, *mp, *vp, *tp;
+        if (lr < n1 || lr >= n1 + 3) {
+            int row = lr < n1 ? lr : IN1 + lr - (n1 + 3);
+            size_t o = (size_t)(LY::r_cw1(c) + row) * H + j;
+            wp = g.w + o; mp = g.mw + o; vp = g.vw + o;
+            tp = g.w + (size_t)(LY::r_tw1(c) + row) * H + j;
+        } else {
+            int vr = lr == n1 ? LY::V_CB1 : lr == n1 + 1 ? LY::V_CB2 : LY::V_CW3;
+            int tr = lr == n1 ? LY::V_TB1 : lr == n1 + 1 ? LY::V_TB2 : LY::V_TW3;
+            size_t o = (size_t)(vr + c) * H + j;
+            wp = g.vec + o; mp = g.mvec + o; vp = g.vvec + o;
+            tp = g.vec + (size_t)(tr + c) * H + j;
+        }
+        float wn = adam_elem(wp, mp, vp, gr, a_lr, c_eps);
+        if (POLYAK) *tp = omt * *tp + tau * wn;
+        if (lr >= n1 + 3) g.wt[(size_t)c * H * H + (size_t)j * H + (lr - (n1 + 3))] = wn;
+    }
+    if (blockIdx.x == 0 && threadIdx.x < 3) {
+        const float* pm = g.partials + (size_t)2 * CS * H;
+        int c = threadIdx.x;
+        if (c < 2) {
+            float gr = 0.f;
+            for (int b = 0; b < grid; b++) gr += pm[b * slot + c];
+            size_t o = (size_t)LY::V_MISC * H + LY::M_CB3 + c;
+            float wn = adam_elem(g.vec + o, g.mvec + o, g.vvec + o, gr, a_lr, c_eps);
+            if (POLYAK) {
+                size_t ot = (size_t)LY::V_MISC * H + LY::M_TB3 + c;
+                g.vec[ot] = omt * g.vec[ot] + tau * wn;
+            }
+        } else {
+            float ls = 0.f;
+            for (int b = 0; b < grid; b++) ls += pm[b * slot + 2] + pm[b * slot + 3];
+            g.losses[k * 2] = ls;
+        }
+    }
+}
+
+// ----------------------------------------------------------------- actor --
+// The actor's backward over one tile from gh, the (NH, TS) gradients of the
+// loss by its head's outputs.  h1 and h2 come back from `stash` ((2, TS, H) in
+// device memory) into the two buffers; xin still holds the rounded obs rows;
+// wh is the head's NH rows of `w` and w2t the transposed copy of the actor's
+// W2.  Gradient rows in part: [0, od) W1, od b1, od+1 b2, [od+2, od+2+NH)
+// head^T, [od+2+NH, od+2+NH+H) W2; the row after them takes the head's bias
+// gradients [0, NH).  Ends with a block barrier.
+template <int H, int NH>
+__device__ void actor_backward(Tile<H>& t, const Bufs& S, const float* gh, const float* stash,
+                               const float* wh, const float* w2t, float* part, int od, int bf,
+                               bool first) {
+    constexpr int TS = Tile<H>::TS, NT = Tile<H>::NT;
+    const int tid = threadIdx.x;
+    // the actor's activations back into the two buffers
+    for (int idx = tid; idx < TS * H / 4; idx += NT) {
+        reinterpret_cast<float4*>(S.A)[idx] = reinterpret_cast<const float4*>(stash)[idx];
+        reinterpret_cast<float4*>(S.Bm)[idx] = reinterpret_cast<const float4*>(stash + TS * H)[idx];
+    }
+    __syncthreads();
+    // head and b2 gradients; h2 becomes dz2 in place
+    for (int j = tid; j < H; j += NT) {
+        float whj[NH], gwh[NH], gb2 = 0.f;
+#pragma unroll
+        for (int e = 0; e < NH; e++) {
+            whj[e] = rnd(wh[(size_t)e * H + j], bf);
+            gwh[e] = 0.f;
+        }
+        for (int s = 0; s < TS; s++) {
+            float h = S.Bm[s * H + j], dh = 0.f;
+#pragma unroll
+            for (int e = 0; e < NH; e++) {
+                float ge = rnd(gh[e * TS + s], bf);
+                gwh[e] += ge * h;
+                dh += ge * whj[e];
+            }
+            float dz = h > 0.f ? dh : 0.f;
+            gb2 += dz;
+            S.Bm[s * H + j] = rnd(dz, bf);
+        }
+#pragma unroll
+        for (int e = 0; e < NH; e++) put(part + (size_t)(od + 2 + e) * H + j, gwh[e], first);
+        put(part + (size_t)(od + 1) * H + j, gb2, first);
+    }
+    if (tid < 32) {
+        float* pm = part + (size_t)(od + 2 + NH + H) * H;
+        for (int e = 0; e < NH; e++) {
+            float v = tile_sum<TS>(gh + e * TS);
+            if (tid == 0) put(pm + e, v, first);
+        }
+    }
+    __syncthreads();
+    gemm_wgrad<H>(t, S.A, S.Bm, part + (size_t)(od + 2 + NH) * H, first);
+    gemm_sk<H>(t, S.Bm, w2t, bf, S.wch);
+    store_masked_inplace<H>(t, S.A);      // dz1
+    __syncthreads();
+    for (int j = tid; j < H; j += NT) {
+        float gb1 = 0.f;
+        for (int s = 0; s < TS; s++) gb1 += S.A[s * H + j];
+        put(part + (size_t)od * H + j, gb1, first);
+        for (int r0 = 0; r0 < od; r0 += 8) {
+            float ga[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            for (int s = 0; s < TS; s++) {
+                float dzr = rnd(S.A[s * H + j], bf);
+#pragma unroll
+                for (int i = 0; i < 8; i++)
+                    if (r0 + i < od) ga[i] += S.xin[(r0 + i) * TS + s] * dzr;
+            }
+#pragma unroll
+            for (int i = 0; i < 8; i++)
+                if (r0 + i < od) put(part + (size_t)(r0 + i) * H + j, ga[i], first);
+        }
+    }
+    __syncthreads();
+}
+
+}  // namespace tiles

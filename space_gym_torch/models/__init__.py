@@ -1,5 +1,6 @@
-"""On-device learners and their building blocks: SAC, unfused and fused."""
-from .networks import MLP, DoubleCritic, TanhGaussianActor  # noqa: F401
+"""On-device learners and their building blocks: SAC and TD3, unfused and fused."""
+from .networks import MLP, DeterministicActor, DoubleCritic, TanhGaussianActor  # noqa: F401
 from .replay import (ReplayState, Transition, replay_add, replay_add_slab,  # noqa: F401
                      replay_init, replay_sample)
 from .sac import SACConfig, SACState, SACTrainer  # noqa: F401
+from .td3 import TD3Config, TD3State, TD3Trainer  # noqa: F401

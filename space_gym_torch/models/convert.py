@@ -4,33 +4,43 @@ Nothing here imports jax, flax or optax: the JAX side hands over trees whose
 leaves are numpy arrays (`jax.tree.map(np.asarray, tree)`), and gets such
 trees back.
 
-  * flax parameter trees of `TanhGaussianActor` and `DoubleCritic`
+  * flax parameter trees of `TanhGaussianActor` ("actor"),
+    `DeterministicActor` ("det_actor") and `DoubleCritic` ("critic")
     (`{"params": {"MLP_0": {"Dense_0": {"kernel", "bias"}, ...}, ...}}`)
     <-> the port's parameter dicts, named like the modules' state dicts
     (`"mlp.layers.0.kernel"`, ...).  Kernels keep their (in, out) layout.
   * an optax Adam state (`(ScaleByAdamState(count, mu, nu), EmptyState())`)
     <-> `models.sac.AdamState`.
-  * `PackedParams`, `PackedAdam` and `FusedState` of the JAX package, or any
-    object or mapping with their fields <-> the port's tuples of the same
-    names.  `load_learner_npz` reads a fused-layout learner file (the fields of
-    FusedState and `log_alpha`, as `docs/goal2p_sac_best.npz` holds them).
+  * `PackedParams`, `PackedAdam` and `FusedState` of the JAX package's
+    fused_sac (`algo="sac"`, the default) or fused_td3 (`algo="td3"`, with the
+    second count `count_a`), or any object or mapping with their fields <->
+    the port's tuples of the same names.  `load_learner_npz` reads a
+    fused-layout SAC learner file (the fields of FusedState and `log_alpha`,
+    as `docs/goal2p_sac_best.npz` holds them).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .fused_sac import FusedState, PackedAdam, PackedParams
-from .sac import AdamState
+from . import fused_sac, fused_td3
+from .offpolicy import AdamState
+
+# the packed tuples by algorithm
+_TUPLES = {"sac": fused_sac, "td3": fused_td3}
 
 # (flax path, port name) of every layer, by network
 _ACTOR_LAYERS = (
     (("MLP_0", "Dense_0"), "mlp.layers.0"), (("MLP_0", "Dense_1"), "mlp.layers.1"),
     (("Dense_0",), "mean_head"), (("Dense_1",), "log_std_head"),
 )
+_DET_ACTOR_LAYERS = (
+    (("MLP_0", "Dense_0"), "mlp.layers.0"), (("MLP_0", "Dense_1"), "mlp.layers.1"),
+    (("Dense_0",), "head"),
+)
 _CRITIC_LAYERS = tuple(
     ((f"MLP_{i}", f"Dense_{j}"), f"q{i + 1}.layers.{j}") for i in range(2) for j in range(3))
-_LAYERS = {"actor": _ACTOR_LAYERS, "critic": _CRITIC_LAYERS}
+_LAYERS = {"actor": _ACTOR_LAYERS, "det_actor": _DET_ACTOR_LAYERS, "critic": _CRITIC_LAYERS}
 
 
 def _tensor(a, device):
@@ -42,8 +52,8 @@ def _get(obj, name):
 
 
 def params_from_flax(tree, kind: str, device="cpu") -> dict:
-    """A flax tree of the `kind` ("actor" or "critic") network -> the port's
-    parameter dict."""
+    """A flax tree of the `kind` ("actor", "det_actor" or "critic") network ->
+    the port's parameter dict."""
     out = {}
     node0 = tree["params"]
     for path, name in _LAYERS[kind]:
@@ -84,38 +94,46 @@ def adam_to_optax(st: AdamState, kind: str | None) -> dict:
     return {"count": np.asarray(st.count, np.int32), "mu": conv(st.mu), "nu": conv(st.nu)}
 
 
-def packed_from_numpy(p, device="cpu") -> PackedParams:
-    return PackedParams(*[_tensor(_get(p, f), device) for f in PackedParams._fields])
+def _counts(obj, cls, skip):
+    """The step counts of a PackedAdam or FusedState `cls` as Python ints."""
+    return {f: int(np.asarray(_get(obj, f))) for f in cls._fields if f not in skip}
 
 
-def packed_to_numpy(p: PackedParams) -> PackedParams:
-    return PackedParams(*[x.detach().cpu().numpy() for x in p])
+def packed_from_numpy(p, device="cpu", algo: str = "sac"):
+    cls = _TUPLES[algo].PackedParams
+    return cls(*[_tensor(_get(p, f), device) for f in cls._fields])
 
 
-def packed_adam_from_numpy(a, device="cpu") -> PackedAdam:
-    return PackedAdam(m=packed_from_numpy(_get(a, "m"), device),
-                      v=packed_from_numpy(_get(a, "v"), device),
-                      count=int(np.asarray(_get(a, "count"))))
+def packed_to_numpy(p):
+    return type(p)(*[x.detach().cpu().numpy() for x in p])
 
 
-def packed_adam_to_numpy(a: PackedAdam) -> PackedAdam:
-    return PackedAdam(m=packed_to_numpy(a.m), v=packed_to_numpy(a.v),
-                      count=np.asarray(a.count, np.int32))
+def packed_adam_from_numpy(a, device="cpu", algo: str = "sac"):
+    cls = _TUPLES[algo].PackedAdam
+    return cls(m=packed_from_numpy(_get(a, "m"), device, algo),
+               v=packed_from_numpy(_get(a, "v"), device, algo), **_counts(a, cls, ("m", "v")))
+
+
+def packed_adam_to_numpy(a):
+    counts = {f: np.asarray(getattr(a, f), np.int32) for f in a._fields if f not in ("m", "v")}
+    return type(a)(m=packed_to_numpy(a.m), v=packed_to_numpy(a.v), **counts)
 
 
 _FUSED_ARRAYS = ("w", "vec", "mw", "mvec", "vw", "vvec")
 
 
-def fused_from_numpy(f, device="cpu") -> FusedState:
+def fused_from_numpy(f, device="cpu", algo: str = "sac"):
     """Any object or mapping with FusedState's fields -> FusedState on `device`."""
+    cls = _TUPLES[algo].FusedState
     arrays = {k: _tensor(_get(f, k), device).to(torch.float32).contiguous()
               for k in _FUSED_ARRAYS}
-    return FusedState(count=int(np.asarray(_get(f, "count"))), **arrays)
+    return cls(**_counts(f, cls, _FUSED_ARRAYS), **arrays)
 
 
-def fused_to_numpy(f: FusedState) -> FusedState:
+def fused_to_numpy(f):
     arrays = {k: getattr(f, k).detach().cpu().numpy() for k in _FUSED_ARRAYS}
-    return FusedState(count=np.asarray(f.count, np.int32), **arrays)
+    counts = {k: np.asarray(getattr(f, k), np.int32) for k in f._fields if k not in _FUSED_ARRAYS}
+    return type(f)(**counts, **arrays)
 
 
 def load_learner_npz(path, device="cpu"):

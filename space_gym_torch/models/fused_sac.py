@@ -164,6 +164,75 @@ def _bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _data_mode(f, data, row_idx, K, B, obs_dim, block, wrows):
+    """Check the shapes of a launch, in either data mode; returns (W, lanes,
+    rpb).  row_idx None: `data` is the packed (K, W, B) minibatch tensor, lanes
+    minor (rpb 0).  row_idx given: `data` is the whole (rows, W, lanes) replay
+    ring and minibatch k is rows row_idx[k*rpb : (k+1)*rpb], every lane of
+    each, rpb = B // lanes.  `block` is the batch tile of the JAX kernels: it
+    must divide the batch, or the lanes of a ring, as there."""
+    W = data.shape[1]
+    if W != replay_cols(obs_dim, 2)[-1]:
+        raise ValueError(f"data has {W} rows, obs_dim {obs_dim} packs "
+                         f"{replay_cols(obs_dim, 2)[-1]}")
+    if row_idx is None:
+        if tuple(data.shape) != (K, W, B):
+            raise ValueError(f"batches must be (K, W, B) = ({K}, {W}, {B}), "
+                             f"got {tuple(data.shape)}")
+        if B % min(block, B):
+            raise ValueError(f"batch {B} not divisible by block {min(block, B)}")
+        lanes, rpb = B, 0
+    else:
+        lanes = data.shape[2]
+        rpb, rem = divmod(B, lanes)
+        if rem:
+            raise ValueError(f"batch {B} must be a multiple of lanes {lanes}")
+        if tuple(row_idx.shape) != (K * rpb,):
+            raise ValueError(f"row_idx {tuple(row_idx.shape)} != ({K * rpb},)")
+        if lanes % min(block, lanes):
+            raise ValueError(f"lanes {lanes} not divisible by block {min(block, lanes)}")
+    h = f.w.shape[1]
+    for name, t in (("w", f.w), ("mw", f.mw), ("vw", f.vw)):
+        if tuple(t.shape) != (wrows, h):
+            raise ValueError(f"{name} must be ({wrows}, {h}), got {tuple(t.shape)}")
+    return W, lanes, rpb
+
+
+def _gathered(data, row_idx, K, B, obs_dim):
+    """The (K, B) Transition minibatches that `data` and `row_idx` name: what
+    the plain version takes."""
+    if row_idx is None:
+        flat = data.transpose(1, 2)
+    else:
+        flat = data[row_idx.long()].transpose(1, 2).reshape(K, B, data.shape[1])
+    return unpack_flat(flat.to(torch.float32), obs_dim, 2)
+
+
+def _kernel_operands(f, data, row_idx, noises, lanes, rpb, vrows):
+    """Check what the CUDA kernels take; returns (tile samples, the six state
+    tensors in the kernels' order, row_idx as int32)."""
+    h = f.w.shape[1]
+    if h not in KERNEL_TILE:
+        raise ValueError(f"the CUDA kernels are built for hidden widths "
+                         f"{sorted(KERNEL_TILE)}, got {h}")
+    ts = KERNEL_TILE[h]
+    if lanes % ts:
+        raise ValueError(f"{'batch' if rpb == 0 else 'lanes'} {lanes} must be a multiple of "
+                         f"the kernel's tile of {ts} samples at H={h}")
+    dev = f.w.device
+    state = (f.w, f.vec, f.mw, f.vw, f.mvec, f.vvec)
+    for t in state + (data, noises):
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError("the CUDA kernel takes contiguous float32 tensors on one device")
+    if tuple(f.vec.shape) != (vrows, h):
+        raise ValueError(f"vec must be ({vrows}, {h})")
+    if row_idx is not None:
+        if row_idx.device != dev:
+            raise TypeError("row_idx must be on the state's device")
+        row_idx = row_idx.to(torch.int32).contiguous()
+    return ts, state, row_idx
+
+
 def _build_width(h: int):
     """All width-dependent layout constants and functions, closed over the
     hidden width `h`.  IN1 and NHEAD stay fixed (obs <= 126, action_dim 2).
@@ -453,53 +522,21 @@ def _build_width(h: int):
     # ------------------------------------------------------- entry points --
     def _kernel_call(f: FusedState, data, row_idx, noises, *, obs_dim, gamma, tau, lr,
                      target_entropy, alpha_floor=0.0, block=2048, mm_bf16=True, fold=False):
-        """Shared launcher of both data modes and both kernels.
-
-        row_idx None: `data` is the packed (K, W, B) minibatch tensor, lanes
-        minor.  row_idx given: `data` is the whole (rows, W, lanes) replay
-        ring and minibatch k is rows row_idx[k*rpb : (k+1)*rpb], every lane of
-        each, rpb = B // lanes.  `block` is the batch tile of the JAX kernels:
-        it is checked as there (it must divide the batch, or the lanes of a
-        ring), and the CUDA kernels tile the batch by KERNEL_TILE[H] samples
-        per thread block whatever it is.  Returns (FusedState', critic_losses
-        (K,), actor_losses (K,))."""
+        """Shared launcher of both data modes (`_data_mode`) and both kernels.
+        `block` is checked as the JAX kernels check it; the CUDA kernels tile
+        the batch by KERNEL_TILE[H] samples per thread block whatever it is.
+        Returns (FusedState', critic_losses (K,), actor_losses (K,))."""
         K, B = noises.shape[0], noises.shape[1]
         if tuple(noises.shape) != (K, B, 2, 2):
             raise ValueError(f"noises must be (K, B, 2, 2), got {tuple(noises.shape)}")
-        W = data.shape[1]
-        if W != replay_cols(obs_dim, 2)[-1]:
-            raise ValueError(f"data has {W} rows, obs_dim {obs_dim} packs "
-                             f"{replay_cols(obs_dim, 2)[-1]}")
-        if row_idx is None:
-            if tuple(data.shape) != (K, W, B):
-                raise ValueError(f"batches must be (K, W, B) = ({K}, {W}, {B}), "
-                                 f"got {tuple(data.shape)}")
-            if B % min(block, B):
-                raise ValueError(f"batch {B} not divisible by block {min(block, B)}")
-            lanes, rpb = B, 0
-        else:
-            lanes = data.shape[2]
-            rpb, rem = divmod(B, lanes)
-            if rem:
-                raise ValueError(f"batch {B} must be a multiple of lanes {lanes}")
-            if tuple(row_idx.shape) != (K * rpb,):
-                raise ValueError(f"row_idx {tuple(row_idx.shape)} != ({K * rpb},)")
-            if lanes % min(block, lanes):
-                raise ValueError(f"lanes {lanes} not divisible by block {min(block, lanes)}")
-        for name, t in (("w", f.w), ("mw", f.mw), ("vw", f.vw)):
-            if tuple(t.shape) != (WROWS, H):
-                raise ValueError(f"{name} must be ({WROWS}, {H}), got {tuple(t.shape)}")
+        W, lanes, rpb = _data_mode(f, data, row_idx, K, B, obs_dim, block, WROWS)
         hyper = dict(obs_dim=obs_dim, gamma=gamma, tau=tau, lr=lr,
                      target_entropy=target_entropy, alpha_floor=alpha_floor)
 
         if f.w.device.type == "cpu":
-            if row_idx is None:
-                flat = data.transpose(1, 2)
-            else:
-                flat = data[row_idx.long()].transpose(1, 2).reshape(K, B, W)
             packed, adam = fused_unpack(f)
             packed, adam, closs, aloss = update_k_reference(
-                packed, adam, unpack_flat(flat.to(torch.float32), obs_dim, 2), noises,
+                packed, adam, _gathered(data, row_idx, K, B, obs_dim), noises,
                 mm_bf16=mm_bf16, **hyper)
             return fused_init(packed, adam), closs, aloss
         if f.w.device.type != "cuda":
@@ -511,24 +548,8 @@ def _build_width(h: int):
     def _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, fold, *, obs_dim,
                 gamma, tau, lr, target_entropy, alpha_floor):
         """Check what the kernel takes, allocate its scratch, launch it."""
-        if H not in KERNEL_TILE:
-            raise ValueError(f"the CUDA kernels are built for hidden widths "
-                             f"{sorted(KERNEL_TILE)}, got {H}")
-        ts = KERNEL_TILE[H]
-        if lanes % ts:
-            raise ValueError(f"{'batch' if rpb == 0 else 'lanes'} {lanes} must be a multiple of "
-                             f"the kernel's tile of {ts} samples at H={H}")
+        ts, state, row_idx = _kernel_operands(f, data, row_idx, noises, lanes, rpb, VROWS)
         dev = f.w.device
-        state = (f.w, f.vec, f.mw, f.vw, f.mvec, f.vvec)
-        for t in state + (data, noises):
-            if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-                raise TypeError("the CUDA kernel takes contiguous float32 tensors on one device")
-        if tuple(f.vec.shape) != (VROWS, H):
-            raise ValueError(f"vec must be ({VROWS}, {H})")
-        if row_idx is not None:
-            if row_idx.device != dev:
-                raise TypeError("row_idx must be on the state's device")
-            row_idx = row_idx.to(torch.int32).contiguous()
         n_tiles = B // ts
         lib, name = _lib(fold)
         with torch.cuda.device(dev):

@@ -1,11 +1,11 @@
-"""Actor and critic networks of the SAC learner.
+"""Actor and critic networks of the SAC and TD3 learners.
 
 Port of space_gym_tpu/models/networks.py (MLP, TanhGaussianActor,
-DoubleCritic, sample_tanh_gaussian).  The networks are the SB3 defaults, 2x256
+DeterministicActor, DoubleCritic, sample_tanh_gaussian).  The networks are the SB3 defaults, 2x256
 MLPs.  A `Dense` keeps its weight as `kernel` of shape (in, out), the flax
 layout, so that parameters carry over between the packages without a
 transpose (models/convert.py) and slice straight out of the fused learner's
-weight matrix (fused_sac.unpack_actor).
+weight matrix (fused_sac.unpack_actor, fused_td3.unpack_actor).
 """
 from __future__ import annotations
 
@@ -84,6 +84,19 @@ def sample_tanh_gaussian(mean, log_std, eps=None, generator=None):
     logp = -0.5 * (eps**2 + 2 * log_std + LOG2PI)
     logp = logp - 2 * (LOG2 - pre - nn.functional.softplus(-2 * pre))
     return action, logp.sum(-1)
+
+
+class DeterministicActor(nn.Module):
+    """TD3 actor: tanh-bounded deterministic policy."""
+
+    def __init__(self, obs_dim: int, action_dim: int = 2, hidden: Sequence[int] = (256, 256),
+                 generator=None):
+        super().__init__()
+        self.mlp = MLP(obs_dim, hidden, activate_final=True, generator=generator)
+        self.head = Dense(hidden[-1], action_dim, generator)
+
+    def forward(self, obs):
+        return torch.tanh(self.head(self.mlp(obs)))
 
 
 class DoubleCritic(nn.Module):

@@ -1,0 +1,182 @@
+"""What the off-policy trainers (models/sac.py, models/td3.py) have in common:
+optax.adam's arithmetic on dicts of tensors, and the train_iter loop: a
+rollout on the engine's device, a replay insert, the warm-up gate, and the
+choice of what the fused kernels sample from.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..engine.core import EnvEngine
+from .fused_sac import KERNEL_TILE
+from .replay import (Transition, replay_add_slab, replay_sample, replay_sample_rows)
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+class AdamState(NamedTuple):
+    """optax.adam's state: the step count and the two moments, shaped like
+    the parameters (a dict of tensors, or one tensor)."""
+
+    count: int
+    mu: object
+    nu: object
+
+
+def _tmap(fn, *trees):
+    """fn over the leaves of flat dicts of tensors (or over single tensors)."""
+    if isinstance(trees[0], dict):
+        return {k: fn(*[t[k] for t in trees]) for k in trees[0]}
+    return fn(*trees)
+
+
+def adam_init(params) -> AdamState:
+    return AdamState(0, _tmap(torch.zeros_like, params), _tmap(torch.zeros_like, params))
+
+
+def adam_update(grads, st: AdamState, lr: float):
+    """(updates, new state) of optax.adam(lr) with its defaults (b1 0.9, b2
+    0.999, eps 1e-8 outside the root, eps_root 0)."""
+    count = st.count + 1
+    mu = _tmap(lambda m, g: ADAM_B1 * m + (1 - ADAM_B1) * g, st.mu, grads)
+    nu = _tmap(lambda v, g: ADAM_B2 * v + (1 - ADAM_B2) * g * g, st.nu, grads)
+    bc1, bc2 = 1 - ADAM_B1**count, 1 - ADAM_B2**count
+    upd = _tmap(lambda m, v: -lr * (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS), mu, nu)
+    return upd, AdamState(count, mu, nu)
+
+
+class OffPolicyTrainer:
+    """The loop around an off-policy learner on one EnvEngine, on the engine's
+    device: the card unless the engine was made with `device="cpu"`.  A
+    subclass gives `act`, `_update_once` and `_update_fused`, and a state with
+    the fields env_state, obs, replay, step and fused."""
+
+    name = ""              # the algorithm, for messages
+    reward_scale = 1.0     # multiplies rewards entering the replay ring
+
+    def __init__(self, engine: EnvEngine, config, layout_module, device=None):
+        if not engine.config.continuous:
+            raise ValueError(f"{self.name} requires a continuous-action env config")
+        if device is not None and torch.device(device).type != engine.device.type:
+            raise ValueError(f"the trainer runs on its engine's device {engine.device}, "
+                             f"got device={device!r}")
+        self.engine = engine
+        self.device = engine.device
+        self.cfg = config
+        self.obs_dim = engine.obs_dim
+        self.action_dim = engine.config.action_dim
+        if config.fused_updates and self.action_dim != 2:
+            # the packed replay layout and the kernels' head hard-code two actions
+            raise ValueError(
+                f"fused_updates requires action_dim == 2 (got {self.action_dim}); "
+                "use the unfused path for other action dims")
+        # Width-parameterized layout namespace, bound whenever the net shape
+        # fits the packed layout: the format bridges (migrate/rehydrate) need
+        # it on unfused trainers too.
+        h = config.hidden
+        self._layout = None
+        if self.action_dim == 2 and len(h) == 2 and h[0] == h[1] and h[0] % 128 == 0:
+            self._layout = layout_module.build(h[0])
+        if config.fused_updates and self._layout is None:
+            raise ValueError(
+                f"fused_updates requires hidden=(h, h) with h a multiple of 128, got {h}")
+
+    def generator(self, seed: int) -> torch.Generator:
+        """A seeded generator on the trainer's device."""
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _need_layout(self):
+        if self._layout is None:
+            raise ValueError("fused-format bridge requires hidden=(h, h), h % 128 == 0")
+        return self._layout
+
+    def _rollout(self, state, generator):
+        """Collect cfg.rollout_len steps with the behavior policy `act`; returns
+        (env_state, obs, slab with (T, lanes, ...) leaves, rewards, dones)."""
+        env_state, obs = state.env_state, state.obs
+        trs, rewards, dones = [], [], []
+        for _ in range(self.cfg.rollout_len):
+            action = self.act(state.actor_params, obs, generator)
+            env_state, ts = self.engine.step(env_state, action, generator)
+            trs.append(Transition(
+                obs=obs,
+                action=action,
+                reward=self.reward_scale * ts.reward,
+                next_obs=ts.final_obs,
+                discount=1.0 - ts.terminated.to(ts.reward.dtype),
+            ))
+            rewards.append(ts.reward)
+            dones.append(ts.done)
+            obs = ts.obs
+        slab = Transition(*[torch.stack(leaf) for leaf in zip(*trs)])
+        return env_state, obs, slab, torch.stack(rewards), torch.stack(dones)
+
+    def _fused_minibatches(self, state, generator, row_idx, batches):
+        """What the fused entry points get for the K updates: (row_idx, None)
+        when minibatches are whole replay rows, so that the ring itself goes
+        to the kernel with the sampled rows ((K * batch // lanes,), may be
+        injected); else, or when `batches` (Transition, (K, B, ...) leaves) is
+        injected, (None, batches) with gathered minibatches."""
+        c = self.cfg
+        K = c.updates_per_iter
+        lanes_r = state.replay.data.shape[2]
+        bt = min(c.fused_block, lanes_r)
+        tile = KERNEL_TILE.get(c.hidden[0], 1) if self.device.type == "cuda" else 1
+        from_ring = batches is None and (row_idx is not None or (
+            c.batch_size % lanes_r == 0 and lanes_r % bt == 0 and lanes_r % tile == 0))
+        if from_ring:
+            if row_idx is None:
+                row_idx = torch.randint(0, max(state.replay.filled, 1),
+                                        (K * (c.batch_size // lanes_r),), generator=generator,
+                                        device=self.device)
+            return row_idx, None
+        if batches is None:
+            total = K * c.batch_size
+            if total % c.lanes == 0 and c.batch_size >= c.lanes:
+                big = replay_sample_rows(state.replay, generator, total)
+            else:
+                big = replay_sample(state.replay, generator, total)
+            batches = Transition(*[x.reshape(K, c.batch_size, *x.shape[1:]) for x in big])
+        return None, batches
+
+    def _slab_for_replay(self, slab, dones):
+        """The rollout slab as it enters the ring."""
+        return slab
+
+    def _iter_metrics(self, state) -> dict:
+        """Metrics of a train_iter beside the losses and the rollout's."""
+        return {}
+
+    def train_iter(self, state, generator):
+        """One rollout, one replay insert, `updates_per_iter` updates."""
+        c = self.cfg
+        with torch.no_grad():
+            env_state, obs, slab, rewards, dones = self._rollout(state, generator)
+            replay = replay_add_slab(state.replay, self._slab_for_replay(slab, dones))
+        state = state._replace(env_state=env_state, obs=obs, replay=replay)
+
+        # The warm-up gate: before the ring holds min(warmup_rows, replay_rows)
+        # rows the learner state does not change.  The JAX trainers compute the
+        # update and discard it to keep one compiled program; here the update
+        # is skipped, since the kernels update the state in place and nothing
+        # is compiled.
+        nan = torch.full((), float("nan"), device=self.device)
+        metrics = {"critic_loss": nan, "actor_loss": nan}
+        if replay.filled >= min(c.warmup_rows, c.replay_rows):
+            if c.fused_updates:
+                state, metrics = self._update_fused(state, generator)
+            else:
+                for _ in range(c.updates_per_iter):
+                    state, metrics = self._update_once(state, generator)
+        metrics = dict(metrics, mean_reward=rewards.mean(), episodes_done=dones.sum(),
+                       **self._iter_metrics(state))
+        return state._replace(step=state.step + 1), metrics
+
+    def train_iters(self, state, generator, n: int):
+        """n train_iters; returns the last iteration's metrics."""
+        metrics = {}
+        for _ in range(n):
+            state, metrics = self.train_iter(state, generator)
+        return state, metrics

@@ -28,10 +28,8 @@ from torch.func import functional_call
 
 from ..engine.core import EnvEngine
 from . import fused_sac, networks
-from .replay import (ReplayState, Transition, nstep_slab, replay_add_slab, replay_init,
-                     replay_sample, replay_sample_rows)
-
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+from .offpolicy import AdamState, OffPolicyTrainer, _tmap, adam_init, adam_update
+from .replay import ReplayState, Transition, nstep_slab, replay_init, replay_sample
 
 
 class SACConfig(NamedTuple):
@@ -59,37 +57,6 @@ class SACConfig(NamedTuple):
     fused_fold: bool = False     # K5 instead of K4: the minibatch stays in shared memory
 
 
-class AdamState(NamedTuple):
-    """optax.adam's state: the step count and the two moments, shaped like
-    the parameters (a dict of tensors, or one tensor)."""
-
-    count: int
-    mu: object
-    nu: object
-
-
-def _tmap(fn, *trees):
-    """fn over the leaves of flat dicts of tensors (or over single tensors)."""
-    if isinstance(trees[0], dict):
-        return {k: fn(*[t[k] for t in trees]) for k in trees[0]}
-    return fn(*trees)
-
-
-def adam_init(params) -> AdamState:
-    return AdamState(0, _tmap(torch.zeros_like, params), _tmap(torch.zeros_like, params))
-
-
-def adam_update(grads, st: AdamState, lr: float):
-    """(updates, new state) of optax.adam(lr) with its defaults (b1 0.9, b2
-    0.999, eps 1e-8 outside the root, eps_root 0)."""
-    count = st.count + 1
-    mu = _tmap(lambda m, g: ADAM_B1 * m + (1 - ADAM_B1) * g, st.mu, grads)
-    nu = _tmap(lambda v, g: ADAM_B2 * v + (1 - ADAM_B2) * g * g, st.nu, grads)
-    bc1, bc2 = 1 - ADAM_B1**count, 1 - ADAM_B2**count
-    upd = _tmap(lambda m, v: -lr * (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS), mu, nu)
-    return upd, AdamState(count, mu, nu)
-
-
 class SACState(NamedTuple):
     """Full training state.
 
@@ -113,7 +80,7 @@ class SACState(NamedTuple):
     fused: object = None        # FusedState when cfg.fused_updates else None
 
 
-class SACTrainer:
+class SACTrainer(OffPolicyTrainer):
     """SAC over one EnvEngine, on the engine's device: the card unless the
     engine was made with `device="cpu"`.
 
@@ -122,40 +89,16 @@ class SACTrainer:
     >>> st, metrics = tr.train_iter(st, tr.generator(1))
     """
 
+    name = "SAC"
+
     def __init__(self, engine: EnvEngine, config: SACConfig = SACConfig(), device=None):
-        if not engine.config.continuous:
-            raise ValueError("SAC requires a continuous-action env config")
-        if device is not None and torch.device(device).type != engine.device.type:
-            raise ValueError(f"the trainer runs on its engine's device {engine.device}, "
-                             f"got device={device!r}")
-        self.engine = engine
-        self.device = engine.device
-        self.cfg = config
-        self.obs_dim = engine.obs_dim
-        self.action_dim = engine.config.action_dim
-        if config.fused_updates and self.action_dim != 2:
-            # the packed replay layout and the kernels' head hard-code two actions
-            raise ValueError(
-                f"fused_updates requires action_dim == 2 (got {self.action_dim}); "
-                "use the unfused path for other action dims")
-        # Width-parameterized layout namespace, bound whenever the net shape
-        # fits the packed layout: the format bridges (migrate/rehydrate) need
-        # it on unfused trainers too.
-        h = config.hidden
-        self._fs = None
-        if self.action_dim == 2 and len(h) == 2 and h[0] == h[1] and h[0] % 128 == 0:
-            self._fs = fused_sac.build(h[0])
-        if config.fused_updates and self._fs is None:
-            raise ValueError(
-                f"fused_updates requires hidden=(h, h) with h a multiple of 128, got {h}")
+        super().__init__(engine, config, fused_sac, device)
+        self._fs = self._layout
+        self.reward_scale = config.reward_scale
         self.actor = networks.TanhGaussianActor(self.obs_dim, self.action_dim, config.hidden)
         self.critic = networks.DoubleCritic(self.obs_dim, self.action_dim, config.hidden)
         self.target_entropy = (-float(self.action_dim) if config.target_entropy is None
                                else float(config.target_entropy))
-
-    def generator(self, seed: int) -> torch.Generator:
-        """A seeded generator on the trainer's device."""
-        return torch.Generator(device=self.device).manual_seed(seed)
 
     # ----------------------------------------------------------------- init --
     def init(self, seed: int = 0) -> SACState:
@@ -209,27 +152,6 @@ class SACTrainer:
             return torch.tanh(functional_call(self.actor, actor_params, (obs,))[0])
 
     # ------------------------------------------------------------- training --
-    def _rollout(self, state: SACState, generator):
-        """Collect cfg.rollout_len steps with the stochastic policy; returns
-        (env_state, obs, slab with (T, lanes, ...) leaves, rewards, dones)."""
-        env_state, obs = state.env_state, state.obs
-        trs, rewards, dones = [], [], []
-        for _ in range(self.cfg.rollout_len):
-            action = self.act(state.actor_params, obs, generator)
-            env_state, ts = self.engine.step(env_state, action, generator)
-            trs.append(Transition(
-                obs=obs,
-                action=action,
-                reward=self.cfg.reward_scale * ts.reward,
-                next_obs=ts.final_obs,
-                discount=1.0 - ts.terminated.to(ts.reward.dtype),
-            ))
-            rewards.append(ts.reward)
-            dones.append(ts.done)
-            obs = ts.obs
-        slab = Transition(*[torch.stack(leaf) for leaf in zip(*trs)])
-        return env_state, obs, slab, torch.stack(rewards), torch.stack(dones)
-
     def _critic_loss(self, critic_params, state: SACState, batch: Transition, eps):
         c = self.cfg
         with torch.no_grad():
@@ -302,36 +224,20 @@ class SACTrainer:
         injected); else, or when `batches` (Transition, (K, B, ...) leaves) is
         injected, gathered minibatches do.  `noises`: (K, B, 2, A) normals."""
         fs, c = self._fs, self.cfg
-        K = c.updates_per_iter
-        lanes_r = state.replay.data.shape[2]
         if noises is None:
-            noises = torch.randn((K, c.batch_size, 2, self.action_dim), generator=generator,
-                                 device=self.device)
+            noises = torch.randn((c.updates_per_iter, c.batch_size, 2, self.action_dim),
+                                 generator=generator, device=self.device)
         args = dict(obs_dim=self.obs_dim, gamma=c.gamma, tau=c.tau, lr=c.lr,
                     target_entropy=self.target_entropy, alpha_floor=c.alpha_floor,
                     block=c.fused_block, fold=c.fused_fold,
                     # bfloat16-rounded products on the card, as the JAX trainer
                     # on a TPU; float32 on the CPU, as the JAX trainer off it
                     mm_bf16=self.device.type == "cuda")
-        bt = min(c.fused_block, lanes_r)
-        tile = fused_sac.KERNEL_TILE.get(c.hidden[0], 1) if self.device.type == "cuda" else 1
-        from_ring = batches is None and (row_idx is not None or (
-            c.batch_size % lanes_r == 0 and lanes_r % bt == 0 and lanes_r % tile == 0))
-        if from_ring:
-            if row_idx is None:
-                row_idx = torch.randint(0, max(state.replay.filled, 1),
-                                        (K * (c.batch_size // lanes_r),), generator=generator,
-                                        device=self.device)
+        row_idx, batches = self._fused_minibatches(state, generator, row_idx, batches)
+        if batches is None:
             fstate, closs, aloss = fs.fused_update_k_wmat(
                 state.fused, state.replay.data, row_idx, noises, **args)
         else:
-            if batches is None:
-                total = K * c.batch_size
-                if total % c.lanes == 0 and c.batch_size >= c.lanes:
-                    big = replay_sample_rows(state.replay, generator, total)
-                else:
-                    big = replay_sample(state.replay, generator, total)
-                batches = Transition(*[x.reshape(K, c.batch_size, *x.shape[1:]) for x in big])
             fstate, closs, aloss = fs.fused_update_k_wmat_batches(
                 state.fused, batches, noises, **args)
         state = self._refresh_from_fused(state._replace(fused=fstate))
@@ -344,49 +250,13 @@ class SACTrainer:
             actor_params=self._fs.unpack_actor(f.w, f.vec, self.obs_dim, self.action_dim),
             log_alpha=f.vec[self._fs.V_MISC, self._fs.M_LA])
 
-    def train_iter(self, state: SACState, generator):
-        """One rollout, one replay insert, `updates_per_iter` updates."""
-        c = self.cfg
-        with torch.no_grad():
-            env_state, obs, slab, rewards, dones = self._rollout(state, generator)
-            slab = nstep_slab(slab, dones, c.gamma, c.n_step)
-            replay = replay_add_slab(state.replay, slab)
-        state = state._replace(env_state=env_state, obs=obs, replay=replay)
+    def _slab_for_replay(self, slab, dones):
+        return nstep_slab(slab, dones, self.cfg.gamma, self.cfg.n_step)
 
-        # The warm-up gate: before the ring holds min(warmup_rows, replay_rows)
-        # rows the learner state does not change.  The JAX trainer computes the
-        # update and discards it to keep one compiled program; here the update
-        # is skipped, since the kernels update the state in place and nothing
-        # is compiled.
-        nan = torch.full((), float("nan"), device=self.device)
-        metrics = {"critic_loss": nan, "actor_loss": nan}
-        if replay.filled >= min(c.warmup_rows, c.replay_rows):
-            if c.fused_updates:
-                state, metrics = self._update_fused(state, generator)
-            else:
-                for _ in range(c.updates_per_iter):
-                    state, metrics = self._update_once(state, generator)
-        metrics = dict(
-            metrics,
-            mean_reward=rewards.mean(),
-            episodes_done=dones.sum(),
-            alpha=torch.exp(state.log_alpha.detach()),
-        )
-        return state._replace(step=state.step + 1), metrics
-
-    def train_iters(self, state: SACState, generator, n: int):
-        """n train_iters; returns the last iteration's metrics."""
-        metrics = {}
-        for _ in range(n):
-            state, metrics = self.train_iter(state, generator)
-        return state, metrics
+    def _iter_metrics(self, state: SACState) -> dict:
+        return {"alpha": torch.exp(state.log_alpha.detach())}
 
     # ------------------------------------------------------ format bridges --
-    def _need_layout(self):
-        if self._fs is None:
-            raise ValueError("fused-format bridge requires hidden=(h, h), h % 128 == 0")
-        return self._fs
-
     def migrate_to_fused(self, state: SACState) -> SACState:
         """Rebuild the kernel-layout `fused` state from the parameter dicts
         and Adam states of an unfused run.  The target critics' moment slots

@@ -10,7 +10,7 @@ no longer matches the stamp written beside it after the last successful build.
 The env kernels (fused_step, env_step, full_step, full_step_threefry,
 full_step_philox) build with `-fmad=false`: they are held to their plain
 versions operation for operation.  The learner kernels (sac_update,
-sac_update_fold: `FMA_SOURCES`) build with nvcc's default contraction into
+sac_update_fold, td3_update: `FMA_SOURCES`) build with nvcc's default contraction into
 fused multiply-adds: they are chains of matrix products held to a tolerance,
 and the flag would cost up to half the multiply-add rate.
 
@@ -40,7 +40,7 @@ NVCC_FLAGS = [
 # an FMA, so every operation rounds as in the JAX and PyTorch twins;
 # contracted, a*a - b*b of the Kepler reward went negative for near-circular
 # orbits and its square root NaN.
-FMA_SOURCES = frozenset({"sac_update", "sac_update_fold"})
+FMA_SOURCES = frozenset({"sac_update", "sac_update_fold", "td3_update"})
 
 
 def nvcc_flags(name: str) -> list[str]:

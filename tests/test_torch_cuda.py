@@ -14,7 +14,8 @@ kernels are built without FMA contraction, so the two differ by the ulps of
 rsqrtf/sinf/cosf/logf.  The learner kernels K4 and K5 (models/fused_sac.py)
 are held to `update_k_reference` at the tolerances of
 tests/test_torch_fused_sac.py, to themselves bit for bit on a second call, and
-to each other bit for bit.
+to each other bit for bit; the TD3 kernel K6 (models/fused_td3.py) the same
+way, with both step counts held to the plain version's.
 """
 import numpy as np
 import pytest
@@ -22,7 +23,8 @@ import torch
 
 from space_gym_torch import get_config
 from space_gym_torch.engine import EnvEngine, state_from_numpy, state_to_numpy
-from space_gym_torch.models import SACConfig, SACTrainer, fused_sac, networks
+from space_gym_torch.models import (SACConfig, SACTrainer, TD3Config, TD3Trainer, fused_sac,
+                                    fused_td3, networks)
 from space_gym_torch.models.replay import Transition, pack_slab, replay_cols, unpack_flat
 from space_gym_torch.ops.env_step import EnvStep
 from space_gym_torch.ops.full_step import FullStep
@@ -359,3 +361,176 @@ def test_cuda_trainer_launches_its_kernel_every_live_iteration(fold):
                                fused_fold=fold))
     st2, m2 = tr2.train_iter(tr2.init(0), tr2.generator(2))
     assert fused_sac.LAUNCHES[lib] == before + 4 and np.isfinite(float(m2["critic_loss"]))
+
+
+# ----------------------------------------------------- the learner kernel K6 --
+TD3_HYPER = dict(gamma=0.99, tau=0.005, lr=3e-4, smooth_std=0.2, smooth_clip=0.5)
+
+
+def _td3_case(h, K, B, lanes, warm, delay, obs_dim=13, rows=8, seed=4):
+    """A TD3 learner after `warm` plain updates (the kernel starts from that
+    count), targets drawn apart from the online networks, a ring, row indices
+    with a repeated row, the same minibatches gathered, normals; on the card."""
+    ns = fused_td3.build(h)
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    nets = [networks.DeterministicActor(obs_dim, 2, (h, h), generator=g) for _ in range(2)] + [
+        networks.DoubleCritic(obs_dim, 2, (h, h), generator=g) for _ in range(2)]
+    packed = fused_td3.PackedParams(*[x.cuda() for x in ns.pack_params(*nets)])
+
+    def f32(a):
+        return torch.as_tensor(a.astype(np.float32)).cuda()
+
+    ring = pack_slab(Transition(
+        obs=f32(rng.standard_normal((rows, lanes, obs_dim))),
+        action=f32(rng.uniform(-1, 1, (rows, lanes, 2))),
+        reward=f32(rng.standard_normal((rows, lanes))),
+        next_obs=f32(rng.standard_normal((rows, lanes, obs_dim))),
+        discount=f32(rng.random((rows, lanes)) > 0.1)), obs_dim, 2)
+    idx = rng.integers(0, rows, K * B // lanes)
+    idx[-1] = idx[0]
+    row_idx = torch.as_tensor(idx).cuda()
+    w = replay_cols(obs_dim, 2)[-1]
+    batches = unpack_flat(ring[row_idx].transpose(1, 2).reshape(K, B, w), obs_dim, 2)
+    noises = f32(rng.standard_normal((K, B, 2)))
+    hyper = dict(TD3_HYPER, obs_dim=obs_dim, policy_delay=delay)
+    first = Transition(*[x[:1].repeat(warm, *[1] * (x.dim() - 1)) for x in batches])
+    packed, adam, _, _ = ns.update_k_reference(packed, ns.adam_init(packed), first,
+                                               noises[:1].repeat(warm, 1, 1), **hyper)
+    return ns, packed, adam, ring, row_idx, batches, noises, hyper
+
+
+def _close_but_for_relu_flips(got, want, rtol, K, name):
+    """Within rtol / atol 2e-5 of the plain version, but for what one ReLU
+    flip does: over K * B samples and 1280 hidden units a pre-activation now
+    and then lies within float32 rounding of zero, the kernel and the plain
+    version (sums in another order) then disagree on that unit's mask for that
+    sample, and Adam's division by sqrt(v) turns the one-sample difference in a
+    column of gradients into a fraction of lr.  So as many elements as one
+    column of the tensor holds (or 2) may miss the tolerance, none by more
+    than lr per update."""
+    d = (got - want).abs()
+    bad = int((d > 2e-5 + rtol * want.abs()).sum())
+    assert bad <= max(2, got.numel() // 256), (name, bad, d.max().item())
+    assert d.max().item() <= TD3_HYPER["lr"] * K, (name, d.max().item())
+
+
+def _same_td3(a, b):
+    return _same_bits(a, b) and a[0][6:] == b[0][6:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,K,B,lanes,warm,delay", [(256, 3, 4096, 2048, 1, 2),
+                                                    (256, 4, 4096, 2048, 1, 3),
+                                                    (512, 2, 2048, 1024, 2, 2),
+                                                    (128, 3, 1024, 512, 3, 1)])
+def test_cuda_td3_update_kernel_matches_the_plain_version(h, K, B, lanes, warm, delay):
+    """K6 from the ring and from gathered minibatches, float32, from an odd or
+    even count with policy_delay 1, 2 and 3."""
+    _need_card()
+    ns, packed, adam, ring, row_idx, batches, noises, hyper = _td3_case(h, K, B, lanes, warm,
+                                                                        delay)
+    hyper = dict(hyper, mm_bf16=False)
+    want_p, want_ad, want_cl, want_al = ns.update_k_reference(packed, adam, batches, noises,
+                                                              **hyper)
+    outs = {}
+    for mode in ("ring", "batches"):
+        runs = []
+        for _ in range(2):
+            f0 = ns.fused_init(packed, adam)
+            before = fused_td3.LAUNCHES["td3_update"]
+            if mode == "ring":
+                out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, **hyper)
+            else:
+                out = ns.fused_update_k_wmat_batches(f0, batches, noises, **hyper)
+            torch.cuda.synchronize()
+            assert fused_td3.LAUNCHES["td3_update"] == before + 1
+            assert out[0].w is f0.w, "the state is updated in place"
+            runs.append((out[0], out[1].clone(), out[2].clone()))
+        assert _same_td3(*runs), "a second call gives the same bits"
+        outs[mode] = runs[0]
+        got_p, got_ad = ns.fused_unpack(runs[0][0])
+        assert (got_ad.count, got_ad.count_a) == (want_ad.count, want_ad.count_a)
+        assert got_ad.count == warm + K
+        assert torch.allclose(runs[0][1], want_cl, rtol=1e-4, atol=1e-5)
+        assert torch.allclose(runs[0][2], want_al, rtol=1e-3, atol=1e-5)
+        for f in fused_td3.PackedParams._fields:
+            _close_but_for_relu_flips(getattr(got_p, f), getattr(want_p, f), 2e-4, K, f)
+            _close_but_for_relu_flips(getattr(got_ad.m, f), getattr(want_ad.m, f), 2e-3, K, f)
+            _close_but_for_relu_flips(getattr(got_ad.v, f), getattr(want_ad.v, f), 2e-3, K, f)
+    assert _same_td3(outs["ring"], outs["batches"]), "ring = batches, bit for bit"
+    # K updates in one launch equal K launches of one update, both counts carried on
+    rpb = B // lanes
+    f0 = ns.fused_init(packed, adam)
+    cls, als = [], []
+    for k in range(K):
+        f0, cl, al = ns.fused_update_k_wmat(f0, ring, row_idx[k * rpb:(k + 1) * rpb],
+                                            noises[k:k + 1], **hyper)
+        cls.append(cl.clone())
+        als.append(al.clone())
+    assert _same_td3((f0, torch.cat(cls), torch.cat(als)), outs["ring"])
+
+
+@pytest.mark.cuda
+def test_cuda_td3_update_bf16_mode_and_rejections():
+    """mm_bf16=True (the trainer's mode on the card) against the plain
+    version's: an element may move by 2.5 lr per update where bf16 flips the
+    sign of a near-zero gradient, 99% agree to 1e-4.  Then what the entry
+    points do not take."""
+    _need_card()
+    ns, packed, adam, ring, row_idx, batches, noises, hyper = _td3_case(256, 2, 4096, 2048, 1, 2)
+    want_p, _, want_cl, _ = ns.update_k_reference(packed, adam, batches, noises, mm_bf16=True,
+                                                  **hyper)
+    f1, cl, _ = ns.fused_update_k_wmat(ns.fused_init(packed, adam), ring, row_idx, noises,
+                                       mm_bf16=True, **hyper)
+    got_p, _ = ns.fused_unpack(f1)
+    assert torch.allclose(cl, want_cl, rtol=1e-3)
+    for f in ("a_w1", "a_w2", "ta_w2", "c_w1", "c_w2", "t_w2"):
+        d = (getattr(got_p, f) - getattr(want_p, f)).abs()
+        assert d.max().item() <= 2 * 2.5 * TD3_HYPER["lr"], f
+        assert (d <= 1e-4).float().mean().item() > 0.99, f
+    f0 = ns.fused_init(packed, adam)
+    with pytest.raises(TypeError):      # the ring in float64
+        ns.fused_update_k_wmat(f0, ring.double(), row_idx, noises, **hyper)
+    with pytest.raises(ValueError):     # a batch that is no multiple of the kernel's tile
+        ns.fused_update_k_wmat_batches(f0, Transition(*[x[:, :100] for x in batches]),
+                                       noises[:, :100], **hyper)
+    with pytest.raises(TypeError):      # row indices on the CPU
+        ns.fused_update_k_wmat(f0, ring, row_idx.cpu(), noises, **hyper)
+    ns640 = fused_td3.build(640)
+    nets = [networks.DeterministicActor(13, 2, (640, 640)) for _ in range(2)] + [
+        networks.DoubleCritic(13, 2, (640, 640)) for _ in range(2)]
+    p640 = fused_td3.PackedParams(*[x.cuda() for x in ns640.pack_params(*nets)])
+    with pytest.raises(ValueError):     # a width the kernel is not built for
+        ns640.fused_update_k_wmat(ns640.fused_init(p640, ns640.adam_init(p640)), ring, row_idx,
+                                  noises, **hyper)
+
+
+@pytest.mark.cuda
+def test_cuda_td3_trainer_launches_its_kernel_every_live_iteration():
+    _need_card()
+    tr = TD3Trainer(EnvEngine(get_config("GoalContinuous2P-v0")),
+                    TD3Config(lanes=512, rollout_len=4, replay_rows=64, batch_size=1024,
+                              updates_per_iter=3, warmup_rows=8, fused_updates=True))
+    assert tr.device.type == "cuda"
+    st = tr.init(0)
+    g = tr.generator(1)
+    before = fused_td3.LAUNCHES["td3_update"]
+    w0 = st.fused.w.clone()
+    st, m = tr.train_iter(st, g)
+    assert torch.equal(st.fused.w, w0) and fused_td3.LAUNCHES["td3_update"] == before
+    for _ in range(3):
+        st, m = tr.train_iter(st, g)
+    assert fused_td3.LAUNCHES["td3_update"] == before + 3
+    assert (st.fused.count, st.fused.count_a, st.n_updates) == (9, 5, 9)
+    assert not torch.equal(st.fused.w, w0)
+    assert all(np.isfinite(float(v)) for v in m.values())
+    want = tr._ft.unpack_actor(st.fused.w, st.fused.vec, tr.obs_dim)
+    assert all(torch.equal(st.actor_params[k], want[k]) for k in want)
+    # a batch that is no multiple of the lanes goes through the kernel's batches mode
+    tr2 = TD3Trainer(EnvEngine(get_config("GoalContinuous2P-v0")),
+                     TD3Config(lanes=512, rollout_len=4, replay_rows=64, batch_size=768,
+                               updates_per_iter=2, warmup_rows=4, fused_updates=True))
+    st2, m2 = tr2.train_iter(tr2.init(0), tr2.generator(2))
+    assert fused_td3.LAUNCHES["td3_update"] == before + 4
+    assert np.isfinite(float(m2["critic_loss"]))
