@@ -31,7 +31,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      minibatches and from rows of a replay ring, in float32 and with
      bfloat16-rounded products; each call twice, equal bits; K updates in one
      launch against K launches of one update, equal bits; K5 against K4,
-     equal bits; one check at H=512;
+     equal bits; the same at H=512; the bf16 mode runs its products on the
+     tensor cores, so the HMMA instructions in K4's and K5's SASS are
+     counted after the build (none is a failure);
      the TD3 learner kernel K6 (csrc/td3_update.cu) against its plain version
      the same way, with policy_delay 2 and 3 from an odd update count, the two
      step counts held to the plain version's;
@@ -48,10 +50,18 @@ Everything is made from seeds; it needs no network and imports no JAX.
 
     python3 chip_smoke.py --sac-bits
 
-prints instead, for the checkout the script lies in, a SHA-256 of K4's and
-K5's outputs (w, vec, the moments, the losses) on the inputs of phase 6's
-cases at H=256 and their ms per launch at the training path's shapes: two
-checkouts that print the same digests on one card compute the same bits.
+prints instead, for the checkout the script lies in, a SHA-256 of K4's, K5's
+and K6's outputs (w, vec, the moments, the losses) on the inputs of phase 6's
+first cases at H=256, float32 and bf16 mode, gathered minibatches and ring,
+and their ms per launch in both modes at the training path's shapes: two
+checkouts that print the same digest for a kernel and mode on one card
+compute the same bits there.
+
+    python3 chip_smoke.py --phase-clock
+
+prints instead where a launch of K4 and of K5 (tensor-core path, the training
+path's shapes) spends its time, by stage, from builds with the phase clock
+(-DSG_PHASE_CLOCK): for want of a profiler of a kernel's insides.
 """
 from __future__ import annotations
 
@@ -934,16 +944,16 @@ def check_sac_kernel(dev, fold, h=SAC_H, K=4, B=SAC_B, lanes=SAC_LANES, modes=(F
 
 
 def check_k4(dev):
-    """K4 against the plain version at H=256 (both modes) and at H=512."""
+    """K4 against the plain version at H=256 and at H=512, both modes."""
     errs, results = check_sac_kernel(dev, fold=False)
-    _, r512 = check_sac_kernel(dev, fold=False, h=512, K=2, B=4096, modes=(False,))
+    _, r512 = check_sac_kernel(dev, fold=False, h=512, K=2, B=4096)
     return errs, {**results, **{(512,) + k: v for k, v in r512.items()}}
 
 
 def check_k5(dev, k4_results):
     """K5 against the plain version, then against K4: equal bits."""
     errs, results = check_sac_kernel(dev, fold=True)
-    _, r512 = check_sac_kernel(dev, fold=True, h=512, K=2, B=4096, modes=(False,))
+    _, r512 = check_sac_kernel(dev, fold=True, h=512, K=2, B=4096)
     results.update({(512,) + k: v for k, v in r512.items()})
     for key, res in results.items():
         if not sac_state_equal(res, k4_results[key]):
@@ -1149,6 +1159,11 @@ def train_path(dev, card, algo, fold=False, n_iters=9, kernel_ms=None):
     a = torch.randn((SAC_B, SAC_H), device=dev)
     b = torch.randn((SAC_H, SAC_H), device=dev)
     matmul_ms = cuda_ms(lambda: torch.matmul(a, b), iters=200, warmup=20)
+    # the same product on bf16 operands into float32, the mode of the kernels'
+    # tensor-core products
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    matmul16_ms = cuda_ms(lambda: torch.mm(a16, b16, out_dtype=torch.float32), iters=200,
+                          warmup=20)
     # both modes back to back on a copy of the state, by CUDA events
     call_ms = {}
     for bf in (True, False):
@@ -1177,7 +1192,9 @@ def train_path(dev, card, algo, fold=False, n_iters=9, kernel_ms=None):
           f"{call_ms[True]:.3f} ms per call back to back with bf16-rounded products, "
           f"{call_ms[False]:.3f} ms in float32; plain version {plain_ms:.1f} ms; "
           f"torch.matmul(({SAC_B}, {SAC_H}) x ({SAC_H}, {SAC_H})) {matmul_ms:.5f} ms x "
-          f"{products} products = {matmul_ms * products:.3f} ms; peak device memory "
+          f"{products} products = {matmul_ms * products:.3f} ms in float32, "
+          f"{matmul16_ms:.5f} ms x {products} = {matmul16_ms * products:.3f} ms on bf16 "
+          f"operands; peak device memory "
           f"{peak_mb:.0f} MiB; counts {st.fused[6:]}; last metrics {last}", flush=True)
     print(f"  {name} bound: {ops['f32'] / 1e9:.1f} G operations and {byts / 1e6:.1f} MB "
           f"per launch; bytes {bnd['bytes']:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s; operations "
@@ -1186,53 +1203,156 @@ def train_path(dev, card, algo, fold=False, n_iters=9, kernel_ms=None):
           f"bf16-rounded products at {BF16_OPS_PER_S / 1e12} TFLOP/s (what the card could reach "
           f"for the main path's mm_bf16=True)", flush=True)
     return dict(launches=launches, ms=dev_ms, plain_ms=plain_ms, bound=bnd, bound_f32=bnd_f32,
-                library_ms=matmul_ms * products, it_ms=it_mean, roll_ms=roll_mean,
+                library_ms=matmul_ms * products, library16_ms=matmul16_ms * products,
+                it_ms=it_mean, roll_ms=roll_mean,
                 upd_ms=upd_mean, sps=sps, call_ms=call_ms, peak_mb=peak_mb)
 
 
 def sac_bits(dev, card):
-    """A SHA-256 of what K4 and K5 write (w, vec, the moments, the losses) on
-    the inputs of check_k4's cases at H=256, and their ms per launch at the
-    training path's shapes by CUDA events.  Uses the SAC kernels alone."""
+    """A SHA-256 of what K4, K5 and K6 write (w, vec, the moments, the losses)
+    on the inputs of check_k4's and check_k6's first cases at H=256, in both
+    modes and both data modes, and their ms per launch at the training path's
+    shapes by CUDA events.  Uses the learner kernels alone: run it from two
+    checkouts to see which bits a change of their code moved."""
     import hashlib
 
-    ns, packed, adam, ring, row_idx, batches, noises, hyper = sac_inputs(
-        dev, SAC_H, 4, SAC_B, SAC_LANES)
-    for fold in (False, True):
-        name = "K5" if fold else "K4"
+    def digest(name, ns, out, mode, bf):
+        h = hashlib.sha256()
+        for t in (*out[0][:6], out[1], out[2]):
+            h.update(t.detach().cpu().numpy().tobytes())
+        print(f"bits {name} H={SAC_H} K=4 B={SAC_B} {mode} mm_bf16={bf}: sha256 "
+              f"{h.hexdigest()[:16]} sum(w) {out[0].w.double().sum().item():.12g} "
+              f"sum(vec) {out[0].vec.double().sum().item():.12g} sum(mw) "
+              f"{out[0].mw.double().sum().item():.12g}", flush=True)
+
+    cases = [("K4", sac_inputs(dev, SAC_H, 4, SAC_B, SAC_LANES), dict(fold=False)),
+             ("K5", None, dict(fold=True)),
+             ("K6", td3_inputs(dev, SAC_H, 4, SAC_B, SAC_LANES, delay=2, warm=3), {})]
+    cases[1] = ("K5", cases[0][1], cases[1][2])
+    for name, inputs, kw in cases:
+        ns, packed, adam, ring, row_idx, batches, noises, hyper = inputs
         for bf in (False, True):
             for mode in ("batches", "ring"):
                 f0 = ns.fused_init(packed, adam)
                 if mode == "ring":
                     out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
-                                                 mm_bf16=bf, fold=fold, **hyper)
+                                                 mm_bf16=bf, **kw, **hyper)
                 else:
                     out = ns.fused_update_k_wmat_batches(f0, batches, noises, block=2048,
-                                                         mm_bf16=bf, fold=fold, **hyper)
+                                                         mm_bf16=bf, **kw, **hyper)
                 torch.cuda.synchronize()
-                h = hashlib.sha256()
-                for t in (*out[0][:6], out[1], out[2]):
-                    h.update(t.detach().cpu().numpy().tobytes())
-                print(f"bits {name} H={SAC_H} K=4 B={SAC_B} {mode} mm_bf16={bf}: sha256 "
-                      f"{h.hexdigest()[:16]} sum(w) {out[0].w.double().sum().item():.12g} "
-                      f"sum(vec) {out[0].vec.double().sum().item():.12g} sum(mw) "
-                      f"{out[0].mw.double().sum().item():.12g}", flush=True)
+                digest(name, ns, out, mode, bf)
+    timed = [("K4", sac_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES), dict(fold=False)),
+             ("K6", td3_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES, delay=2, warm=2), {})]
+    timed.insert(1, ("K5", timed[0][1], dict(fold=True)))
+    for name, inputs, kw in timed + timed[::-1]:
+        ns, packed, adam, ring, row_idx, batches, noises, hyper = inputs
+        for bf in (True, False):
+            f0 = ns.fused_init(packed, adam)
+            ms = cuda_ms(lambda: ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
+                                                        mm_bf16=bf, **kw, **hyper),
+                         iters=5, warmup=2)
+            print(f"time {name} H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16={bf} on {card}: "
+                  f"{ms:.4f} ms per call by CUDA events", flush=True)
+
+
+def phase_clock(dev, card):
+    """Where a launch of K4 and of K5 spends its time, for want of a profiler
+    of a kernel's insides: each built with the phase clock (-DSG_PHASE_CLOCK,
+    learner_tiles.cuh) into build/phase_clock/, launched once at the training
+    path's shapes (K=32, B=8192, H=256, ring, mm_bf16=True), block 0's cycles
+    per update printed by stage under the names the library gives its marks;
+    then the clocked and the plain build timed in turns by CUDA events (the
+    marks' barriers cost a little)."""
+    import ctypes
+
+    from space_gym_torch.models import fused_sac
+    from space_gym_torch.utils import cuda_build
+
+    root = os.path.join(HERE, "build", "phase_clock")
+    os.makedirs(root, exist_ok=True)
+    procs = {}
+    for fold in (False, True):
+        name = "sac_update_fold" if fold else "sac_update"
+        lib = os.path.join(root, f"lib{name}.so")
+        procs[fold] = (lib, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.nvcc_flags(name), "-DSG_PHASE_CLOCK", "-o", lib,
+             os.path.join(cuda_build.CSRC, f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    cuda_build.build_all(["sac_update", "sac_update_fold"])
+    clocked = {}
+    for fold, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"the phase-clock build of K{5 if fold else 4} did not build:\n{out[-4000:]}")
+        handle = ctypes.CDLL(lib)
+        real, name = fused_sac._lib(fold)
+        for fn in (name, name + "_plan"):
+            getattr(handle, fn).argtypes = getattr(real, fn).argtypes
+            getattr(handle, fn).restype = getattr(real, fn).restype
+        handle.sg_phase_name.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+        clocked[fold] = (handle, name)
     ns, packed, adam, ring, row_idx, batches, noises, hyper = sac_inputs(
         dev, SAC_H, SAC_K, SAC_B, SAC_LANES)
-    for fold in (False, True, True, False):
-        f0 = ns.fused_init(packed, adam)
-        ms = cuda_ms(lambda: ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
-                                                    mm_bf16=True, fold=fold, **hyper),
-                     iters=5, warmup=2)
-        print(f"time {'K5' if fold else 'K4'} H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16=True "
-              f"on {card}: {ms:.4f} ms per call by CUDA events", flush=True)
+    real_lib = fused_sac._lib
+
+    def call(fold):
+        return ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048, mm_bf16=True,
+                                      fold=fold, **hyper)
+
+    times = {}
+    try:
+        for fold, (handle, _) in clocked.items():
+            fused_sac._lib = lambda fold, h=clocked[fold]: h
+            f0 = ns.fused_init(packed, adam)
+            cyc = (ctypes.c_ulonglong * 256)()
+            handle.sg_phase_read(cyc)
+            call(fold)
+            torch.cuda.synchronize()
+            if handle.sg_phase_read(cyc) != 0:
+                fail(f"K{5 if fold else 4}: the phase clock could not be read")
+            total = sum(cyc)
+            print(f"phase clock K{5 if fold else 4} H={SAC_H} K={SAC_K} B={SAC_B} ring "
+                  f"mm_bf16=True, block 0, {total / SAC_K:.0f} SM cycles per update:", flush=True)
+            label = ctypes.create_string_buffer(96)
+            for i in sorted(range(256), key=lambda i: -cyc[i]):
+                if cyc[i]:
+                    handle.sg_phase_name(i, label, len(label))
+                    print(f"  {100 * cyc[i] / total:5.1f}% {cyc[i] / SAC_K:9.0f} cycles/update  "
+                          f"[{i}] {label.value.decode()}")
+        for clock in (False, True, True, False):
+            for fold in (False, True):
+                fused_sac._lib = (lambda fold, h=clocked[fold]: h) if clock else real_lib
+                f0 = ns.fused_init(packed, adam)
+                times.setdefault((fold, clock), []).append(
+                    cuda_ms(lambda: call(fold), iters=5, warmup=2))
+    finally:
+        fused_sac._lib = real_lib
+    for (fold, clock), ms in times.items():
+        print(f"time K{5 if fold else 4} {'with' if clock else 'without'} the phase clock "
+              f"H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16=True: "
+              + ", ".join(f"{t:.4f}" for t in ms) + f" ms per call by CUDA events on {card}",
+              flush=True)
 
 
-def kernel_entry(name, source, replaces, launches, err, ms, plain, bnd, library=None):
+def kernel_entry(name, source, replaces, launches, err, ms, plain, bnd, library=None, **extra):
     by = max(bnd, key=bnd.get)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd[by], "bound_by": by, "library_ms": library}
+            "bound_ms": bnd[by], "bound_by": by, "library_ms": library, **extra}
+
+
+def tensor_core_counts():
+    """HMMA instructions in the SASS of the three learner libraries: K4 and
+    K5 run their bf16-mode products on the tensor cores, K6 does not yet."""
+    from space_gym_torch.utils import cuda_build
+
+    counts = {n: cuda_build.sass_count(n, "HMMA")
+              for n in ("sac_update", "sac_update_fold", "td3_update")}
+    print(f"HMMA instructions in the SASS: {counts}", flush=True)
+    if counts["sac_update"] == 0 or counts["sac_update_fold"] == 0:
+        fail(f"K4/K5 hold no tensor-core instruction: {counts}")
+    return counts
 
 
 def main():
@@ -1256,9 +1376,12 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     if sys.argv[1:] == ["--sac-bits"]:
         t0 = time.perf_counter()
-        reports = cuda_build.build_all(["sac_update", "sac_update_fold"])
+        reports = cuda_build.build_all(["sac_update", "sac_update_fold", "td3_update"])
         print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(reports)}", flush=True)
         sac_bits(dev, card)
+        return
+    if sys.argv[1:] == ["--phase-clock"]:
+        phase_clock(dev, card)
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
@@ -1268,6 +1391,7 @@ def main():
     reports = cuda_build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(reports)}", flush=True)
     print_build(reports)
+    hmma = tensor_core_counts()
 
     # ---------------------------------------------- 3. kernels vs twins --
     k1_check_err = check_k1(dev, CHECK_B)
@@ -1332,8 +1456,11 @@ def main():
     # against the plain version in phase 6, either mode; library_ms is
     # torch.matmul of one (8192, 256) x (256, 256) product times the 512 such
     # products of a launch: a yardstick for the products alone, no single
-    # PyTorch call computes the update.  K6 the same from the TD3 training
-    # path, whose launches have 400 such products (16 of 32 updates delayed).
+    # PyTorch call computes the update; library16_ms the same products on
+    # bf16 operands with float32 output, the precision of mm_bf16=True.  K6
+    # the same from the TD3 training path, whose launches have 400 such
+    # products (16 of 32 updates delayed).  hmma: the tensor-core
+    # instructions in each learner library's SASS.
     csrc = "space_gym_torch/csrc/"
     tf, hw = keyed["threefry"], keyed["philox"]
     kernels = {"kernels": [
@@ -1359,17 +1486,20 @@ def main():
                      "space_gym_tpu/models/fused_sac.py:759",
                      train[False]["launches"]["sac_update"], max(k4_errs.values()),
                      train[False]["ms"], train[False]["plain_ms"], train[False]["bound"],
-                     train[False]["library_ms"]),
+                     train[False]["library_ms"], library16_ms=train[False]["library16_ms"],
+                     hmma=hmma["sac_update"]),
         kernel_entry("sac_update_fold", csrc + "sac_update_fold.cu",
                      "space_gym_tpu/models/fused_sac.py:866",
                      train[True]["launches"]["sac_update_fold"], max(k5_errs.values()),
                      train[True]["ms"], train[True]["plain_ms"], train[True]["bound"],
-                     train[True]["library_ms"]),
+                     train[True]["library_ms"], library16_ms=train[True]["library16_ms"],
+                     hmma=hmma["sac_update_fold"]),
         kernel_entry("td3_update", csrc + "td3_update.cu",
                      "space_gym_tpu/models/fused_td3.py:421",
                      train["td3"]["launches"]["td3_update"], max(k6_errs.values()),
                      train["td3"]["ms"], train["td3"]["plain_ms"], train["td3"]["bound"],
-                     train["td3"]["library_ms"]),
+                     train["td3"]["library_ms"], library16_ms=train["td3"]["library16_ms"],
+                     hmma=hmma["td3_update"]),
     ]}
     if any(k["launches"] <= 0 for k in kernels["kernels"]):
         fail(f"a kernel was launched no time on its path: {kernels}")

@@ -7,7 +7,7 @@
 // barriers and wrong arithmetic where there is no card.  Used by
 // tests/test_torch_sac_kernel_host.py through sac_update_host.cpp and by
 // tests/test_torch_td3_kernel_host.py through td3_update_host.cpp.
-#include <barrier>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -23,11 +23,48 @@
 #define __align__(x)
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+struct uint4 { unsigned x, y, z, w; };
+// a store and a load with a cache hint
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
+template <class T> inline T __ldcs(const T* p) { return *p; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3(unsigned a = 1) : x(a) {} };
+// A warp's exchange area for the emulated warp-level instructions of
+// mma_emul.h (ldmatrix, mma): two halves of one slot a lane.
+struct WarpX {
+    struct Lane { const void* ptr; unsigned reg[6]; } lane[2][32];
+};
+// A barrier of n threads that yields a while and then sleeps: with many more
+// threads than cores a warp or block barrier mostly completes while its
+// members yield to each other, without a sleep and a wake-up in the kernel
+// per member; a member that waits longer (a loaded machine) sleeps on the
+// atomic and leaves the cores to other processes.
+struct Barrier {
+    std::atomic<int> count{0}, phase{0};
+    const int n;
+    explicit Barrier(int n_) : n(n_) {}
+    void arrive_and_wait() {
+        constexpr int yields = 16;
+        const int ph = phase.load(std::memory_order_acquire);
+        if (count.fetch_add(1, std::memory_order_acq_rel) == n - 1) {
+            count.store(0, std::memory_order_relaxed);
+            phase.store(ph + 1, std::memory_order_release);
+            phase.notify_all();
+            return;
+        }
+        for (int i = 0; phase.load(std::memory_order_acquire) == ph; i++) {
+            if (i < yields) std::this_thread::yield();
+            else phase.wait(ph, std::memory_order_acquire);
+        }
+    }
+};
 struct ThreadCtx {
     dim3 tid, bid, bdim, gdim;
-    std::barrier<>* block_bar; std::barrier<>* grid_bar; std::barrier<>* warp_bar;
+    Barrier* block_bar; Barrier* grid_bar; Barrier* warp_bar;
     float* warp_slots; unsigned* warp_bits; float* smem;
+    WarpX* warpx; int xhalf;
 };
 inline thread_local ThreadCtx tctx;
 #define threadIdx (tctx.tid)
@@ -70,14 +107,15 @@ template <class A>
 cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, size_t smem) {
     A args = *static_cast<A*>(params[0]);
     int G = grid.x, T = block.x, nw = (T + 31) / 32;
-    std::barrier<> gbar(G * T);
-    std::vector<std::unique_ptr<std::barrier<>>> bbar, wbar;
+    Barrier gbar(G * T);
+    std::vector<std::unique_ptr<Barrier>> bbar, wbar;
     std::vector<std::vector<float>> sm(G, std::vector<float>(smem / 4 + 16, NAN));
     std::vector<std::vector<float>> slots(G * nw, std::vector<float>(32));
     std::vector<std::vector<unsigned>> bits(G * nw, std::vector<unsigned>(32));
+    std::vector<WarpX> xch(G * nw);
     for (int b = 0; b < G; b++) {
-        bbar.emplace_back(new std::barrier<>(T));
-        for (int w = 0; w < nw; w++) wbar.emplace_back(new std::barrier<>(std::min(32, T - 32 * w)));
+        bbar.emplace_back(new Barrier(T));
+        for (int w = 0; w < nw; w++) wbar.emplace_back(new Barrier(std::min(32, T - 32 * w)));
     }
     std::vector<std::thread> th;
     for (int b = 0; b < G; b++)
@@ -89,6 +127,8 @@ cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, siz
                 tctx.warp_slots = slots[b * nw + t / 32].data();
                 tctx.warp_bits = bits[b * nw + t / 32].data();
                 tctx.smem = sm[b].data();
+                tctx.warpx = &xch[b * nw + t / 32];
+                tctx.xhalf = 0;
                 fn(args);
             });
     for (auto& x : th) x.join();

@@ -6,6 +6,12 @@
 // (a critic's forward and backward against a given target, the critics' Adam
 // stage, the actor's backward from its head gradients).
 //
+// The stages are templates over the tile type, which brings its products and
+// their stores as members and the layout of the activation buffers as
+// `ix(s, j)`: Tile<H> here (float32 multiply-adds on the CUDA cores, K6 and
+// the float32 mode of K4/K5) or MTile<H> of learner_mma.cuh (the tensor
+// cores, the bf16 mode of K4/K5).
+//
 // The algorithm's header supplies `Args` (the launch's operands; the functions
 // here are templates over it and read the fields w, vec, mw, vw, mvec, vvec,
 // data, row_idx, noise, losses, partials, wt, B, W, lanes, rpb, od, tau) and a
@@ -21,9 +27,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace tiles {
+
+typedef __nv_bfloat16 bf16;
 
 constexpr int IN1 = 128;      // padded first-layer input width
 constexpr int KC = 16;        // weight rows per shared-memory chunk
@@ -53,16 +63,52 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
+__device__ __forceinline__ void put(float* p, float v, bool first) { *p = first ? v : *p + v; }
+
+// The activation buffers every stage works in: A and Bm (TS, H), the weight
+// chunk wch (KC, H) or the ring of bf16 weight stages, and xin (W, TS), the
+// first layer's feature-major input.
+struct Bufs {
+    float *A, *Bm, *wch, *xin;
+    bf16* ring;
+};
+
 // One thread's 8 x 8 tile of a (TS, H) output: rows ty*8 + i, columns
-// tx*4 + j (j < 4) and H/2 + tx*4 + j - 4 (j >= 4).
+// tx*4 + j (j < 4) and H/2 + tx*4 + j - 4 (j >= 4).  The products are float32
+// multiply-adds on the CUDA cores (the free functions below); the members
+// give them the interface that the stages call.
 template <int H>
 struct Tile {
     static constexpr int RG = row_groups(H);
     static constexpr int TS = 8 * RG;
     static constexpr int NT = (H / 8) * RG;
+    static constexpr bool MMA = false;     // float32 multiply-adds on the CUDA cores
     float acc[8][8];
     int tx, ty;
     __device__ Tile() : tx(threadIdx.x % (H / 8)), ty(threadIdx.x / (H / 8)) {}
+    // where element (s, j) of an activation buffer lies
+    __device__ static int ix(int s, int j) { return s * H + j; }
+    // acc = A . W (w: W in float32; rounded at staging in bf mode)
+    __device__ void fwd(const Bufs& S, const float* A, const float* w, const bf16*, int bf);
+    // acc = A . W^T (wt: the transposed float32 copy of W)
+    __device__ void bwd(const Bufs& S, const float* A, const float* wt, const bf16*, int bf);
+    // acc = xin^T . W1: the first Kdim rows, those below od rounded in bf mode
+    __device__ void first(const Bufs& S, const float* w1, const bf16*, int Kdim, int od, int bf);
+    __device__ void wgrad(const Bufs& S, const float* A, const float* Bm, float* out,
+                          bool first);
+    __device__ void relu(const float* bias, float* dst, int bf, float* gdst) const;
+    __device__ void masked_inplace(float* A) const;
+    __device__ void masked_bits(const unsigned* m, float* dst) const;
+    // out[e][s] = sum_j buf[s][j] rnd(w[e ws + j]) + add[e], e < NR
+    template <int NR>
+    __device__ void row_dots(const float* buf, const float* w, size_t ws, const float (&add)[NR],
+                             int bf, float* out) const;
+    // the bits of buf > 0, one word per 32 columns of a sample
+    __device__ void mask(const float* buf, unsigned* m) const;
+    // a first layer's gradients from dz1 (in A) and its input xin: rows
+    // [0, nrows) of W1 (obs rows [0, od) against rnd(dz1), the others against
+    // dz1) and b1 as row nrows of out
+    __device__ void w1grad(const Bufs& S, float* out, int nrows, int od, int bf, bool first) const;
     __device__ void zero() {
 #pragma unroll
         for (int i = 0; i < 8; i++)
@@ -245,6 +291,35 @@ __device__ void store_masked_bits(const Tile<H>& t, const unsigned* m, float* ds
     }
 }
 
+template <int H>
+__device__ void Tile<H>::fwd(const Bufs& S, const float* A, const float* w, const bf16*, int bf) {
+    gemm_sk<H>(*this, A, w, bf, S.wch);
+}
+template <int H>
+__device__ void Tile<H>::bwd(const Bufs& S, const float* A, const float* wt, const bf16*, int bf) {
+    gemm_sk<H>(*this, A, wt, bf, S.wch);
+}
+template <int H>
+__device__ void Tile<H>::first(const Bufs& S, const float* w1, const bf16*, int Kdim, int od,
+                               int bf) {
+    gemm_ks<H>(*this, S.xin, w1, Kdim, od, bf, S.wch);
+}
+template <int H>
+__device__ void Tile<H>::wgrad(const Bufs&, const float* A, const float* Bm, float* out,
+                               bool first) {
+    gemm_wgrad<H>(*this, A, Bm, out, first);
+}
+template <int H>
+__device__ void Tile<H>::relu(const float* bias, float* dst, int bf, float* gdst) const {
+    store_relu<H>(*this, bias, dst, bf, gdst);
+}
+template <int H>
+__device__ void Tile<H>::masked_inplace(float* A) const { store_masked_inplace<H>(*this, A); }
+template <int H>
+__device__ void Tile<H>::masked_bits(const unsigned* m, float* dst) const {
+    store_masked_bits<H>(*this, m, dst);
+}
+
 // The bits of buf > 0, one word per 32 columns of a sample.
 template <int H>
 __device__ void make_mask(const float* buf, unsigned* m) {
@@ -269,6 +344,39 @@ __device__ void row_dot(const float* buf, const float* wrow, float add, int bf, 
     }
 }
 
+template <int H>
+template <int NR>
+__device__ void Tile<H>::row_dots(const float* buf, const float* w, size_t ws,
+                                  const float (&add)[NR], int bf, float* out) const {
+    for (int e = 0; e < NR; e++) row_dot<H>(buf, w + e * ws, add[e], bf, out + e * TS);
+}
+template <int H>
+__device__ void Tile<H>::mask(const float* buf, unsigned* m) const { make_mask<H>(buf, m); }
+
+// A first layer's gradients, a column a thread: b1 (row nrows of out) and
+// the W1 rows [0, nrows), those below od against rnd(dz1).
+template <int H>
+__device__ void Tile<H>::w1grad(const Bufs& S, float* out, int nrows, int od, int bf,
+                                bool first) const {
+    for (int j = threadIdx.x; j < H; j += NT) {
+        float gb1 = 0.f;
+        for (int s = 0; s < TS; s++) gb1 += S.A[s * H + j];
+        put(out + (size_t)nrows * H + j, gb1, first);
+        for (int r0 = 0; r0 < nrows; r0 += 8) {
+            float ga[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            for (int s = 0; s < TS; s++) {
+                float dz = S.A[s * H + j], dzr = rnd(dz, bf);
+#pragma unroll
+                for (int i = 0; i < 8; i++)
+                    if (r0 + i < nrows) ga[i] += S.xin[(r0 + i) * TS + s] * (r0 + i < od ? dzr : dz);
+            }
+#pragma unroll
+            for (int i = 0; i < 8; i++)
+                if (r0 + i < nrows) put(out + (size_t)(r0 + i) * H + j, ga[i], first);
+        }
+    }
+}
+
 // Sum of x[0..TS) by warp 0, the same value in all its lanes.
 template <int TS>
 __device__ float tile_sum(const float* x) {
@@ -277,7 +385,47 @@ __device__ float tile_sum(const float* x) {
     return warp_sum(v);
 }
 
-__device__ __forceinline__ void put(float* p, float v, bool first) { *p = first ? v : *p + v; }
+// The phase clock, in a build with -DSG_PHASE_CLOCK only (chip_smoke.py
+// --phase-clock): at each mark, after a block barrier, block 0 adds the SM
+// cycles since its previous mark to sg_phase_cycles[16 * site + mark], the
+// site the one set by phase_site where `site` is -1: the caller of a shared
+// stage sets it, so each call site of a stage has its own ids.  A kernel
+// names its sites and its own marks (sac_update.cuh, SG_SITES); the marks of
+// the shared stages are named here.  Without the flag a mark is nothing.
+#define SG_STAGE_MARKS(X)                                                          \
+    X(M_FIRST, "first layer") X(M_RELU1, "ReLU 1") X(M_W2, "W2 product")          \
+    X(M_RELU2, "ReLU 2") X(M_DOTS, "row dots") X(M_DQ, "dq (masks)")              \
+    X(M_W3B2, "w3, b2 loop") X(M_W2GRAD, "W2 weight gradient")                    \
+    X(M_BWD, "dz2 . W2^T") X(M_DZ1, "dz1") X(M_W1B1, "W1, b1 loop")
+#define SG_ACTOR_BACK_MARKS(X)                                                     \
+    X(A_STASH, "stash reload") X(A_HEAD, "head, b2 loop")                         \
+    X(A_W2GRAD, "W2 weight gradient") X(A_BWD, "dz2 . W2^T") X(A_DZ1, "dz1")     \
+    X(A_W1B1, "W1, b1 loop")
+#define SG_MARK_ID(id, name) id,
+#define SG_MARK_NAME(id, name) name,
+enum StageMark { SG_STAGE_MARKS(SG_MARK_ID) };
+enum ActorBackMark { SG_ACTOR_BACK_MARKS(SG_MARK_ID) };
+#ifdef SG_PHASE_CLOCK
+__device__ unsigned long long sg_phase_cycles[256];
+__device__ long long sg_phase_last;
+__device__ int sg_phase_at;
+__device__ __forceinline__ void phase(int mark, int site = -1) {
+    __syncthreads();
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+        long long t = clock64();
+        if (mark >= 0)
+            sg_phase_cycles[(site < 0 ? sg_phase_at : 16 * site) + mark] +=
+                (unsigned long long)(t - sg_phase_last);
+        sg_phase_last = t;
+    }
+}
+__device__ __forceinline__ void phase_site(int site) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) sg_phase_at = 16 * site;
+}
+#else
+__device__ __forceinline__ void phase(int, int = -1) {}
+__device__ __forceinline__ void phase_site(int) {}
+#endif
 
 // cp.async in 16-byte pieces, its group commit and its wait for all but the
 // newest `N` groups.  Under a host compiler (no __CUDACC__: the kernel's logic
@@ -346,11 +494,20 @@ __device__ void copy_rows(const float* xs, int r0, float* xin, int d0, int n, in
         xin[d0 * TS + idx] = rnd(xs[r0 * TS + idx], bf);
 }
 
-// The activation buffers every stage works in: A and Bm (TS, H), the weight
-// chunk wch (KC, H), and xin (W, TS), the first layer's feature-major input.
-struct Bufs {
-    float *A, *Bm, *wch, *xin;
-};
+// The sums over the grid's slots (`slot` floats apart, in index order) of
+// the four neighbouring gradient elements at p: float4 loads, 32 slots in
+// flight a thread, so the Adam stages are not bound by the latency of one
+// load per slot; evict-first, since each is read once and the slots are
+// larger than L2, where the weights and moments should stay.
+__device__ __forceinline__ float4 slot_sum4(const float* p, int grid, size_t slot) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 32
+    for (int b = 0; b < grid; b++) {
+        float4 v = __ldcs(reinterpret_cast<const float4*>(p + b * slot));
+        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    return s;
+}
 
 // One Adam step of one element; returns the new weight.
 __device__ __forceinline__ float adam_elem(float* wp, float* mp, float* vp, float gr, float a_lr,
@@ -361,6 +518,36 @@ __device__ __forceinline__ float adam_elem(float* wp, float* mp, float* vp, floa
     float wn = *wp - a_lr * m / (sqrtf(v) + c_eps);
     *wp = wn;
     return wn;
+}
+
+// One Adam step of the four neighbouring elements at wp, mp, vp (16-byte
+// aligned): adam_elem's arithmetic with float4 loads and stores, all loads
+// before any store.  Returns the new weights.
+__device__ __forceinline__ float4 adam4(float* wp, float* mp, float* vp, float4 gr, float a_lr,
+                                        float c_eps) {
+    float4 w = *reinterpret_cast<const float4*>(wp), m = *reinterpret_cast<const float4*>(mp),
+           v = *reinterpret_cast<const float4*>(vp);
+    auto one = [&](float& w1, float& m1, float& v1, float g1) {
+        m1 = ADAM_B1 * m1 + ADAM_1MB1 * g1;
+        v1 = ADAM_B2 * v1 + ADAM_1MB2 * g1 * g1;
+        w1 = w1 - a_lr * m1 / (sqrtf(v1) + c_eps);
+    };
+    one(w.x, m.x, v.x, gr.x);
+    one(w.y, m.y, v.y, gr.y);
+    one(w.z, m.z, v.z, gr.z);
+    one(w.w, m.w, v.w, gr.w);
+    *reinterpret_cast<float4*>(mp) = m;
+    *reinterpret_cast<float4*>(vp) = v;
+    *reinterpret_cast<float4*>(wp) = w;
+    return w;
+}
+
+// Four bf16 values rounded from x to p.
+__device__ __forceinline__ void store_bf16x4(bf16* p, float4 x) {
+    p[0] = __float2bfloat16_rn(x.x);
+    p[1] = __float2bfloat16_rn(x.y);
+    p[2] = __float2bfloat16_rn(x.z);
+    p[3] = __float2bfloat16_rn(x.w);
 }
 
 // The folded Adam scalars of step t (float): the update of an element is
@@ -374,47 +561,62 @@ __device__ __forceinline__ void adam_scalars(float tstep, float lr, float& a_lr,
 
 // ---------------------------------------------------------------- forward --
 // An actor's operands: its rows of `w` (wh: the NH rows of head^T) and `vec`
-// (bh: the head's biases in the misc row).
+// (bh: the head's biases in the misc row); w1b and w2b its W1 and W2 in the
+// bf16 shadow, where the tensor cores read them.
 struct ActorRefs {
     const float *w1, *w2, *wh, *b1, *b2, *bh;
+    const bf16 *w1b = nullptr, *w2b = nullptr;
 };
 
 // One critic's operands: its rows of `w` and `vec`; w2t, the transposed copy
-// of its W2, only where it is trained.
+// of its W2, only where it is trained; w1b and w2b as for the actor.
 struct CriticRefs {
     const float *w1, *w2, *w2t, *b1, *b2, *w3;
     float b3;
+    const bf16 *w1b = nullptr, *w2b = nullptr;
 };
 
 // head (NH, TS) = the actor's head outputs on xin's od rounded obs rows.  h1
 // stays in A and h2 in Bm, and both go to `stash` ((2, TS, H) in device memory)
 // where given.  Ends with a block barrier.
-template <int H, int NH>
-__device__ void actor_forward(Tile<H>& t, const Bufs& S, const ActorRefs& ar, int od, int bf,
+template <int H, int NH, class T>
+__device__ void actor_forward(T& t, const Bufs& S, const ActorRefs& ar, int od, int bf,
                               float* head, float* stash) {
     constexpr int TS = Tile<H>::TS;
-    gemm_ks<H>(t, S.xin, ar.w1, od, od, bf, S.wch);
-    store_relu<H>(t, ar.b1, S.A, bf, stash);
-    gemm_sk<H>(t, S.A, ar.w2, bf, S.wch);
-    store_relu<H>(t, ar.b2, S.Bm, bf, stash ? stash + TS * H : nullptr);
+    t.first(S, ar.w1, ar.w1b, od, od, bf);
+    phase(M_FIRST);
+    t.relu(ar.b1, S.A, bf, stash);
+    phase(M_RELU1);
+    t.fwd(S, S.A, ar.w2, ar.w2b, bf);
+    phase(M_W2);
+    t.relu(ar.b2, S.Bm, bf, stash ? stash + TS * H : nullptr);
     __syncthreads();
-    for (int e = 0; e < NH; e++)
-        row_dot<H>(S.Bm, ar.wh + (size_t)e * H, ar.bh[e], bf, head + e * TS);
+    phase(M_RELU2);
+    float bh[NH];
+    for (int e = 0; e < NH; e++) bh[e] = ar.bh[e];
+    t.row_dots(S.Bm, ar.wh, H, bh, bf, head);
     __syncthreads();
+    phase(M_DOTS);
 }
 
 // q (TS,) = one critic on xin = (od rounded obs rows | 2 action rows): the obs
 // rows go through the rounded product, the action rows and the bias stay
 // float32.  h1 stays in A and h2 in Bm.  Ends without a barrier.
-template <int H>
-__device__ void critic_forward(Tile<H>& t, const Bufs& S, const CriticRefs& cr, int od, int bf,
+template <int H, class T>
+__device__ void critic_forward(T& t, const Bufs& S, const CriticRefs& cr, int od, int bf,
                                float* q) {
-    gemm_ks<H>(t, S.xin, cr.w1, od + 2, od, bf, S.wch);
-    store_relu<H>(t, cr.b1, S.A, bf, nullptr);
-    gemm_sk<H>(t, S.A, cr.w2, bf, S.wch);
-    store_relu<H>(t, cr.b2, S.Bm, bf, nullptr);
+    t.first(S, cr.w1, cr.w1b, od + 2, od, bf);
+    phase(M_FIRST);
+    t.relu(cr.b1, S.A, bf, nullptr);
+    phase(M_RELU1);
+    t.fwd(S, S.A, cr.w2, cr.w2b, bf);
+    phase(M_W2);
+    t.relu(cr.b2, S.Bm, bf, nullptr);
     __syncthreads();
-    row_dot<H>(S.Bm, cr.w3, cr.b3, bf, q);
+    phase(M_RELU2);
+    const float b3[1] = {cr.b3};
+    t.row_dots(S.Bm, cr.w3, H, b3, bf, q);
+    phase(M_DOTS);
 }
 
 // ---------------------------------------------------------------- critic --
@@ -424,8 +626,8 @@ __device__ void critic_forward(Tile<H>& t, const Bufs& S, const CriticRefs& cr, 
 // n1+3+H) W2; pm[0] takes the b3 gradient and pm[2] the loss sum.  q, dq and
 // lsum are (TS,) scratch.  The obs rows go through the rounded product, the
 // action rows, the bias and dq x w3 stay float32.
-template <int H>
-__device__ void critic_grad(Tile<H>& t, const Bufs& S, const CriticRefs& cr, const float* tq,
+template <int H, class T>
+__device__ void critic_grad(T& t, const Bufs& S, const CriticRefs& cr, const float* tq,
                             float* q, float* dq, float* lsum, float* pc, float* pm, int od, int B,
                             int bf, bool first) {
     constexpr int TS = Tile<H>::TS, NT = Tile<H>::NT;
@@ -439,15 +641,16 @@ __device__ void critic_grad(Tile<H>& t, const Bufs& S, const CriticRefs& cr, con
         lsum[tid] = d * d * invb;
     }
     __syncthreads();
+    phase(M_DQ);
     // w3 and b2 gradients; h2 becomes dz2 in place
     for (int j = tid; j < H; j += NT) {
         float w3j = cr.w3[j], gw3 = 0.f, gb2 = 0.f;
         for (int s = 0; s < TS; s++) {
-            float h = S.Bm[s * H + j];
+            float h = S.Bm[T::ix(s, j)];
             gw3 += rnd(dq[s], bf) * h;
             float dz = h > 0.f ? dq[s] * w3j : 0.f;
             gb2 += dz;
-            S.Bm[s * H + j] = rnd(dz, bf);
+            S.Bm[T::ix(s, j)] = rnd(dz, bf);
         }
         put(pc + (size_t)(n1 + 2) * H + j, gw3, first);
         put(pc + (size_t)(n1 + 1) * H + j, gb2, first);
@@ -460,49 +663,38 @@ __device__ void critic_grad(Tile<H>& t, const Bufs& S, const CriticRefs& cr, con
         }
     }
     __syncthreads();
-    gemm_wgrad<H>(t, S.A, S.Bm, pc + (size_t)(n1 + 3) * H, first);
-    gemm_sk<H>(t, S.Bm, cr.w2t, bf, S.wch);
-    store_masked_inplace<H>(t, S.A);      // dz1
+    phase(M_W3B2);
+    t.wgrad(S, S.A, S.Bm, pc + (size_t)(n1 + 3) * H, first);
+    phase(M_W2GRAD);
+    t.bwd(S, S.Bm, cr.w2t, cr.w2b, bf);
+    phase(M_BWD);
+    t.masked_inplace(S.A);      // dz1
     __syncthreads();
+    phase(M_DZ1);
     // W1 and b1 gradients: obs rows through the rounded product, action
     // rows and bias in float32
-    for (int j = tid; j < H; j += NT) {
-        float gb1 = 0.f;
-        for (int s = 0; s < TS; s++) gb1 += S.A[s * H + j];
-        put(pc + (size_t)n1 * H + j, gb1, first);
-        for (int r0 = 0; r0 < n1; r0 += 8) {
-            float ga[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            for (int s = 0; s < TS; s++) {
-                float dz = S.A[s * H + j], dzr = rnd(dz, bf);
-#pragma unroll
-                for (int i = 0; i < 8; i++)
-                    if (r0 + i < n1) ga[i] += S.xin[(r0 + i) * TS + s] * (r0 + i < od ? dzr : dz);
-            }
-#pragma unroll
-            for (int i = 0; i < 8; i++)
-                if (r0 + i < n1) put(pc + (size_t)(r0 + i) * H + j, ga[i], first);
-        }
-    }
+    t.w1grad(S, pc, n1, od, bf, first);
     __syncthreads();
+    phase(M_W1B1);
 }
 
 // Adam on both critics from the partial slots summed in index order, and with
 // POLYAK the targets' polyak step from the new weights; the whole grid takes
 // part.  A slot holds critic 0's CS = n1 + 3 + H rows, critic 1's, and a row
 // with the two b3 gradients [0, 2) and the two loss sums [2, 4); the critic
-// loss of update k goes to losses[2 k].
-template <int H, class LY, bool POLYAK, class Args>
+// loss of update k goes to losses[2 k].  The new W2 goes to the transposed
+// copy `wt`; in the bf16 mode of K4/K5 (BF) the new W1 obs rows and W2 of the
+// critics and the targets go to the bf16 shadow `wb` (rows as in `w`) instead,
+// and a thread takes four neighbouring elements (slot_sum4, adam4).
+template <int H, class LY, bool POLYAK, bool BF = false, class Args>
 __device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c_eps) {
     const int n1 = g.od + 2, CS = n1 + 3 + H, prows = 2 * CS + 1;
     const float tau = g.tau, omt = 1.0f - g.tau;
     const size_t slot = (size_t)prows * H;
     const int total = 2 * CS * H;
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += grid * blockDim.x) {
-        int c = e / (CS * H), lr = (e / H) % CS, j = e % H;
-        const float* p = g.partials + (size_t)(c * CS + lr) * H + j;
-        float gr = 0.f;
-        for (int b = 0; b < grid; b++) gr += p[b * slot];
-        float *wp, *mp, *vp, *tp;
+    // where element (c, lr, j) of the slots' row layout lives: the weight, its
+    // moments and its target
+    auto where = [&](int c, int lr, int j, float*& wp, float*& mp, float*& vp, float*& tp) {
         if (lr < n1 || lr >= n1 + 3) {
             int row = lr < n1 ? lr : IN1 + lr - (n1 + 3);
             size_t o = (size_t)(LY::r_cw1(c) + row) * H + j;
@@ -515,9 +707,46 @@ __device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c
             wp = g.vec + o; mp = g.mvec + o; vp = g.vvec + o;
             tp = g.vec + (size_t)(tr + c) * H + j;
         }
-        float wn = adam_elem(wp, mp, vp, gr, a_lr, c_eps);
-        if (POLYAK) *tp = omt * *tp + tau * wn;
-        if (lr >= n1 + 3) g.wt[(size_t)c * H * H + (size_t)j * H + (lr - (n1 + 3))] = wn;
+    };
+    if constexpr (BF) {
+        for (int e = 4 * (blockIdx.x * blockDim.x + threadIdx.x); e < total;
+             e += 4 * grid * blockDim.x) {
+            int c = e / (CS * H), lr = (e / H) % CS, j = e % H;
+            float4 gr = slot_sum4(g.partials + (size_t)(c * CS + lr) * H + j, grid, slot);
+            float *wp, *mp, *vp, *tp;
+            where(c, lr, j, wp, mp, vp, tp);
+            const float4 wn = adam4(wp, mp, vp, gr, a_lr, c_eps);
+            float4 t = wn;
+            if (POLYAK) {
+                t = *reinterpret_cast<const float4*>(tp);
+                t.x = omt * t.x + tau * wn.x;
+                t.y = omt * t.y + tau * wn.y;
+                t.z = omt * t.z + tau * wn.z;
+                t.w = omt * t.w + tau * wn.w;
+                *reinterpret_cast<float4*>(tp) = t;
+            }
+            if (lr < g.od || lr >= n1 + 3) {
+                int row = lr < n1 ? lr : IN1 + lr - (n1 + 3);
+                store_bf16x4(g.wb + (size_t)(LY::r_cw1(c) + row) * H + j, wn);
+                if (POLYAK) store_bf16x4(g.wb + (size_t)(LY::r_tw1(c) + row) * H + j, t);
+            }
+        }
+    } else {
+        // element (c, lr, j), its summed gradient gr
+        auto apply = [&](int c, int lr, int j, float gr) {
+            float *wp, *mp, *vp, *tp;
+            where(c, lr, j, wp, mp, vp, tp);
+            float wn = adam_elem(wp, mp, vp, gr, a_lr, c_eps);
+            if (POLYAK) *tp = omt * *tp + tau * wn;
+            if (lr >= n1 + 3) g.wt[(size_t)c * H * H + (size_t)j * H + (lr - (n1 + 3))] = wn;
+        };
+        for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += grid * blockDim.x) {
+            int c = e / (CS * H), lr = (e / H) % CS, j = e % H;
+            const float* p = g.partials + (size_t)(c * CS + lr) * H + j;
+            float gr = 0.f;
+            for (int b = 0; b < grid; b++) gr += p[b * slot];
+            apply(c, lr, j, gr);
+        }
     }
     if (blockIdx.x == 0 && threadIdx.x < 3) {
         const float* pm = g.partials + (size_t)2 * CS * H;
@@ -543,22 +772,25 @@ __device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c
 // The actor's backward over one tile from gh, the (NH, TS) gradients of the
 // loss by its head's outputs.  h1 and h2 come back from `stash` ((2, TS, H) in
 // device memory) into the two buffers; xin still holds the rounded obs rows;
-// wh is the head's NH rows of `w` and w2t the transposed copy of the actor's
-// W2.  Gradient rows in part: [0, od) W1, od b1, od+1 b2, [od+2, od+2+NH)
+// wh is the head's NH rows of `w`, w2t the transposed copy of the actor's
+// W2 and w2b its bf16 shadow (the tile type reads one of them).  Gradient
+// rows in part: [0, od) W1, od b1, od+1 b2, [od+2, od+2+NH)
 // head^T, [od+2+NH, od+2+NH+H) W2; the row after them takes the head's bias
 // gradients [0, NH).  Ends with a block barrier.
-template <int H, int NH>
-__device__ void actor_backward(Tile<H>& t, const Bufs& S, const float* gh, const float* stash,
+template <int H, int NH, class T>
+__device__ void actor_backward(T& t, const Bufs& S, const float* gh, const float* stash,
                                const float* wh, const float* w2t, float* part, int od, int bf,
-                               bool first) {
+                               bool first, const bf16* w2b = nullptr) {
     constexpr int TS = Tile<H>::TS, NT = Tile<H>::NT;
     const int tid = threadIdx.x;
     // the actor's activations back into the two buffers
     for (int idx = tid; idx < TS * H / 4; idx += NT) {
-        reinterpret_cast<float4*>(S.A)[idx] = reinterpret_cast<const float4*>(stash)[idx];
-        reinterpret_cast<float4*>(S.Bm)[idx] = reinterpret_cast<const float4*>(stash + TS * H)[idx];
+        int o = T::ix(idx / (H / 4), idx % (H / 4) * 4);
+        *reinterpret_cast<float4*>(S.A + o) = reinterpret_cast<const float4*>(stash)[idx];
+        *reinterpret_cast<float4*>(S.Bm + o) = reinterpret_cast<const float4*>(stash + TS * H)[idx];
     }
     __syncthreads();
+    phase(A_STASH);
     // head and b2 gradients; h2 becomes dz2 in place
     for (int j = tid; j < H; j += NT) {
         float whj[NH], gwh[NH], gb2 = 0.f;
@@ -568,7 +800,7 @@ __device__ void actor_backward(Tile<H>& t, const Bufs& S, const float* gh, const
             gwh[e] = 0.f;
         }
         for (int s = 0; s < TS; s++) {
-            float h = S.Bm[s * H + j], dh = 0.f;
+            float h = S.Bm[T::ix(s, j)], dh = 0.f;
 #pragma unroll
             for (int e = 0; e < NH; e++) {
                 float ge = rnd(gh[e * TS + s], bf);
@@ -577,7 +809,7 @@ __device__ void actor_backward(Tile<H>& t, const Bufs& S, const float* gh, const
             }
             float dz = h > 0.f ? dh : 0.f;
             gb2 += dz;
-            S.Bm[s * H + j] = rnd(dz, bf);
+            S.Bm[T::ix(s, j)] = rnd(dz, bf);
         }
 #pragma unroll
         for (int e = 0; e < NH; e++) put(part + (size_t)(od + 2 + e) * H + j, gwh[e], first);
@@ -591,28 +823,17 @@ __device__ void actor_backward(Tile<H>& t, const Bufs& S, const float* gh, const
         }
     }
     __syncthreads();
-    gemm_wgrad<H>(t, S.A, S.Bm, part + (size_t)(od + 2 + NH) * H, first);
-    gemm_sk<H>(t, S.Bm, w2t, bf, S.wch);
-    store_masked_inplace<H>(t, S.A);      // dz1
+    phase(A_HEAD);
+    t.wgrad(S, S.A, S.Bm, part + (size_t)(od + 2 + NH) * H, first);
+    phase(A_W2GRAD);
+    t.bwd(S, S.Bm, w2t, w2b, bf);
+    phase(A_BWD);
+    t.masked_inplace(S.A);      // dz1
     __syncthreads();
-    for (int j = tid; j < H; j += NT) {
-        float gb1 = 0.f;
-        for (int s = 0; s < TS; s++) gb1 += S.A[s * H + j];
-        put(part + (size_t)od * H + j, gb1, first);
-        for (int r0 = 0; r0 < od; r0 += 8) {
-            float ga[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            for (int s = 0; s < TS; s++) {
-                float dzr = rnd(S.A[s * H + j], bf);
-#pragma unroll
-                for (int i = 0; i < 8; i++)
-                    if (r0 + i < od) ga[i] += S.xin[(r0 + i) * TS + s] * dzr;
-            }
-#pragma unroll
-            for (int i = 0; i < 8; i++)
-                if (r0 + i < od) put(part + (size_t)(r0 + i) * H + j, ga[i], first);
-        }
-    }
+    phase(A_DZ1);
+    t.w1grad(S, part, od, od, bf, first);
     __syncthreads();
+    phase(A_W1B1);
 }
 
 }  // namespace tiles

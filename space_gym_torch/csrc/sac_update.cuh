@@ -1,7 +1,8 @@
 // K SAC updates in one cooperative kernel launch: the device code shared by
 // K4 (sac_update.cu, FOLD = false) and K5 (sac_update_fold.cu, FOLD = true).
 // The tiles, products and the stages that SAC has in common with TD3 are in
-// learner_tiles.cuh.
+// learner_tiles.cuh (float32 products on the CUDA cores) and learner_mma.cuh
+// (bf16 products on the tensor cores).
 //
 // Replaces the Pallas kernels of space_gym_tpu/models/fused_sac.py: K4 the
 // (K, 2, T) grid kernel at :759, K5 the folded (K,) grid kernels at :852 and
@@ -11,14 +12,48 @@
 // on the actor and on the temperature.  The plain version is
 // models/fused_sac.py::update_k_reference.
 //
-// Design for this card.  The work is a chain of (batch, H) x (H, H) products
-// (16 per sample and update), about 5.8e11 float operations per launch at
-// K=32, B=8192, H=256: operations bound it, not bytes.  The batch is spread
-// over the SMs: a thread block owns tiles of TS samples, holds two (TS, H)
-// activation buffers in shared memory and streams the weights in chunks of KC
-// rows from L2, where the whole state (2 MB of weights, 4 MB of moments at
-// H=256) stays for all K updates.  Every product is computed here, in float32
-// multiply-adds on the CUDA cores, each thread an 8 x 8 tile of the output.
+// What bounds it on this card.  The work is a chain of (batch, H) x (H, H)
+// products (16 per sample and update), about 5.8e11 operations per launch at
+// K=32, B=8192, H=256: at the tensor cores' bf16 rate that is 0.6 ms, and the
+// launch moves only about 58 MB of its own operands.  Between those two
+// bounds sit the costs of doing it in one cooperative launch: the per-block
+// gradient slots (about 72 MB written and read back per critic stage, 37 MB
+// per actor stage), the weights read from L2 by every block for every product
+// (416 weight-reading products x 128 blocks x 128 KB of bf16, about 7 GB), and
+// four grid barriers per update.
+//
+// Design.  The batch is spread over the SMs: a thread block owns tiles of TS
+// samples, holds two (TS, H) float32 activation buffers in shared memory and
+// streams the weights from L2, where the whole state (2 MB of weights, 4 MB
+// of moments at H=256) stays for all K updates.  The mode is a template
+// parameter of the kernel:
+// - mm_bf16 (args.bf, the trainer's mode): the operands of the products that
+//   the Pallas body sends through `dot`/`dg`, and the post-ReLU activations,
+//   are bf16 values, so the products run on the tensor cores
+//   (learner_mma.cuh: mma.sync.m16n8k16 bf16 -> float32, a warp a 32 x 64
+//   piece of the output).  They read a bf16 shadow `wb` of the actor's,
+//   critics' and targets' W1 and W2, built at the start of the launch and
+//   rewritten by the Adam stages, so every weight is rounded once and read
+//   at half the bytes; the weights stream into two XOR-swizzled shared-memory
+//   stages by cp.async, the copy of one overlapping the math on the other,
+//   one block barrier per stage.  The products that the Pallas body sends
+//   through `_dg` (action rows and bias of the first layers, dq x w3, the b1
+//   gradients and the first layers' action-row gradients) stay float32 on
+//   the CUDA cores.
+// - float32 (mm_bf16 False): every product in float32 multiply-adds on the
+//   CUDA cores (learner_tiles.cuh: each thread an 8 x 8 tile, weights staged
+//   16 rows at a time between two barriers); the transposed products
+//   (dz2 . W2^T) read a transposed copy `wt` of the three trainable W2,
+//   built at the start of the launch and kept current by the Adam stages.
+// What is left after the tensor cores, by the phase clock (chip_smoke.py
+// --phase-clock, PERF.md section 5): the gradient slots, written by the
+// weight gradients and read back by the Adam stages (both with evict-first
+// hints, so that the weights and moments stay in L2), and the weight-reading
+// products, each of the 128 blocks streaming the same weights from L2, take
+// most of an update; ReLU stores, first layers and the column loops most of
+// the rest; the grid barriers a few percent.  So wgmma pays only once the
+// slots and the L2 traffic are cut (a reduction across a cluster before the
+// slot is written, multicast of the weight stages).
 //
 // Order across the batch: gradients are sums over all B samples, and the
 // actor phase must see the critics that the critic phase updated.  So the
@@ -28,21 +63,12 @@
 //
 // Deterministic sums: a block writes the gradient of its own tiles to its own
 // slot of `partials` (no atomics); the Adam stage sums the slots in index
-// order.  The result is a function of the inputs and of the grid size only.
-//
-// The transposed products (dz2 . W2^T) read a transposed copy of the three
-// trainable W2 matrices (`wt`), built at the start of the launch and kept
-// current by the Adam stage, so every weight chunk is a run of whole rows.
+// order; mma.sync sums in a fixed order.  The result is a function of the
+// inputs and of the grid size only.
 //
 // The critics' first-layer bias is added plainly (the TPU kernels fold it
 // into a weight row for the launch's duration); w, vec and the moments come
 // back in the JAX layout.
-//
-// mm_bf16 (args.bf): the operands of the products that the Pallas body sends
-// through `dot`/`dg`, and the post-ReLU activations, are rounded to bfloat16
-// and accumulated in float32, still on the CUDA cores; the products it sends
-// through `_dg` (action rows and bias of the first layers, dq x w3) stay
-// float32.
 //
 // FOLD: K4 loads a tile's W data rows and noise from device memory in each
 // of the two phases.  K5 owns one tile per block, loads it once per update
@@ -51,11 +77,37 @@
 // The arithmetic and its order are the same, so are the bits.
 #pragma once
 
+#include "learner_mma.cuh"
 #include "learner_tiles.cuh"
 
 namespace sac {
 
 using namespace tiles;
+
+// The phase clock's ids in this kernel (learner_tiles.cuh): the kernel's own
+// marks, and each call site of a shared stage with the marks of its stage;
+// the site's index is its place in SG_SITES.
+#define SG_KERNEL_MARKS(X)                                                          \
+    X(K_PROLOGUE, "prologue") X(K_TILE, "tile load or wait")                       \
+    X(K_CRITIC, "critic misc") X(K_SYNC_C, "grid sync") X(K_CRITIC_ADAM, "critic Adam") \
+    X(K_SYNC_CA, "grid sync") X(K_ACTOR_TILE, "tile load") X(K_ACTOR, "actor misc") \
+    X(K_SYNC_A, "grid sync") X(K_ACTOR_ADAM, "actor Adam") X(K_SYNC_AA, "grid sync")
+#define SG_DLDA_MARKS(X)                                                            \
+    X(D_FILL, "dz2 fill") X(D_BWD, "dz2 . W2^T") X(D_DZ1, "dz1 (mask bits)")      \
+    X(D_DOTS, "action dots")
+#define SG_SITES(X)                                                                 \
+    X(SITE_KERNEL, "kernel", SG_KERNEL_MARKS)                                      \
+    X(SITE_NEXT_ACTOR, "critic stage, actor on next obs", SG_STAGE_MARKS)          \
+    X(SITE_TARGETS, "critic stage, targets", SG_STAGE_MARKS)                       \
+    X(SITE_CRITICS, "critic stage, critics", SG_STAGE_MARKS)                       \
+    X(SITE_ACTOR, "actor stage, actor", SG_STAGE_MARKS)                            \
+    X(SITE_ACTOR_CRITICS, "actor stage, critics", SG_STAGE_MARKS)                  \
+    X(SITE_DLDA, "actor stage, dL/da", SG_DLDA_MARKS)                              \
+    X(SITE_ACTOR_BACK, "actor stage, actor backward", SG_ACTOR_BACK_MARKS)
+#define SG_SITE_ID(id, name, marks) id,
+enum KernelMark { SG_KERNEL_MARKS(SG_MARK_ID) };
+enum DldaMark { SG_DLDA_MARKS(SG_MARK_ID) };
+enum Site { SG_SITES(SG_SITE_ID) };
 
 constexpr int NHEAD = 4;
 constexpr int NSMALL = 28;    // per-sample scalar arrays in shared memory
@@ -76,8 +128,9 @@ struct Args {
     const float* noise;    // (K, 4, B)
     float* losses;         // (K, 2)
     float* partials;       // (grid, prows, H) per-block gradient sums
-    float* wt;             // (3, H, H) transposed W2 of critic 0, critic 1, actor
+    float* wt;             // (3, H, H) transposed W2 of critic 0, critic 1, actor (float32 mode)
     float* stash;          // (n_tiles, 2, TS, H) the actor's activations
+    bf16* wb;              // (5 (IN1 + H), H) bf16 shadow of w's first 5 (IN1 + H) rows (bf16 mode)
     int K, B, W, lanes, rpb, od, bf, has_floor;
     float gamma, tau, lr, te, count0, logfloor;
 };
@@ -95,11 +148,16 @@ struct Lay {
     static constexpr int V_MISC = sac::V_MISC, M_CB3 = sac::M_CB3, M_TB3 = sac::M_TB3;
 };
 
-template <int H, bool FOLD>
+// The tile type of a mode: float32 products on the CUDA cores, or bf16
+// products on the tensor cores.
+template <int H, bool BF>
+using TileOf = typename std::conditional<BF, MTile<H>, Tile<H>>::type;
+
+template <int H, bool FOLD, bool BF>
 __host__ __device__ constexpr size_t smem_floats(int W) {
     constexpr int TS = 8 * row_groups(H);
-    return (size_t)2 * TS * H + KC * H + (FOLD ? 2 : 1) * (W * TS + 4 * TS) + W * TS
-           + NSMALL * TS + 4 * TS * (H / 32) + 32;
+    return (size_t)2 * TS * H + (BF ? MTile<H>::NS * MTile<H>::STAGE / 2 : KC * H) + (FOLD ? 2 : 1) * (W * TS + 4 * TS)
+           + W * TS + NSMALL * TS + 4 * TS * (H / 32) + 32;
 }
 
 __device__ __forceinline__ float softplus(float x) {
@@ -118,19 +176,31 @@ __device__ __forceinline__ void sample1(float mean, float lsr, float eps, float&
 }
 
 // The operands of the actor, and of trainable critic c, in `w` and `vec`.
+// Row `row` of the bf16 shadow (rows as in `w`), null in float32 mode.
+template <int H>
+__device__ const bf16* shadow(const Args& g, int row) {
+    return g.wb ? g.wb + (size_t)row * H : nullptr;
+}
+
 template <int H>
 __device__ ActorRefs actor_refs(const Args& g) {
     using L = Lay<H>;
     return {g.w + L::R_AW1 * H, g.w + L::R_AW2 * H, g.w + (size_t)L::R_AWH * H,
-            g.vec + V_AB1 * H, g.vec + V_AB2 * H, g.vec + V_MISC * H + M_ABH};
+            g.vec + V_AB1 * H, g.vec + V_AB2 * H, g.vec + V_MISC * H + M_ABH,
+            shadow<H>(g, L::R_AW1), shadow<H>(g, L::R_AW2)};
 }
 
+// Critic c, or with `target` target c (never trained: no transposed copy).
 template <int H>
-__device__ CriticRefs critic_refs(const Args& g, int c) {
+__device__ CriticRefs critic_refs(const Args& g, int c, bool target = false) {
     using L = Lay<H>;
-    return {g.w + L::r_cw1(c) * H, g.w + (L::r_cw1(c) + IN1) * H, g.wt + (size_t)c * H * H,
-            g.vec + (V_CB1 + c) * H, g.vec + (V_CB2 + c) * H, g.vec + (V_CW3 + c) * H,
-            g.vec[V_MISC * H + M_CB3 + c]};
+    const int r1 = target ? L::r_tw1(c) : L::r_cw1(c);
+    const float* misc = g.vec + V_MISC * H;
+    return {g.w + (size_t)r1 * H, g.w + (size_t)(r1 + IN1) * H,
+            target || !g.wt ? nullptr : g.wt + (size_t)c * H * H,
+            g.vec + ((target ? V_TB1 : V_CB1) + c) * H, g.vec + ((target ? V_TB2 : V_CB2) + c) * H,
+            g.vec + ((target ? V_TW3 : V_CW3) + c) * H, misc[(target ? M_TB3 : M_CB3) + c],
+            shadow<H>(g, r1), shadow<H>(g, r1 + IN1)};
 }
 
 struct Smem : Bufs {
@@ -138,21 +208,25 @@ struct Smem : Bufs {
     unsigned* mask;
 };
 
-template <int H, bool FOLD>
+template <int H, bool FOLD, bool BF>
 __device__ Smem carve(float* base, int W) {
     constexpr int TS = Tile<H>::TS;
     Smem s;
     s.A = base; base += TS * H;
     s.Bm = base; base += TS * H;
-    s.wch = base; base += KC * H;
+    s.wch = BF ? nullptr : base;
+    s.ring = BF ? reinterpret_cast<bf16*>(base) : nullptr;
+    base += BF ? MTile<H>::NS * MTile<H>::STAGE / 2 : KC * H;
+    s.sm = base; base += NSMALL * TS;
+    s.mask = reinterpret_cast<unsigned*>(base); base += 4 * TS * (H / 32);
+    // the buffers whose size depends on W last: the others lie at constant
+    // offsets, which the compiler need not keep in registers
+    s.xin = base; base += W * TS;
     for (int i = 0; i < (FOLD ? 2 : 1); i++) {
         s.xs[i] = base; base += W * TS;
         s.nz[i] = base; base += 4 * TS;
     }
     if (!FOLD) { s.xs[1] = s.xs[0]; s.nz[1] = s.nz[0]; }
-    s.xin = base; base += W * TS;
-    s.sm = base; base += NSMALL * TS;
-    s.mask = reinterpret_cast<unsigned*>(base);
     return s;
 }
 
@@ -160,10 +234,9 @@ __device__ Smem carve(float* base, int W) {
 // Gradient rows of one critic in a block's partial slot: [0, n1) W1 (obs rows
 // then the two action rows), n1 b1, n1+1 b2, n1+2 w3, [n1+3, n1+3+H) W2; the
 // slot's row 2*(n1+3+H) holds b3 of both critics and their loss sums.
-template <int H>
+template <int H, class T>
 __device__ void critic_tile(const Args& g, const Smem& S, const float* xs, const float* nz,
                             float* part, bool first) {
-    using L = Lay<H>;
     constexpr int TS = Tile<H>::TS;
     const int od = g.od, n1 = od + 2, bf = g.bf, CS = n1 + 3 + H;
     const int n0 = ceil8(od), a0 = ceil8(n0 + od), rr = a0 + 2, dd = rr + 1;
@@ -174,11 +247,13 @@ __device__ void critic_tile(const Args& g, const Smem& S, const float* xs, const
     float* tq = S.sm + 5 * TS; float* q = S.sm + 6 * TS; float* dq = S.sm + 7 * TS;
     float* lsum = S.sm + 8 * TS;
     float* head = S.sm + 9 * TS;      // [4][TS]
-    Tile<H> t;
+    T t;
     const int tid = threadIdx.x;
 
     // the actor on next_obs, sampled with the critic's normals
     copy_rows<TS>(xs, n0, S.xin, 0, od, bf);
+    phase(K_CRITIC, SITE_KERNEL);
+    phase_site(SITE_NEXT_ACTOR);
     actor_forward<H, NHEAD>(t, S, actor_refs<H>(g), od, bf, head, nullptr);
     if (tid < TS) {
         float a, lp0, lp1, pre, sd;
@@ -191,12 +266,10 @@ __device__ void critic_tile(const Args& g, const Smem& S, const float* xs, const
         S.xin[(od + 1) * TS + tid] = na1[tid];
     }
     // the target critics on (next_obs, next action)
-    for (int c = 0; c < 2; c++) {
-        CriticRefs tr{g.w + L::r_tw1(c) * H, g.w + (L::r_tw1(c) + IN1) * H, nullptr,
-                      g.vec + (V_TB1 + c) * H, g.vec + (V_TB2 + c) * H, g.vec + (V_TW3 + c) * H,
-                      misc[M_TB3 + c]};
-        critic_forward<H>(t, S, tr, od, bf, qt + c * TS);
-    }
+    phase(K_CRITIC, SITE_KERNEL);
+    phase_site(SITE_TARGETS);
+    for (int c = 0; c < 2; c++)
+        critic_forward<H>(t, S, critic_refs<H>(g, c, true), od, bf, qt + c * TS);
     __syncthreads();
     if (tid < TS)
         tq[tid] = xs[rr * TS + tid] + g.gamma * xs[dd * TS + tid]
@@ -204,6 +277,8 @@ __device__ void critic_tile(const Args& g, const Smem& S, const float* xs, const
     // the critics on (obs, action), forward and backward
     copy_rows<TS>(xs, 0, S.xin, 0, od, bf);
     copy_rows<TS>(xs, a0, S.xin, od, 2, 0);
+    phase(K_CRITIC, SITE_KERNEL);
+    phase_site(SITE_CRITICS);
     for (int c = 0; c < 2; c++)
         critic_grad<H>(t, S, critic_refs<H>(g, c), tq, q, dq, lsum, part + (size_t)c * CS * H,
                        part + (size_t)2 * CS * H + c, od, g.B, bf, first);
@@ -213,7 +288,7 @@ __device__ void critic_tile(const Args& g, const Smem& S, const float* xs, const
 // Gradient rows of the actor in a block's partial slot: [0, od) W1, od b1,
 // od+1 b2, [od+2, od+6) head^T, [od+6, od+6+H) W2; row od+6+H holds the head's
 // bias gradients [0, 4), the loss sum [4] and the logp sum [5].
-template <int H>
+template <int H, class T>
 __device__ void actor_tile(const Args& g, const Smem& S, const float* xs, const float* nz,
                            float* part, float* stash, bool first) {
     using L = Lay<H>;
@@ -234,14 +309,18 @@ __device__ void actor_tile(const Args& g, const Smem& S, const float* xs, const 
     float* head = S.sm + 15 * TS;    // [4][TS]
     float* gh = S.sm + 19 * TS;      // [4][TS]
     float* dav = S.sm + 23 * TS;     // [2][TS] one critic's share of da
-    unsigned* m1[2] = {S.mask, S.mask + 2 * TS * (H / 32)};
-    unsigned* m2[2] = {S.mask + TS * (H / 32), S.mask + 3 * TS * (H / 32)};
-    Tile<H> t;
+    // critic c's masks of h1 and h2 (pointers computed, not an array indexed
+    // at run time, which would live in local memory)
+    auto m1 = [&](int c) { return S.mask + (2 * c) * TS * (H / 32); };
+    auto m2 = [&](int c) { return S.mask + (2 * c + 1) * TS * (H / 32); };
+    T t;
     const int tid = threadIdx.x;
 
     // the actor on obs, sampled with the actor's normals; h1, h2 are kept in
     // device memory (L2) while the critics use the two buffers
     copy_rows<TS>(xs, 0, S.xin, 0, od, bf);
+    phase(K_ACTOR, SITE_KERNEL);
+    phase_site(SITE_ACTOR);
     actor_forward<H, NHEAD>(t, S, actor_refs<H>(g), od, bf, head, stash);
     if (tid < TS) {
         float lp[2];
@@ -257,10 +336,13 @@ __device__ void actor_tile(const Args& g, const Smem& S, const float* xs, const 
         logp[tid] = lp[0] + lp[1];
     }
     // the updated critics on (obs, sampled action): q and the ReLU masks
+    phase(K_ACTOR, SITE_KERNEL);
+    phase_site(SITE_ACTOR_CRITICS);
     for (int c = 0; c < 2; c++) {
         critic_forward<H>(t, S, critic_refs<H>(g, c), od, bf, qc + c * TS);
-        make_mask<H>(S.A, m1[c]);
-        make_mask<H>(S.Bm, m2[c]);
+        t.mask(S.A, m1(c));
+        t.mask(S.Bm, m2(c));
+        phase(M_DQ);
     }
     __syncthreads();
     if (tid < TS)
@@ -274,25 +356,42 @@ __device__ void actor_tile(const Args& g, const Smem& S, const float* xs, const 
         }
         __syncthreads();
         for (int j = tid; j < H; j += NT) {
-            float w3j = g.vec[(V_CW3 + c) * H + j];
-            for (int s = 0; s < TS; s++)
-                S.Bm[s * H + j] = mask_bit(m2[c], s, j, H) ? rnd(dq[s] * w3j, bf) : 0.f;
+            const float w3j = g.vec[(V_CW3 + c) * H + j];
+            for (int s0 = 0; s0 < TS; s0 += 8) {    // eight loads, then eight stores
+                float v[8];
+#pragma unroll
+                for (int i = 0; i < 8; i++)
+                    v[i] = mask_bit(m2(c), s0 + i, j, H) ? rnd(dq[s0 + i] * w3j, bf) : 0.f;
+#pragma unroll
+                for (int i = 0; i < 8; i++) S.Bm[T::ix(s0 + i, j)] = v[i];
+            }
         }
-        gemm_sk<H>(t, S.Bm, g.wt + (size_t)c * H * H, bf, S.wch);
-        store_masked_bits<H>(t, m1[c], S.A);       // dz1
+        phase(D_FILL, SITE_DLDA);
+        const CriticRefs cr = critic_refs<H>(g, c);
+        t.bwd(S, S.Bm, cr.w2t, cr.w2b, bf);
+        phase(D_BWD, SITE_DLDA);
+        t.masked_bits(m1(c), S.A);       // dz1
         __syncthreads();
-        for (int e = 0; e < 2; e++) {
-            // only the action columns of the input gradient are needed
-            int warp = tid / 32, lane = tid % 32;
-            const float* wrow = g.w + (size_t)(L::r_cw1(c) + od + e) * H;
-            for (int s = warp; s < TS; s += NT / 32) {
-                float v = 0.f;
-                for (int j = lane; j < H; j += 32) v += rnd(S.A[s * H + j], bf) * rnd(wrow[j], bf);
-                v = warp_sum(v);
-                if (lane == 0) dav[e * TS + s] = v;
+        phase(D_DZ1, SITE_DLDA);
+        // only the action columns of the input gradient are needed
+        const float* wact = g.w + (size_t)(L::r_cw1(c) + od) * H;
+        if constexpr (T::MMA) {
+            const float none[2] = {0.f, 0.f};
+            t.row_dots(S.A, wact, H, none, bf, dav);     // rounds dz1 as it reads it
+        } else {
+            for (int e = 0; e < 2; e++) {
+                int warp = tid / 32, lane = tid % 32;
+                const float* wrow = wact + (size_t)e * H;
+                for (int s = warp; s < TS; s += NT / 32) {
+                    float v = 0.f;
+                    for (int j = lane; j < H; j += 32) v += S.A[s * H + j] * wrow[j];
+                    v = warp_sum(v);
+                    if (lane == 0) dav[e * TS + s] = v;
+                }
             }
         }
         __syncthreads();
+        phase(D_DOTS, SITE_DLDA);
         if (tid < TS) {
             da[tid] += dav[tid];
             da[TS + tid] += dav[TS + tid];
@@ -320,24 +419,25 @@ __device__ void actor_tile(const Args& g, const Smem& S, const float* xs, const 
             put(pm + 5, lp, first);
         }
     }
+    phase(K_ACTOR, SITE_KERNEL);
+    phase_site(SITE_ACTOR_BACK);
     actor_backward<H, NHEAD>(t, S, gh, stash, g.w + (size_t)L::R_AWH * H,
-                             g.wt + (size_t)2 * H * H, part, od, bf, first);
+                             g.wt ? g.wt + (size_t)2 * H * H : nullptr, part, od, bf, first,
+                             shadow<H>(g, L::R_AW2));
 }
 
-// Adam on the actor and on the temperature from the summed partial slots.
-template <int H>
+// Adam on the actor and on the temperature from the summed partial slots; the
+// new W2 to the transposed copy, or in bf16 mode W1 and W2 to the shadow, a
+// thread four neighbouring elements (slot_sum4, adam4).
+template <int H, bool BF>
 __device__ void actor_apply(const Args& g, int k, int grid, float a_lr, float c_eps) {
     using L = Lay<H>;
     const int od = g.od, AS = od + 6 + H;
     const int prows = 2 * (od + 2 + 3 + H) + 1;
     const size_t slot = (size_t)prows * H;
     const int total = AS * H;
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += grid * blockDim.x) {
-        int lr = e / H, j = e % H;
-        const float* p = g.partials + (size_t)lr * H + j;
-        float gr = 0.f;
-        for (int b = 0; b < grid; b++) gr += p[b * slot];
-        float *wp, *mp, *vp;
+    // where element (lr, j) of the slots' row layout lives: the weight and its moments
+    auto where = [&](int lr, int j, float*& wp, float*& mp, float*& vp) {
         if (lr == od || lr == od + 1) {
             size_t o = (size_t)(lr == od ? V_AB1 : V_AB2) * H + j;
             wp = g.vec + o; mp = g.mvec + o; vp = g.vvec + o;
@@ -347,8 +447,30 @@ __device__ void actor_apply(const Args& g, int k, int grid, float a_lr, float c_
             size_t o = (size_t)row * H + j;
             wp = g.w + o; mp = g.mw + o; vp = g.vw + o;
         }
-        float wn = adam_elem(wp, mp, vp, gr, a_lr, c_eps);
-        if (lr >= od + 6) g.wt[(size_t)2 * H * H + (size_t)j * H + (lr - (od + 6))] = wn;
+    };
+    if constexpr (BF) {
+        for (int e = 4 * (blockIdx.x * blockDim.x + threadIdx.x); e < total;
+             e += 4 * grid * blockDim.x) {
+            int lr = e / H, j = e % H;
+            float4 gr = slot_sum4(g.partials + (size_t)lr * H + j, grid, slot);
+            float *wp, *mp, *vp;
+            where(lr, j, wp, mp, vp);
+            const float4 wn = adam4(wp, mp, vp, gr, a_lr, c_eps);
+            if (lr < od || lr >= od + 6)
+                store_bf16x4(g.wb + (size_t)(lr < od ? L::R_AW1 + lr : L::R_AW2 + lr - (od + 6)) * H
+                             + j, wn);
+        }
+    } else {
+        for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += grid * blockDim.x) {
+            int lr = e / H, j = e % H;
+            const float* p = g.partials + (size_t)lr * H + j;
+            float gr = 0.f;
+            for (int b = 0; b < grid; b++) gr += p[b * slot];
+            float *wp, *mp, *vp;
+            where(lr, j, wp, mp, vp);
+            float wn = adam_elem(wp, mp, vp, gr, a_lr, c_eps);
+            if (lr >= od + 6) g.wt[(size_t)2 * H * H + (size_t)j * H + (lr - (od + 6))] = wn;
+        }
     }
     if (blockIdx.x == 0 && threadIdx.x < 6) {
         const float* pm = g.partials + (size_t)AS * H;
@@ -373,9 +495,10 @@ __device__ void actor_apply(const Args& g, int k, int grid, float a_lr, float c_
 }
 
 // ---------------------------------------------------------------- kernel --
-template <int H, bool FOLD>
+template <int H, bool FOLD, bool BF>
 __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
     using L = Lay<H>;
+    using T = TileOf<H, BF>;
     constexpr int TS = Tile<H>::TS;
 #ifdef __CUDACC__
     extern __shared__ __align__(16) float smem_base[];
@@ -386,79 +509,113 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
     const int G = gridDim.x;
     const int n_tiles = g.B / TS;
     const int n1 = g.od + 2, prows = 2 * (n1 + 3 + H) + 1;
-    Smem S = carve<H, FOLD>(smem_base, g.W);
+    Smem S = carve<H, FOLD, BF>(smem_base, g.W);
     float* part = g.partials + (size_t)blockIdx.x * prows * H;
+    phase(-1, SITE_KERNEL);  // starts the clock
 
-    // the transposed copies of the three trainable W2
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < 3 * H * H; e += G * blockDim.x) {
-        int m = e / (H * H), i = (e / H) % H, j = e % H;
-        int row = (m < 2 ? L::r_cw1(m) + IN1 : L::R_AW2) + i;
-        g.wt[(size_t)m * H * H + (size_t)j * H + i] = g.w[(size_t)row * H + j];
+    if (BF) {
+        // the bf16 shadow of the actor's, the critics' and the targets' W1 and
+        // W2 (w's first 5 (IN1 + H) rows); W1's rows from od on are zero, the
+        // critics' action rows stay float32 in `w`
+        for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < 5 * (IN1 + H) * H;
+             e += G * blockDim.x) {
+            int lr = (e / H) % (IN1 + H);
+            g.wb[e] = __float2bfloat16_rn(lr < g.od || lr >= IN1 ? g.w[e] : 0.f);
+        }
+    } else {
+        // the transposed copies of the three trainable W2
+        for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < 3 * H * H; e += G * blockDim.x) {
+            int m = e / (H * H), i = (e / H) % H, j = e % H;
+            int row = (m < 2 ? L::r_cw1(m) + IN1 : L::R_AW2) + i;
+            g.wt[(size_t)m * H * H + (size_t)j * H + i] = g.w[(size_t)row * H + j];
+        }
     }
     if (FOLD) {
         load_tile<TS, 4, true>(g, 0, blockIdx.x, S.xs[0], S.nz[0]);
         cp_async_commit();
     }
     grid.sync();
+    phase(K_PROLOGUE, SITE_KERNEL);
 
     for (int k = 0; k < g.K; k++) {
         // per-update scalars (fused_sac.py:460-474); b**t as exp(t log b)
         float a_lr, c_eps;
         adam_scalars(g.count0 + (float)k + 1.0f, g.lr, a_lr, c_eps);
-        const int cur = FOLD ? (k & 1) : 0;
+        // this update's tile buffers and the other pair, chosen by selects: an
+        // array indexed at run time would put S in local memory
+        const bool odd = FOLD && (k & 1);
+        float* xs = odd ? S.xs[1] : S.xs[0];
+        float* nz = odd ? S.nz[1] : S.nz[0];
         if (FOLD) {
             // start the next update's copy, then wait for this update's
             if (k + 1 < g.K) {
-                load_tile<TS, 4, true>(g, k + 1, blockIdx.x, S.xs[cur ^ 1], S.nz[cur ^ 1]);
+                load_tile<TS, 4, true>(g, k + 1, blockIdx.x, odd ? S.xs[0] : S.xs[1],
+                                        odd ? S.nz[0] : S.nz[1]);
                 cp_async_commit();
                 cp_async_wait<1>();
             } else {
                 cp_async_wait<0>();
             }
             __syncthreads();
+            phase(K_TILE, SITE_KERNEL);
         }
         for (int t = blockIdx.x; t < n_tiles; t += G) {
             if (!FOLD) {
                 __syncthreads();
                 load_tile<TS, 4, false>(g, k, t, S.xs[0], S.nz[0]);
                 __syncthreads();
+                phase(K_TILE, SITE_KERNEL);
             }
-            critic_tile<H>(g, S, S.xs[cur], S.nz[cur], part, t == (int)blockIdx.x);
+            // K5 holds one tile a block (grid == n_tiles): one pass, its first
+            critic_tile<H, T>(g, S, xs, nz, part, FOLD || t == (int)blockIdx.x);
+            phase(K_CRITIC, SITE_KERNEL);
+            if (FOLD) break;
         }
         grid.sync();
-        critic_apply<H, L, true>(g, k, G, a_lr, c_eps);
+        phase(K_SYNC_C, SITE_KERNEL);
+        critic_apply<H, L, true, BF>(g, k, G, a_lr, c_eps);
+        phase(K_CRITIC_ADAM, SITE_KERNEL);
         grid.sync();
+        phase(K_SYNC_CA, SITE_KERNEL);
         for (int t = blockIdx.x; t < n_tiles; t += G) {
             if (!FOLD) {
                 __syncthreads();
                 load_tile<TS, 4, false>(g, k, t, S.xs[0], S.nz[0]);
                 __syncthreads();
+                phase(K_ACTOR_TILE, SITE_KERNEL);
             }
-            actor_tile<H>(g, S, S.xs[cur], S.nz[cur], part, g.stash + (size_t)t * 2 * TS * H,
-                          t == (int)blockIdx.x);
+            actor_tile<H, T>(g, S, xs, nz, part, g.stash + (size_t)t * 2 * TS * H,
+                             FOLD || t == (int)blockIdx.x);
+            phase(K_ACTOR, SITE_KERNEL);
+            if (FOLD) break;
         }
         grid.sync();
-        actor_apply<H>(g, k, G, a_lr, c_eps);
+        phase(K_SYNC_A, SITE_KERNEL);
+        actor_apply<H, BF>(g, k, G, a_lr, c_eps);
+        phase(K_ACTOR_ADAM, SITE_KERNEL);
         grid.sync();
+        phase(K_SYNC_AA, SITE_KERNEL);
     }
 }
 
 // ------------------------------------------------------------------ host --
 // Plan errors: -1 width not built, -2 shared memory does not fit, -3 K5 needs
-// every tile resident (one per block).  Other non-zero codes are cudaError_t.
-template <int H, bool FOLD>
+// every tile resident (one per block); launch errors: -4 not the planned grid,
+// -5 no scratch for the mode (wt in float32, wb in bf16).  Other non-zero codes
+// are cudaError_t.
+template <int H, bool FOLD, bool BF>
 int plan(int W, int n_tiles, int* out) {
-    size_t smem = smem_floats<H, FOLD>(W) * sizeof(float);
+    size_t smem = smem_floats<H, FOLD, BF>(W) * sizeof(float);
     int dev = 0, sms = 0, optin = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (smem > (size_t)optin) return -2;
-    e = cudaFuncSetAttribute(sac_update_kernel<H, FOLD>,
+    e = cudaFuncSetAttribute(sac_update_kernel<H, FOLD, BF>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sac_update_kernel<H, FOLD>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sac_update_kernel<H, FOLD, BF>,
                                                       Tile<H>::NT, smem);
     if (e != cudaSuccess) return (int)e;
     int resident = per_sm * sms;
@@ -469,57 +626,88 @@ int plan(int W, int n_tiles, int* out) {
     return 0;
 }
 
-template <int H, bool FOLD>
+template <int H, bool FOLD, bool BF>
 int launch(Args g, int grid, cudaStream_t stream) {
     int out[2];
-    int err = plan<H, FOLD>(g.W, g.B / Tile<H>::TS, out);
+    int err = plan<H, FOLD, BF>(g.W, g.B / Tile<H>::TS, out);
     if (err != 0) return err;
     if (grid != out[0]) return -4;
+    if ((BF && !g.wb) || (!BF && !g.wt)) return -5;
     void* params[] = {&g};
-    cudaError_t e = cudaLaunchCooperativeKernel((void*)sac_update_kernel<H, FOLD>, dim3(grid),
+    cudaError_t e = cudaLaunchCooperativeKernel((void*)sac_update_kernel<H, FOLD, BF>, dim3(grid),
                                                 dim3(Tile<H>::NT), params, (size_t)out[1], stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
-template <bool FOLD>
+template <bool FOLD, bool BF>
 int plan_any(int H, int W, int n_tiles, int* out) {
     switch (H) {
-        case 128: return plan<128, FOLD>(W, n_tiles, out);
-        case 256: return plan<256, FOLD>(W, n_tiles, out);
-        case 384: return plan<384, FOLD>(W, n_tiles, out);
-        case 512: return plan<512, FOLD>(W, n_tiles, out);
+        case 128: return plan<128, FOLD, BF>(W, n_tiles, out);
+        case 256: return plan<256, FOLD, BF>(W, n_tiles, out);
+        case 384: return plan<384, FOLD, BF>(W, n_tiles, out);
+        case 512: return plan<512, FOLD, BF>(W, n_tiles, out);
     }
     return -1;
 }
 
-template <bool FOLD>
+template <bool FOLD, bool BF>
 int launch_any(int H, const Args& g, int grid, cudaStream_t stream) {
     switch (H) {
-        case 128: return launch<128, FOLD>(g, grid, stream);
-        case 256: return launch<256, FOLD>(g, grid, stream);
-        case 384: return launch<384, FOLD>(g, grid, stream);
-        case 512: return launch<512, FOLD>(g, grid, stream);
+        case 128: return launch<128, FOLD, BF>(g, grid, stream);
+        case 256: return launch<256, FOLD, BF>(g, grid, stream);
+        case 384: return launch<384, FOLD, BF>(g, grid, stream);
+        case 512: return launch<512, FOLD, BF>(g, grid, stream);
     }
     return -1;
 }
 
 }  // namespace sac
 
-// The two C entry points of one library: `NAME_plan(H, W, n_tiles, out)` gives
-// the grid size and the shared-memory bytes, `NAME(...)` launches.
+// The two C entry points of one library: `NAME_plan(H, W, n_tiles, bf, out)`
+// gives the grid size and the shared-memory bytes of a mode, `NAME(...)`
+// launches: bf (mm_bf16) 0 the float32 products on the CUDA cores, reading
+// the transposed copy `wt`; 1 the bf16 products on the tensor cores, reading
+// the shadow `wb`.  The scratch of the other mode may be null.
+#ifdef SG_PHASE_CLOCK
+#include <cstdio>
+// The phase clock's cycles (learner_tiles.cuh) since the last read, then zero.
+extern "C" int sg_phase_read(unsigned long long* out) {
+    cudaError_t e = cudaMemcpyFromSymbol(out, tiles::sg_phase_cycles, sizeof(tiles::sg_phase_cycles));
+    if (e != cudaSuccess) return (int)e;
+    static const unsigned long long zero[256] = {};
+    return (int)cudaMemcpyToSymbol(tiles::sg_phase_cycles, zero, sizeof(zero));
+}
+// The name of the phase clock's id i, "site: mark", into out[0, n).
+extern "C" int sg_phase_name(int i, char* out, int n) {
+    const int mark = i % 16;
+    switch (i / 16) {
+#define SG_SITE_CASE(id, name, marks)                                                  \
+    case sac::id: {                                                                    \
+        static const char* const m[] = {marks(SG_MARK_NAME)};                          \
+        return snprintf(out, n, "%s: %s", name, mark < (int)(sizeof m / sizeof *m) ? m[mark] : "?"); \
+    }
+        SG_SITES(SG_SITE_CASE)
+#undef SG_SITE_CASE
+    }
+    return snprintf(out, n, "%d", i);
+}
+#endif
+
 #define SAC_UPDATE_ENTRY(NAME, FOLD)                                                          \
-    extern "C" int NAME##_plan(int H, int W, int n_tiles, int* out) {                         \
-        return sac::plan_any<FOLD>(H, W, n_tiles, out);                                       \
+    extern "C" int NAME##_plan(int H, int W, int n_tiles, int bf, int* out) {                 \
+        return bf ? sac::plan_any<FOLD, true>(H, W, n_tiles, out)                             \
+                  : sac::plan_any<FOLD, false>(H, W, n_tiles, out);                           \
     }                                                                                         \
     extern "C" int NAME(float* w, float* vec, float* mw, float* vw, float* mvec, float* vvec, \
                         const float* data, const int* row_idx, const float* noise,            \
-                        float* losses, float* partials, float* wt, float* stash, int H, int K, \
-                        int B, int W, int lanes, int rpb, int od, int grid, int bf,           \
-                        int has_floor, float gamma, float tau, float lr, float te,            \
-                        float count0, float logfloor, void* stream) {                         \
+                        float* losses, float* partials, float* wt, float* stash,              \
+                        __nv_bfloat16* wb, int H, int K, int B, int W, int lanes, int rpb,    \
+                        int od, int grid, int bf, int has_floor, float gamma, float tau,      \
+                        float lr, float te, float count0, float logfloor, void* stream) {     \
         sac::Args g{w, vec, mw, vw, mvec, vvec, data, row_idx, noise, losses, partials, wt,   \
-                    stash, K, B, W, lanes, rpb, od, bf, has_floor, gamma, tau, lr, te,        \
+                    stash, wb, K, B, W, lanes, rpb, od, bf, has_floor, gamma, tau, lr, te,    \
                     count0, logfloor};                                                        \
-        return sac::launch_any<FOLD>(H, g, grid, (cudaStream_t)stream);                       \
+        return bf ? sac::launch_any<FOLD, true>(H, g, grid, (cudaStream_t)stream)             \
+                  : sac::launch_any<FOLD, false>(H, g, grid, (cudaStream_t)stream);           \
     }

@@ -554,7 +554,7 @@ def _build_width(h: int):
         lib, name = _lib(fold)
         with torch.cuda.device(dev):
             plan = (ctypes.c_int * 2)()
-            err = getattr(lib, name + "_plan")(H, W, n_tiles, plan)
+            err = getattr(lib, name + "_plan")(H, W, n_tiles, int(bool(mm_bf16)), plan)
             if err != 0:
                 raise RuntimeError(
                     f"{name}: {_PLAN_ERRORS.get(err, 'CUDA error')} (code {err}) at H={H}, "
@@ -565,20 +565,28 @@ def _build_width(h: int):
             n1 = obs_dim + 2
             prows = 2 * (n1 + 3 + H) + 1
             partials = torch.empty((grid, prows, H), dtype=torch.float32, device=dev)
-            wt = torch.empty((3, H, H), dtype=torch.float32, device=dev)
+            # the products' weights: in float32 mode the transposed W2 copies, in
+            # bf16 mode the bf16 shadow of the first 5 (IN1 + H) rows of `w`
+            wt = wb = None
+            if mm_bf16:
+                wb = torch.empty((5 * (IN1 + H), H), dtype=torch.bfloat16, device=dev)
+            else:
+                wt = torch.empty((3, H, H), dtype=torch.float32, device=dev)
             stash = torch.empty((n_tiles, 2, ts, H), dtype=torch.float32, device=dev)
             losses = torch.empty((K, 2), dtype=torch.float32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, name)(
                 *[t.data_ptr() for t in state], data.data_ptr(),
                 row_idx.data_ptr() if row_idx is not None else None, noise.data_ptr(),
-                losses.data_ptr(), partials.data_ptr(), wt.data_ptr(), stash.data_ptr(),
+                losses.data_ptr(), partials.data_ptr(), wt.data_ptr() if wt is not None else None,
+                stash.data_ptr(), wb.data_ptr() if wb is not None else None,
                 H, K, B, W, lanes, rpb, obs_dim, grid, int(bool(mm_bf16)),
                 int(alpha_floor > 0),
                 gamma, tau, lr, target_entropy, float(f.count),
                 math.log(alpha_floor) if alpha_floor > 0 else 0.0, stream)
         if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: error {err}")
+            raise RuntimeError(f"{name} kernel launch failed: "
+                               f"{_PLAN_ERRORS.get(err, 'CUDA error')} (code {err})")
         LAUNCHES["sac_update_fold" if fold else "sac_update"] += 1
         return losses[:, 0], losses[:, 1]
 
@@ -637,6 +645,8 @@ _PLAN_ERRORS = {
     -2: "the kernel's shared memory does not fit one SM",
     -3: "fold=True keeps one tile per thread block and this batch has more tiles than "
         "blocks that can be resident; use fold=False",
+    -4: "the grid is not the planned one",
+    -5: "no scratch for the products' weights of this mode",
 }
 
 
@@ -652,13 +662,14 @@ def _lib(fold: bool):
     lib = cuda_build.load(name)
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = getattr(lib, "sg_" + name)
-    # six state tensors, data, row_idx, noise, losses, partials, wt, stash; H, K, B, W, lanes,
-    # rpb, obs_dim, grid, mm_bf16, has_floor; gamma, tau, lr, target_entropy, count0,
+    # six state tensors, data, row_idx, noise, losses, partials, wt, stash, wb; H, K, B, W,
+    # lanes, rpb, obs_dim, grid, mm_bf16, has_floor; gamma, tau, lr, target_entropy, count0,
     # log_floor; stream
-    fn.argtypes = [p] * 13 + [i] * 10 + [fl] * 6 + [p]
+    fn.argtypes = [p] * 14 + [i] * 10 + [fl] * 6 + [p]
     fn.restype = i
     plan = getattr(lib, "sg_" + name + "_plan")
-    plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]  # H, W, n_tiles -> grid, smem
+    # H, W, n_tiles, mm_bf16 -> grid, smem
+    plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     plan.restype = i
     return lib, "sg_" + name
 

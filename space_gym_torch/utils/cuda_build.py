@@ -16,7 +16,8 @@ and the flag would cost up to half the multiply-add rate.
 
 `build_all()` starts one nvcc per stale source at once, waits for all of them
 and returns each build's seconds and ptxas report; `load(name)` builds on
-first use and returns the ctypes handle.
+first use and returns the ctypes handle; `sass_count(name, opcode)` counts an
+instruction in the built library's SASS.
 """
 from __future__ import annotations
 
@@ -118,6 +119,17 @@ def build_all(names=None) -> dict[str, tuple[float, str]]:
                     proc.kill()
                     proc.wait()
     return reports
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of SASS `opcode` (e.g. "HMMA", the tensor cores'
+    matrix multiply-add) lib<name>.so holds, by `cuobjdump -sass`; built
+    first if stale."""
+    build_all([name])
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", _paths(name)[1]], check=True, capture_output=True,
+                         text=True).stdout
+    return sum(1 for line in out.splitlines() if f" {opcode}." in line or f" {opcode} " in line)
 
 
 @functools.cache

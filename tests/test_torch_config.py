@@ -17,6 +17,7 @@ from space_gym_torch.ops import field as tfield
 from space_gym_torch.ops import rk45 as trk45
 from space_gym_torch.ops.full_step_plain import count_uniform_rows, int_rows
 from space_gym_torch.tiling import geometry as tgeom
+from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 ENV_IDS = space_gym_tpu.env_ids()
 

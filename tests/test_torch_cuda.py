@@ -30,8 +30,9 @@ from space_gym_torch.ops.env_step import EnvStep
 from space_gym_torch.ops.full_step import FullStep
 from space_gym_torch.ops.physics_step import PhysicsStep
 from space_gym_torch.ops.rng_plain import key_words
+from space_gym_torch.utils import cuda_build
 
-from .torch_scenarios import scenario_inputs
+from .torch_scenarios import one_torch_thread, scenario_inputs  # noqa: F401 (autouse)
 
 TOL_STATE = 1e-5
 TOL_REWARD = 1e-3
@@ -309,6 +310,17 @@ def test_cuda_sac_update_bf16_mode_and_floor():
             assert d.max().item() <= 2 * 2.5 * SAC_HYPER["lr"], f
             assert (d <= 1e-4).float().mean().item() > 0.99, f
     assert all(torch.equal(a, b) for a, b in zip(outs[0][:6], outs[1][:6]))
+
+
+@pytest.mark.cuda
+def test_cuda_sac_kernels_use_the_tensor_cores_and_td3_does_not():
+    """K4 and K5 run their bf16-mode products on the tensor cores: HMMA
+    instructions in the SASS of their libraries.  K6 keeps its float32
+    CUDA-core products: none in its own."""
+    _need_card()
+    assert cuda_build.sass_count("sac_update", "HMMA") > 0
+    assert cuda_build.sass_count("sac_update_fold", "HMMA") > 0
+    assert cuda_build.sass_count("td3_update", "HMMA") == 0
 
 
 @pytest.mark.cuda

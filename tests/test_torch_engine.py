@@ -8,6 +8,7 @@
 * a CPU rollout, the state converters, device selection, and the rule that
   the port imports neither jax nor space_gym_tpu.
 """
+import functools
 import os
 import subprocess
 import sys
@@ -19,16 +20,22 @@ import torch
 import space_gym_tpu
 from space_gym_torch import get_config
 from space_gym_torch.engine import EnvEngine, state_from_numpy, state_to_numpy
+from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@functools.cache
 def _jax_engine(env_id, dtype, physics="fixed"):
+    """Built once per module for each configuration: it holds no state.  The
+    f64 engines serve the reset tests, which never step them: one substep and
+    8 refinements make their constructors' trace of the step shorter."""
     import jax.numpy as jnp
     from space_gym_tpu.engine import EnvEngine as JaxEngine
 
+    depth = dict(substeps=1, refine_iters=8) if dtype == "f64" else {}
     return JaxEngine(space_gym_tpu.get_config(env_id), physics=physics,
-                     dtype={"f64": jnp.float64, "f32": jnp.float32}[dtype])
+                     dtype={"f64": jnp.float64, "f32": jnp.float32}[dtype], **depth)
 
 
 def _flat(state):
@@ -134,8 +141,10 @@ def test_discrete_actions_translate_through_the_table():
 def test_state_round_trip_through_numpy():
     import jax
 
+    # 64 lanes, as test_step_matches_jax_fixed_path_on_live_lanes: the same
+    # engine steps them without tracing its step again
     jeng = _jax_engine("GoalContinuous2P-v0", "f32")
-    jstate, _ = jeng.init(jax.random.key(0), 16)
+    jstate, _ = jeng.init(jax.random.key(0), 64)
     want = jax.tree.map(np.asarray, jstate)
     got = state_to_numpy(state_from_numpy(want))
     for k, v in _flat(want).items():
@@ -145,7 +154,7 @@ def test_state_round_trip_through_numpy():
     from space_gym_tpu.tiling.device import TilingState as JaxTiling
 
     back = JaxState(*[JaxTiling(*f) if isinstance(f, tuple) else f for f in got])
-    jeng.step(back, np.zeros((16, 2), np.float32), jax.random.key(1))
+    jeng.step(back, jax.numpy.zeros((64, 2), np.float32), jax.random.key(1))
 
 
 def test_entry_point_defaults_to_the_card():

@@ -26,7 +26,7 @@ from space_gym_torch import get_config
 from space_gym_torch.engine import EnvEngine, state_from_numpy, state_to_numpy
 from space_gym_torch.ops import events, field, fixed_rk, rk45
 
-from .torch_scenarios import scenario_inputs
+from .torch_scenarios import one_torch_thread, scenario_inputs  # noqa: F401 (autouse)
 
 ATOL = 1e-9
 B = 8
@@ -233,11 +233,16 @@ def run_both(jeng, eng, batch, n_steps, seed, goal_lanes=0):
 @pytest.mark.parametrize("env_id", FAMILIES)
 def test_fixed_engine_matches_jax_fixed_engine(env_id):
     """max_episode_steps=2 forces a reset of every lane at every second step;
-    Goal lanes 0-3 start on their goal, so they resample."""
+    Goal lanes 0-3 start on their goal, so they resample.  The engine's
+    default depth (DP5 x 2, refine 12) on GoalContinuous2P-v0; one substep
+    and 8 refinements on the other families (the solver's depths are held to
+    JAX in test_fixed_solve_step_matches_jax): their JAX step traces in half
+    the time."""
     cfg = dataclasses.replace(get_config(env_id), max_episode_steps=2)
     jcfg = dataclasses.replace(space_gym_tpu.get_config(env_id), max_episode_steps=2)
-    jeng = JaxEngine(jcfg, physics="fixed", dtype=jnp.float64)
-    eng = EnvEngine(cfg, physics="fixed", dtype=torch.float64, device="cpu")
+    depth = {} if env_id == "GoalContinuous2P-v0" else dict(substeps=1, refine_iters=8)
+    jeng = JaxEngine(jcfg, physics="fixed", dtype=jnp.float64, **depth)
+    eng = EnvEngine(cfg, physics="fixed", dtype=torch.float64, device="cpu", **depth)
     steps = run_both(jeng, eng, 16, 4, seed=5, goal_lanes=4 if cfg.task == "goal" else 0)
     assert steps[1].truncated.all() and steps[3].done.all()
     assert not steps[0].truncated.any()
@@ -248,10 +253,15 @@ def test_fixed_engine_matches_jax_fixed_engine(env_id):
 
 @pytest.mark.parametrize("env_id", ["GoalContinuous2P-v0", "KeplerRandomOrbits-v0"])
 def test_fixed_engine_without_auto_reset_matches_jax(env_id):
+    """One substep and 8 refinements: the engine without its reset tail is
+    under test (the default depth in the test above), and the JAX step
+    traces in half the time."""
     cfg = dataclasses.replace(get_config(env_id), max_episode_steps=2)
     jcfg = dataclasses.replace(space_gym_tpu.get_config(env_id), max_episode_steps=2)
-    jeng = JaxEngine(jcfg, physics="fixed", dtype=jnp.float64, auto_reset=False)
-    eng = EnvEngine(cfg, physics="fixed", dtype=torch.float64, device="cpu", auto_reset=False)
+    depth = dict(substeps=1, refine_iters=8)
+    jeng = JaxEngine(jcfg, physics="fixed", dtype=jnp.float64, auto_reset=False, **depth)
+    eng = EnvEngine(cfg, physics="fixed", dtype=torch.float64, device="cpu", auto_reset=False,
+                    **depth)
     assert eng.n_step_rand < EnvEngine(cfg, physics="fixed", device="cpu").n_step_rand
     steps = run_both(jeng, eng, 8, 3, seed=6)
     assert steps[1].truncated.all()
@@ -260,11 +270,15 @@ def test_fixed_engine_without_auto_reset_matches_jax(env_id):
 
 def test_fixed_engine_f32_actions_and_default_dtype():
     """A float32 engine with the reference's float32 action arithmetic: one
-    step from the same state, f32 tolerances."""
+    step from the same state, f32 tolerances; one substep and 8 refinements,
+    as the action arithmetic is under test."""
     env_id = "GoalContinuous2P-v0"
+    depth = dict(substeps=1, refine_iters=8)
     for f32a in (True,):
-        jeng = JaxEngine(space_gym_tpu.get_config(env_id), physics="fixed", f32_actions=f32a)
-        eng = EnvEngine(get_config(env_id), physics="fixed", device="cpu", f32_actions=f32a)
+        jeng = JaxEngine(space_gym_tpu.get_config(env_id), physics="fixed", f32_actions=f32a,
+                         **depth)
+        eng = EnvEngine(get_config(env_id), physics="fixed", device="cpu", f32_actions=f32a,
+                        **depth)
         jstate, _ = jeng.init(jax.random.key(2), 32)
         act = np.random.default_rng(2).uniform(-1, 1, (32, 2)).astype(np.float32)
         key = jax.random.key(3)

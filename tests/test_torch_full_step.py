@@ -19,7 +19,7 @@ from space_gym_torch import get_config
 from space_gym_torch.ops.full_step import FullStep
 from space_gym_torch.ops.full_step_plain import count_uniform_rows, norminv
 
-from .torch_scenarios import scenario_inputs
+from .torch_scenarios import one_torch_thread, scenario_inputs  # noqa: F401 (autouse)
 
 B = 8
 SUB, REFINE, TAB = 1, 8, "bs3"

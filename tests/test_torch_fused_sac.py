@@ -13,6 +13,8 @@ another order, through Adam's division by sqrt(v)): parameters rtol 2e-4 /
 atol 2e-5, Adam m rtol 2e-3 / atol 2e-5, critic loss rtol 1e-4, actor loss
 rtol 1e-3.  Packing is exact.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,7 @@ from space_gym_torch.models.replay import Transition
 from space_gym_torch.models.sac import AdamState
 
 from .test_fused_sac import flax_update_with_noise
+from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 ENV = "GoalContinuous2P-v0"
 HYPER = dict(gamma=0.99, tau=0.005, lr=3e-4, target_entropy=-2.0)
@@ -45,10 +48,25 @@ def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+@functools.cache
+def jax_engine():
+    """The learners read the engine's shapes and never step it: one substep
+    and 8 refinements make its constructor's trace of the step shorter."""
+    return JaxEngine(space_gym_tpu.get_config(ENV), substeps=1, refine_iters=8)
+
+
+@functools.cache
+def jax_learner(hidden):
+    """The JAX trainer of a width, built once per module: its tracing is the
+    cost; a fresh state of another seed costs milliseconds."""
+    cfg = JaxSACConfig(lanes=16, rollout_len=4, replay_rows=8, batch_size=64,
+                       updates_per_iter=1, warmup_rows=4, hidden=hidden)
+    return JaxSACTrainer(jax_engine(), cfg)
+
+
 def jax_trainer(hidden=(256, 256), seed=0):
-    eng = JaxEngine(space_gym_tpu.get_config(ENV))
-    tr = JaxSACTrainer(eng, JaxSACConfig(lanes=16, rollout_len=4, replay_rows=8, batch_size=64,
-                                         updates_per_iter=1, warmup_rows=4, hidden=hidden))
+    """The JAX trainer and a fresh state from `seed`."""
+    tr = jax_learner(hidden)
     return tr, tr.init(jax.random.key(seed))
 
 

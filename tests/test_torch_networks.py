@@ -22,6 +22,7 @@ from space_gym_tpu.models import fused_sac as jfs
 from space_gym_tpu.models import networks as jnets
 
 from space_gym_torch.models import convert, fused_sac, networks
+from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OBS_DIM, ACT_DIM = 13, 2

@@ -20,7 +20,7 @@ from space_gym_torch import get_config
 from space_gym_torch.ops.physics import illinois_refine
 from space_gym_torch.ops.physics_step import PhysicsStep
 
-from .torch_scenarios import scenario_inputs
+from .torch_scenarios import one_torch_thread, scenario_inputs  # noqa: F401 (autouse)
 
 B = 8
 

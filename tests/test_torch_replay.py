@@ -11,6 +11,7 @@ import jax.numpy as jnp
 from space_gym_tpu.models import replay as jr
 
 from space_gym_torch.models import replay as tr
+from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 
 def rand_slab(rng, t, lanes, obs_dim, act_dim):

@@ -31,7 +31,7 @@ from space_gym_torch.engine import EnvEngine
 from space_gym_torch.ops import rng_plain
 from space_gym_torch.ops.full_step import FullStep
 
-from .torch_scenarios import scenario_inputs
+from .torch_scenarios import one_torch_thread, scenario_inputs  # noqa: F401 (autouse)
 
 
 def _bits(a):
@@ -155,12 +155,15 @@ def test_generator_drawn_keys_stay_on_the_device_and_differ():
 
 
 def test_philox_engine_reset_marginals_match_jax_fixed_tier():
+    """Every lane resets at every step: the reset law is under test.  The JAX
+    fixed tier runs at the port engine's depth (one substep, 8 refinements),
+    which also halves the trace of its step."""
     cfg = dataclasses.replace(get_config("GoalContinuous2P-v0"), max_episode_steps=1)
     jcfg = dataclasses.replace(space_gym_tpu.get_config("GoalContinuous2P-v0"),
                                max_episode_steps=1)
     ep = EnvEngine(cfg, device="cpu", in_kernel_rng="philox", tableau="bs3", substeps=1,
                    refine_iters=8)
-    ex = JaxEngine(jcfg, physics="fixed", dtype=jnp.float32)
+    ex = JaxEngine(jcfg, physics="fixed", dtype=jnp.float32, substeps=1, refine_iters=8)
     B = 512
     g = ep.generator(0)
     sp, _ = ep.init(B, g)

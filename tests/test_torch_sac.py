@@ -8,6 +8,8 @@ the JAX trainer's `_update_fused` with the same replay contents, row indices
 and normals: the JAX trainer draws them from a key, and the same draws are
 injected into the port.  Tolerances as in tests/test_torch_fused_sac.py.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -25,8 +27,19 @@ from space_gym_torch import get_config
 from space_gym_torch.engine import EnvEngine
 from space_gym_torch.models import SACConfig, SACTrainer, convert, fused_sac
 from space_gym_torch.models import replay as treplay
+from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 ENV = "GoalContinuous2P-v0"
+
+
+@functools.cache
+def jax_engine():
+    """The JAX engine of ENV, built once per module (it holds no state).  The
+    learners read its shapes and never step it: one substep and 8
+    refinements make its constructor's trace of the step shorter."""
+    return JaxEngine(space_gym_tpu.get_config(ENV), substeps=1, refine_iters=8)
+
+
 SMALL = dict(lanes=16, rollout_len=4, replay_rows=16, batch_size=32, updates_per_iter=2,
              fused_block=32, alpha_floor=1e-3)
 
@@ -105,7 +118,7 @@ def test_trainer_options_and_errors():
 @pytest.mark.parametrize("fold", [False, True], ids=["grid_k2t", "fold_k"])
 def test_update_fused_matches_the_jax_trainer_on_the_same_draws(fold):
     cfg = {**SMALL, "warmup_rows": 4, "fused_updates": True, "fused_fold": fold}
-    jtr = JaxSACTrainer(JaxEngine(space_gym_tpu.get_config(ENV)), JaxSACConfig(**cfg))
+    jtr = JaxSACTrainer(jax_engine(), JaxSACConfig(**cfg))
     jst = jtr.init(jax.random.key(0))
     ttr = trainer(**{k: v for k, v in cfg.items() if k not in SMALL})
     tst = ttr.init(0)

@@ -5,8 +5,13 @@ thread, real barriers), held to the plain version `update_k_reference`.
 The CUDA kernels K4 and K5 run only on a card (tests/test_torch_cuda.py).
 This build says nothing about the card, but it runs the same source, so it
 catches a wrong index, a missing barrier or wrong arithmetic here: every
-tile, both data modes, bf16 rounding, more tiles than blocks, three widths.
-Tolerances as in tests/test_torch_fused_sac.py; K5 equals K4 bit for bit.
+tile, both data modes, more tiles than blocks, four widths, and both
+product paths: float32 on the CUDA cores (mm_bf16=False) and the tensor
+cores (mm_bf16=True), whose ldmatrix and mma.sync instructions the host
+build emulates lane by lane with the fragment layouts of the PTX ISA
+(csrc/host/mma_emul.h; `test_emulated_mma_fragments` holds them to a plain
+product).  Tolerances as in tests/test_torch_fused_sac.py; K5 equals K4 bit
+for bit in both modes.
 """
 import ctypes
 import math
@@ -21,6 +26,7 @@ import torch
 from space_gym_torch.models import fused_sac
 from space_gym_torch.models.replay import Transition, pack_slab, replay_cols, unpack_flat
 from space_gym_torch.utils.cuda_build import CSRC
+from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 HYPER = dict(gamma=0.99, tau=0.005, lr=3e-4, target_entropy=-2.0)
 
@@ -32,17 +38,19 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs g++ to build the kernels for the host")
     out = tmp_path_factory.mktemp("sac_host") / "libsac_update_host.so"
     host = os.path.join(CSRC, "host")
-    subprocess.run([gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-I", host,
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", host,
                     "-o", str(out), os.path.join(host, "sac_update_host.cpp")],
                    check=True, capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(str(out))
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.host_mma_tile.argtypes = [p, p, p, i, i]
+    lib.host_mma_tile.restype = i
     for name in ("sg_sac_update", "sg_sac_update_fold"):
         fn = getattr(lib, name)
-        fn.argtypes = [p] * 13 + [i] * 10 + [fl] * 6 + [p]
+        fn.argtypes = [p] * 14 + [i] * 10 + [fl] * 6 + [p]
         fn.restype = i
         plan = getattr(lib, name + "_plan")
-        plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+        plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         plan.restype = i
     return lib
 
@@ -58,22 +66,25 @@ def host_launch(lib, h, f, data, row_idx, noises, obs_dim, fold, bf, sms, alpha_
     lanes, rpb = (B, 0) if row_idx is None else (data.shape[2], B // data.shape[2])
     n_tiles = B // ts
     plan = (ctypes.c_int * 2)()
-    err = getattr(lib, name + "_plan")(h, W, n_tiles, plan)
+    err = getattr(lib, name + "_plan")(h, W, n_tiles, int(bf), plan)
     if err:
         return err, None, None
     grid = plan[0]
     nan = float("nan")
     noise = noises.reshape(K, B, 4).transpose(1, 2).contiguous()
     partials = torch.full((grid, 2 * (obs_dim + 5 + h) + 1, h), nan)
-    wt = torch.full((3, h, h), nan)
+    # the products' weights: the transposed copies in float32, the bf16 shadow
+    wt = None if bf else torch.full((3, h, h), nan)
+    wb = torch.full((5 * (128 + h), h), nan, dtype=torch.bfloat16) if bf else None
     stash = torch.full((n_tiles, 2, ts, h), nan)
     losses = torch.full((K, 2), nan)
     state = [t.clone().contiguous() for t in (f.w, f.vec, f.mw, f.vw, f.mvec, f.vvec)]
     ri = row_idx.to(torch.int32).contiguous() if row_idx is not None else None
     err = getattr(lib, name)(
         *[t.data_ptr() for t in state], data.data_ptr(), ri.data_ptr() if rpb else None,
-        noise.data_ptr(), losses.data_ptr(), partials.data_ptr(), wt.data_ptr(),
-        stash.data_ptr(), h, K, B, W, lanes, rpb, obs_dim, grid, int(bf), int(alpha_floor > 0),
+        noise.data_ptr(), losses.data_ptr(), partials.data_ptr(),
+        None if wt is None else wt.data_ptr(), stash.data_ptr(),
+        None if wb is None else wb.data_ptr(), h, K, B, W, lanes, rpb, obs_dim, grid, int(bf), int(alpha_floor > 0),
         HYPER["gamma"], HYPER["tau"], HYPER["lr"], HYPER["target_entropy"], float(f.count),
         math.log(alpha_floor) if alpha_floor > 0 else 0.0, None)
     w, vec, mw, vw, mvec, vvec = state
@@ -134,6 +145,10 @@ CASES = [
     (512, 7, 1, 64, 32, False, 4, 0.0),
     (128, 13, 1, 256, 128, False, 4, 0.0),
     (384, 9, 1, 64, 0, True, 2, 0.0),
+    # the tensor-core path at the other widths, and with more tiles than blocks
+    (128, 13, 1, 256, 128, True, 4, 0.0),
+    (512, 7, 1, 32, 32, True, 2, 0.0),
+    (256, 17, 2, 128, 0, True, 1, 0.3),
 ]
 
 
@@ -198,7 +213,37 @@ def test_host_built_kernels_match_the_plain_version(host_lib, h, obs_dim, K, B, 
 def test_host_build_rejects_a_width_that_is_not_built(host_lib):
     plan = (ctypes.c_int * 2)()
     host_lib.host_set_sms(4)
-    assert host_lib.sg_sac_update_plan(640, 40, 4, plan) == -1
-    assert host_lib.sg_sac_update_plan(256, 40, 4, plan) == 0 and plan[0] == 4
-    assert plan[1] == 4 * (2 * 64 * 256 + 16 * 256 + 40 * 64 + 4 * 64 + 40 * 64 + 28 * 64
-                           + 4 * 64 * 8 + 32)
+    for bf in (0, 1):
+        assert host_lib.sg_sac_update_plan(640, 40, 4, bf, plan) == -1
+    rest = 40 * 64 + 4 * 64 + 40 * 64 + 28 * 64 + 4 * 64 * 8 + 32
+    # float32: a chunk of 16 float32 weight rows; bf16: two stages of 32 x 256 bf16
+    for bf, weights in ((0, 16 * 256), (1, 32 * 256)):
+        assert host_lib.sg_sac_update_plan(256, 40, 4, bf, plan) == 0 and plan[0] == 4
+        assert plan[1] == 4 * (2 * 64 * 256 + weights + rest)
+    # every width fits the card's 227 KB with K5's two tile buffers
+    for h in (128, 256, 384, 512):
+        for bf in (0, 1):
+            assert host_lib.sg_sac_update_fold_plan(h, 40, 4, bf, plan) == 0, (h, bf)
+            assert plan[1] <= 232448
+
+
+# The fragment sources of host_mma_tile: A by ldmatrix, packed from the rows of
+# A, packed from the rows of A^T; B by ldmatrix.trans from the rows of B, by
+# ldmatrix from the rows of B^T, packed from the rows of B.
+@pytest.mark.parametrize("amode", [0, 1, 2], ids=["a-ldmatrix", "a-rows", "a-cols"])
+@pytest.mark.parametrize("bmode", [0, 1, 2], ids=["b-ldmatrix-trans", "b-ldmatrix", "b-rows"])
+def test_emulated_mma_fragments(host_lib, amode, bmode):
+    """One warp's two m16n8k16 products through the emulated ldmatrix and
+    mma.sync, against a plain (16, 16) x (16, 8) product each: bf16 values,
+    exact products, float32 sums."""
+    rng = np.random.default_rng(3 * amode + bmode)
+    bf16 = lambda a: torch.as_tensor(a, dtype=torch.float32).to(torch.bfloat16).float()
+    A = bf16(rng.standard_normal((16, 16))).contiguous()
+    B = bf16(rng.standard_normal((16, 16))).contiguous()
+    D = torch.full((16, 16), float("nan"))
+    assert host_lib.host_mma_tile(A.data_ptr(), B.data_ptr(), D.data_ptr(), amode, bmode) == 0
+    want = A.double() @ B.double()
+    for nt in (0, 1):
+        cols = slice(8 * nt, 8 * nt + 8)
+        np.testing.assert_allclose(D[:, cols].numpy(), want[:, cols].numpy(), rtol=1e-6,
+                                   atol=1e-5)

@@ -11,6 +11,8 @@ the JAX trainer's with the same replay contents, row indices and normals: the
 JAX trainer draws them from a key, and the same draws are injected into the
 port.  Tolerances as in tests/test_torch_fused_td3.py.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -33,8 +35,19 @@ from space_gym_torch.models import replay as treplay
 from space_gym_torch.models.sac import AdamState
 
 from .test_fused_td3 import flax_update_with_noise
+from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 ENV = "GoalContinuous2P-v0"
+
+
+@functools.cache
+def jax_engine():
+    """The JAX engine of ENV, built once per module (it holds no state).  The
+    learners read its shapes and never step it: one substep and 8
+    refinements make its constructor's trace of the step shorter."""
+    return JaxEngine(space_gym_tpu.get_config(ENV), substeps=1, refine_iters=8)
+
+
 SMALL = dict(lanes=16, rollout_len=4, replay_rows=16, batch_size=32, updates_per_iter=2,
              fused_block=32)
 
@@ -82,7 +95,7 @@ def test_deterministic_actor_matches_flax(hidden):
 def test_convert_carries_the_td3_tuples_with_both_counts():
     from space_gym_tpu.models import fused_td3 as jft
 
-    jtr = JaxTD3Trainer(JaxEngine(space_gym_tpu.get_config(ENV)), JaxTD3Config(**SMALL))
+    jtr = JaxTD3Trainer(jax_engine(), JaxTD3Config(**SMALL))
     st = jtr.init(jax.random.key(0))
     packed = jft.pack_params(st.actor_params, st.target_actor_params, st.critic_params,
                              st.target_critic_params)
@@ -176,7 +189,7 @@ def test_trainer_options_and_errors():
 def jax_and_torch_learners(cfg):
     """A JAX trainer's fresh state and the port's trainer holding the same
     learner, with targets drawn apart from the online networks."""
-    jtr = JaxTD3Trainer(JaxEngine(space_gym_tpu.get_config(ENV)), JaxTD3Config(**cfg))
+    jtr = JaxTD3Trainer(jax_engine(), JaxTD3Config(**cfg))
     jst = jtr.init(jax.random.key(0))
     other = jtr.init(jax.random.key(7))
     jst = jst._replace(target_actor_params=other.actor_params,

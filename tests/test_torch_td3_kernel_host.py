@@ -23,6 +23,7 @@ import torch
 from space_gym_torch.models import fused_td3
 from space_gym_torch.models.replay import Transition, pack_slab, replay_cols, unpack_flat
 from space_gym_torch.utils.cuda_build import CSRC
+from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 HYPER = dict(gamma=0.99, tau=0.005, lr=3e-4, smooth_std=0.2, smooth_clip=0.5)
 STATE = ("w", "vec", "mw", "mvec", "vw", "vvec")
@@ -35,7 +36,7 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs g++ to build the kernel for the host")
     out = tmp_path_factory.mktemp("td3_host") / "libtd3_update_host.so"
     host = os.path.join(CSRC, "host")
-    subprocess.run([gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-I", host,
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", host,
                     "-o", str(out), os.path.join(host, "td3_update_host.cpp")],
                    check=True, capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(str(out))

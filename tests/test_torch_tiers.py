@@ -33,7 +33,7 @@ from space_gym_torch.ops.constants import G
 from space_gym_torch.ops.env_step import EnvStep
 
 from .test_torch_fixed import run_both
-from .torch_scenarios import scenario_inputs
+from .torch_scenarios import one_torch_thread, scenario_inputs  # noqa: F401 (autouse)
 
 B = 8
 FAMILIES = ["GoalContinuous2P-v0", "GoalContinuous4P-v0", "KeplerRandomOrbits-v0",
@@ -158,10 +158,13 @@ def test_kepler_error_features_and_reward_match_jax():
                                              ("KeplerRandomOrbits-v0", "kepler"),
                                              ("DoNotCrashContinuous-v0", "dnc")])
 def test_obs_features_engine_matches_jax_engine(env_id, features):
+    """One substep and 8 refinements on both sides: the features are under
+    test here, the integration depth in tests/test_torch_fixed.py, and the
+    JAX step traces in half the time."""
     jeng = JaxEngine(space_gym_tpu.get_config(env_id), physics="fixed", dtype=jnp.float64,
-                     obs_features=features)
+                     obs_features=features, substeps=1, refine_iters=8)
     eng = EnvEngine(get_config(env_id), physics="fixed", dtype=torch.float64, device="cpu",
-                    obs_features=features)
+                    obs_features=features, substeps=1, refine_iters=8)
     assert eng.obs_dim == jeng.obs_dim > eng.config.obs_dim
     steps = run_both(jeng, eng, B, 1, seed=10)
     assert steps[0].obs.shape == (B, eng.obs_dim) == steps[0].final_obs.shape

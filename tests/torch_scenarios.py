@@ -1,12 +1,26 @@
 """Shared inputs of the port's tests: numpy-seeded env states in which lanes
 are live, truncating, crashing and reaching the goal, so every branch of the
-step runs."""
+step runs; and `one_torch_thread`, the autouse fixture every port test module
+imports."""
 import numpy as np
+import pytest
 import torch
 
 from space_gym_torch import get_config
 from space_gym_torch.engine import EnvEngine
 from space_gym_torch.ops.full_step_plain import count_uniform_rows
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """PyTorch on one thread while a module of the port's tests runs, then as
+    it was.  Their tensors are small, and under pytest-xdist the intra-op
+    threads of every worker oversubscribe the cores: four workers running one
+    module each took 2.2 times as long with PyTorch's default threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def scenario_inputs(env_id, B, seed):
