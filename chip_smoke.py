@@ -31,12 +31,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      minibatches and from rows of a replay ring, in float32 and with
      bfloat16-rounded products; each call twice, equal bits; K updates in one
      launch against K launches of one update, equal bits; K5 against K4,
-     equal bits; the same at H=512; the bf16 mode runs its products on the
-     tensor cores, so the HMMA instructions in K4's and K5's SASS are
-     counted after the build (none is a failure);
+     equal bits; the same at H=512 (B=4096, and B=8192, whose 256 tiles are
+     more than the card's blocks: K5 folds several a block) and on a batch
+     with partial tiles (B=8156 gathered, ring lanes of 2039); the bf16 mode
+     runs its products on the tensor cores, so the HMMA instructions in K4's,
+     K5's and K6's SASS are counted after the build (none is a failure);
      the TD3 learner kernel K6 (csrc/td3_update.cu) against its plain version
-     the same way, with policy_delay 2 and 3 from an odd update count, the two
-     step counts held to the plain version's;
+     the same way, with policy_delay 2 and 3 from an odd update count, at
+     H=512, and on partial tiles, in both modes, the two step counts held to
+     the plain version's;
   7. the training paths at full width on GoalContinuous2P-v0, lanes 2048,
      rollout 8, K=32 updates of B=8192 per train_iter, H=256, ring of 2048
      rows: SACTrainer with `fused_fold` False (K4) then True (K5), then
@@ -59,9 +62,9 @@ compute the same bits there.
 
     python3 chip_smoke.py --phase-clock
 
-prints instead where a launch of K4 and of K5 (tensor-core path, the training
-path's shapes) spends its time, by stage, from builds with the phase clock
-(-DSG_PHASE_CLOCK): for want of a profiler of a kernel's insides.
+prints instead where a launch of K4, of K5 and of K6 (tensor-core path, the
+training path's shapes) spends its time, by stage, from builds with the phase
+clock (-DSG_PHASE_CLOCK): for want of a profiler of a kernel's insides.
 """
 from __future__ import annotations
 
@@ -852,15 +855,23 @@ def sac_state_equal(a, b):
             and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]))
 
 
-def check_learner_kernel(dev, name, inputs, K, B, lanes, modes, **kw):
+def check_learner_kernel(dev, name, inputs, K, B, lanes, modes, block=2048, **kw):
     """A learner kernel against its namespace's `update_k_reference` on the
     card, from gathered minibatches and from the ring; the same call twice;
     K updates in one launch against K launches of one update.  `inputs` is
-    what sac_inputs or td3_inputs returned, `kw` the kernel's own options.
+    what sac_inputs or td3_inputs returned, `block` the JAX kernels' batch
+    tile (it must divide the batch and the lanes, as there), `kw` the
+    kernel's own options.
     Returns ({mm_bf16: max abs error over w and vec}, the results by
     (mm_bf16, data mode))."""
+    from space_gym_torch.models.fused_sac import KERNEL_TILE
+
     ns, packed, adam, ring, row_idx, batches, noises, hyper = inputs
     h = packed.a_w2.shape[0]
+    # the ring's tiles are those of the gathered batch where the tile divides
+    # the lanes; else each ring row ends in a partial tile of its own, and the
+    # sums run in another order
+    same_tiles = lanes % KERNEL_TILE[h] == 0
     tag = f"{name} H={h} K={K} B={B}" + (
         f" policy_delay={hyper['policy_delay']} from count {adam.count}"
         if "policy_delay" in hyper else "")
@@ -874,10 +885,10 @@ def check_learner_kernel(dev, name, inputs, K, B, lanes, modes, **kw):
             for _ in range(2):
                 f0 = ns.fused_init(packed, adam)
                 if mode == "ring":
-                    out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
+                    out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=block,
                                                  mm_bf16=bf, **kw, **hyper)
                 else:
-                    out = ns.fused_update_k_wmat_batches(f0, batches, noises, block=2048,
+                    out = ns.fused_update_k_wmat_batches(f0, batches, noises, block=block,
                                                          mm_bf16=bf, **kw, **hyper)
                 torch.cuda.synchronize()
                 runs.append((out[0], out[1].clone(), out[2].clone()))
@@ -914,7 +925,7 @@ def check_learner_kernel(dev, name, inputs, K, B, lanes, modes, **kw):
                   f"{want_cl[-1].item():.6g}), actor loss {al[-1].item():.6g} (plain "
                   f"{want_al[-1].item():.6g}); counts {got[6:]}; second call bit-identical",
                   flush=True)
-        if not sac_state_equal(results[(bf, "batches")], results[(bf, "ring")]):
+        if same_tiles and not sac_state_equal(results[(bf, "batches")], results[(bf, "ring")]):
             fail(f"{tag} mm_bf16={bf}: the ring and the gathered minibatches give other bits")
         # K updates in one launch against K launches of one update: between
         # launches every write is visible to every block, so equal bits show
@@ -924,7 +935,7 @@ def check_learner_kernel(dev, name, inputs, K, B, lanes, modes, **kw):
         cls, als = [], []
         for k in range(K):
             f0, cl, al = ns.fused_update_k_wmat(
-                f0, ring, row_idx[k * rpb:(k + 1) * rpb], noises[k:k + 1], block=2048,
+                f0, ring, row_idx[k * rpb:(k + 1) * rpb], noises[k:k + 1], block=block,
                 mm_bf16=bf, **kw, **hyper)
             cls.append(cl.clone())
             als.append(al.clone())
@@ -932,47 +943,73 @@ def check_learner_kernel(dev, name, inputs, K, B, lanes, modes, **kw):
         if not sac_state_equal((f0, torch.cat(cls), torch.cat(als)), results[(bf, "ring")]):
             fail(f"{tag} mm_bf16={bf}: {K} updates in one launch and {K} launches of one "
                  f"update give other bits or counts")
-    print(f"{tag}: {K} updates in one launch equal {K} launches of one update and the "
-          f"ring equals the gathered minibatches, bit for bit", flush=True)
+    print(f"{tag}: {K} updates in one launch equal {K} launches of one update"
+          + (" and the ring equals the gathered minibatches" if same_tiles else "")
+          + ", bit for bit", flush=True)
     return errs, results
 
 
 def check_sac_kernel(dev, fold, h=SAC_H, K=4, B=SAC_B, lanes=SAC_LANES, modes=(False, True)):
     """K4 (fold False) or K5 (fold True) against the plain version."""
     return check_learner_kernel(dev, "K5" if fold else "K4", sac_inputs(dev, h, K, B, lanes),
-                                K, B, lanes, modes, fold=fold)
+                                K, B, lanes, modes, block=min(2048, lanes), fold=fold)
+
+
+# A batch that no tile divides: gathered, B = 8192 - 36 ends in a tile of 28
+# samples at H=256; as a ring, rows of 2039 lanes (odd, so no row is 16-byte
+# aligned) end in a tile of 55.  The JAX kernels take it with a batch tile
+# (`block`) of 2039, which divides both.
+PARTIAL_B, PARTIAL_LANES = SAC_B - 36, (SAC_B - 36) // 4
+
+# The extra cases of K4 and K5 beyond check_sac_kernel's defaults: (key, h, K,
+# B, lanes).  H=512 with B=8192 has 256 tiles of 32 samples, more than the
+# card's resident blocks, so K5 folds further tiles in each block.
+SAC_EXTRA = (((512, 4096), 512, 2, 4096, SAC_LANES), ((512, 8192), 512, 2, SAC_B, SAC_LANES),
+             (("partial",), SAC_H, 2, PARTIAL_B, PARTIAL_LANES))
+
+
+def check_sac_cases(dev, fold):
+    """K4 or K5 against the plain version at H=256 (K=4, B=8192), then on
+    SAC_EXTRA, both modes.  Returns ({mm_bf16: max abs error}, the results
+    keyed by case and (mm_bf16, data mode))."""
+    errs, results = check_sac_kernel(dev, fold=fold)
+    for key, h, K, B, lanes in SAC_EXTRA:
+        e, r = check_sac_kernel(dev, fold=fold, h=h, K=K, B=B, lanes=lanes)
+        for bf, v in e.items():
+            errs[bf] = max(errs[bf], v)
+        results.update({key + k: v for k, v in r.items()})
+    return errs, results
 
 
 def check_k4(dev):
-    """K4 against the plain version at H=256 and at H=512, both modes."""
-    errs, results = check_sac_kernel(dev, fold=False)
-    _, r512 = check_sac_kernel(dev, fold=False, h=512, K=2, B=4096)
-    return errs, {**results, **{(512,) + k: v for k, v in r512.items()}}
+    """K4 against the plain version (check_sac_cases)."""
+    return check_sac_cases(dev, fold=False)
 
 
 def check_k5(dev, k4_results):
     """K5 against the plain version, then against K4: equal bits."""
-    errs, results = check_sac_kernel(dev, fold=True)
-    _, r512 = check_sac_kernel(dev, fold=True, h=512, K=2, B=4096)
-    results.update({(512,) + k: v for k, v in r512.items()})
+    errs, results = check_sac_cases(dev, fold=True)
     for key, res in results.items():
         if not sac_state_equal(res, k4_results[key]):
             fail(f"K5 and K4 differ in bits at {key}")
-    print(f"K5 against K4 on {len(results)} cases (H=256 and 512, both data modes, float32 and "
-          f"bf16-rounded): all outputs bit-identical", flush=True)
+    print(f"K5 against K4 on {len(results)} cases (H=256; H=512 at B=4096 and at B=8192 with "
+          f"more tiles than blocks; partial tiles; both data modes, float32 and bf16-rounded): "
+          f"all outputs bit-identical", flush=True)
     return errs
 
 
 def check_k6(dev):
     """K6 against the plain version at H=256 with policy_delay 2 and 3, each
-    from an odd update count and in both modes, and at H=512.  Returns
-    {mm_bf16: max abs error}."""
+    from an odd update count, at H=512, and on partial tiles, each in both
+    modes.  Returns {mm_bf16: max abs error}."""
     errs = {}
-    for h, K, B, delay, warm, modes in ((SAC_H, 4, SAC_B, 2, 3, (False, True)),
-                                        (SAC_H, 4, SAC_B, 3, 1, (False, True)),
-                                        (512, 3, 4096, 2, 1, (False,))):
-        inputs = td3_inputs(dev, h, K, B, SAC_LANES, delay=delay, warm=warm)
-        e, _ = check_learner_kernel(dev, "K6", inputs, K, B, SAC_LANES, modes)
+    for h, K, B, lanes, delay, warm in ((SAC_H, 4, SAC_B, SAC_LANES, 2, 3),
+                                        (SAC_H, 4, SAC_B, SAC_LANES, 3, 1),
+                                        (512, 3, 4096, SAC_LANES, 2, 1),
+                                        (SAC_H, 3, PARTIAL_B, PARTIAL_LANES, 2, 1)):
+        inputs = td3_inputs(dev, h, K, B, lanes, delay=delay, warm=warm)
+        e, _ = check_learner_kernel(dev, "K6", inputs, K, B, lanes, (False, True),
+                                    block=min(2048, lanes))
         for bf, v in e.items():
             errs[bf] = max(errs.get(bf, 0.0), v)
     return errs
@@ -1158,12 +1195,18 @@ def train_path(dev, card, algo, fold=False, n_iters=9, kernel_ms=None):
                                                      **hyper), iters=1, warmup=1)
     a = torch.randn((SAC_B, SAC_H), device=dev)
     b = torch.randn((SAC_H, SAC_H), device=dev)
-    matmul_ms = cuda_ms(lambda: torch.matmul(a, b), iters=200, warmup=20)
-    # the same product on bf16 operands into float32, the mode of the kernels'
-    # tensor-core products
+    # the same product on bf16 operands into float32 too, the mode of the
+    # kernels' tensor-core products; each the median of 5 windows of 200 calls
     a16, b16 = a.bfloat16(), b.bfloat16()
-    matmul16_ms = cuda_ms(lambda: torch.mm(a16, b16, out_dtype=torch.float32), iters=200,
-                          warmup=20)
+    windows = {
+        "float32": sorted(cuda_ms(lambda: torch.matmul(a, b), iters=200, warmup=20)
+                          for _ in range(5)),
+        "bf16": sorted(cuda_ms(lambda: torch.mm(a16, b16, out_dtype=torch.float32), iters=200,
+                               warmup=20) for _ in range(5))}
+    matmul_ms, matmul16_ms = windows["float32"][2], windows["bf16"][2]
+    print(f"  library yardstick ({SAC_B}, {SAC_H}) x ({SAC_H}, {SAC_H}), ms per product over 5 "
+          f"windows of 200: " + "; ".join(f"{k} median {v[2]:.5f}, spread {v[0]:.5f}-{v[-1]:.5f}"
+                                          for k, v in windows.items()), flush=True)
     # both modes back to back on a copy of the state, by CUDA events
     call_ms = {}
     for bf in (True, False):
@@ -1257,79 +1300,99 @@ def sac_bits(dev, card):
 
 
 def phase_clock(dev, card):
-    """Where a launch of K4 and of K5 spends its time, for want of a profiler
+    """Where a launch of K4, K5 and K6 spends its time, for want of a profiler
     of a kernel's insides: each built with the phase clock (-DSG_PHASE_CLOCK,
     learner_tiles.cuh) into build/phase_clock/, launched once at the training
-    path's shapes (K=32, B=8192, H=256, ring, mm_bf16=True), block 0's cycles
-    per update printed by stage under the names the library gives its marks;
-    then the clocked and the plain build timed in turns by CUDA events (the
-    marks' barriers cost a little)."""
+    path's shapes (K=32, B=8192, H=256, ring, mm_bf16=True; K6 with
+    policy_delay 2), block 0's cycles per update printed by stage under the
+    names the library gives its marks; then the clocked and the plain build
+    timed in turns by CUDA events (the marks' barriers cost a little)."""
     import ctypes
 
-    from space_gym_torch.models import fused_sac
+    from space_gym_torch.models import fused_sac, fused_td3
     from space_gym_torch.utils import cuda_build
 
     root = os.path.join(HERE, "build", "phase_clock")
     os.makedirs(root, exist_ok=True)
+    labels = {"sac_update": "K4", "sac_update_fold": "K5", "td3_update": "K6"}
     procs = {}
-    for fold in (False, True):
-        name = "sac_update_fold" if fold else "sac_update"
+    for name in labels:
         lib = os.path.join(root, f"lib{name}.so")
-        procs[fold] = (lib, subprocess.Popen(
+        procs[name] = (lib, subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.nvcc_flags(name), "-DSG_PHASE_CLOCK", "-o", lib,
              os.path.join(cuda_build.CSRC, f"{name}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-    cuda_build.build_all(["sac_update", "sac_update_fold"])
-    clocked = {}
-    for fold, (lib, proc) in procs.items():
+    cuda_build.build_all(list(labels))
+    sac_in = sac_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES)
+    td3_in = td3_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES, delay=2, warm=2)
+    real = {"sac": fused_sac._lib, "td3": fused_td3._lib}
+    # per kernel: what its module's _lib gives for the clocked build, and the call
+    clocked, calls = {}, {}
+    for name, (lib, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            fail(f"the phase-clock build of K{5 if fold else 4} did not build:\n{out[-4000:]}")
+            fail(f"the phase-clock build of {labels[name]} did not build:\n{out[-4000:]}")
         handle = ctypes.CDLL(lib)
-        real, name = fused_sac._lib(fold)
-        for fn in (name, name + "_plan"):
-            getattr(handle, fn).argtypes = getattr(real, fn).argtypes
-            getattr(handle, fn).restype = getattr(real, fn).restype
+        if name == "td3_update":
+            fns, clocked[name] = ("sg_td3_update", "sg_td3_update_plan"), handle
+            ref = real["td3"]()
+        else:
+            ref, fn = real["sac"](name == "sac_update_fold")
+            fns, clocked[name] = (fn, fn + "_plan"), (handle, fn)
+        for fn in fns:
+            getattr(handle, fn).argtypes = getattr(ref, fn).argtypes
+            getattr(handle, fn).restype = getattr(ref, fn).restype
         handle.sg_phase_name.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
-        clocked[fold] = (handle, name)
-    ns, packed, adam, ring, row_idx, batches, noises, hyper = sac_inputs(
-        dev, SAC_H, SAC_K, SAC_B, SAC_LANES)
-    real_lib = fused_sac._lib
+        ns, packed, adam, ring, row_idx, batches, noises, hyper = (
+            td3_in if name == "td3_update" else sac_in)
+        kw = {} if name == "td3_update" else dict(fold=name == "sac_update_fold")
+        # a fresh state, and a call that updates it in place
+        calls[name] = (lambda ns=ns, packed=packed, adam=adam: ns.fused_init(packed, adam),
+                       lambda f, ns=ns, ring=ring, row_idx=row_idx, noises=noises, hyper=hyper,
+                       kw=kw: ns.fused_update_k_wmat(f, ring, row_idx, noises, block=2048,
+                                                     mm_bf16=True, **kw, **hyper))
 
-    def call(fold):
-        return ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048, mm_bf16=True,
-                                      fold=fold, **hyper)
+    def use(name, clock):
+        """Point the kernel's module at the clocked build, or back."""
+        if name == "td3_update":
+            fused_td3._lib = (lambda h=clocked[name]: h) if clock else real["td3"]
+        else:
+            fused_sac._lib = (lambda fold, h=clocked[name]: h) if clock else real["sac"]
 
     times = {}
     try:
-        for fold, (handle, _) in clocked.items():
-            fused_sac._lib = lambda fold, h=clocked[fold]: h
-            f0 = ns.fused_init(packed, adam)
+        for name in labels:
+            handle = clocked[name] if name == "td3_update" else clocked[name][0]
+            use(name, True)
             cyc = (ctypes.c_ulonglong * 256)()
             handle.sg_phase_read(cyc)
-            call(fold)
+            fresh, call = calls[name]
+            call(fresh())
             torch.cuda.synchronize()
             if handle.sg_phase_read(cyc) != 0:
-                fail(f"K{5 if fold else 4}: the phase clock could not be read")
+                fail(f"{labels[name]}: the phase clock could not be read")
             total = sum(cyc)
-            print(f"phase clock K{5 if fold else 4} H={SAC_H} K={SAC_K} B={SAC_B} ring "
-                  f"mm_bf16=True, block 0, {total / SAC_K:.0f} SM cycles per update:", flush=True)
+            print(f"phase clock {labels[name]} H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16=True, "
+                  f"block 0, {total / SAC_K:.0f} SM cycles per update:", flush=True)
             label = ctypes.create_string_buffer(96)
             for i in sorted(range(256), key=lambda i: -cyc[i]):
                 if cyc[i]:
                     handle.sg_phase_name(i, label, len(label))
                     print(f"  {100 * cyc[i] / total:5.1f}% {cyc[i] / SAC_K:9.0f} cycles/update  "
                           f"[{i}] {label.value.decode()}")
+            use(name, False)
         for clock in (False, True, True, False):
-            for fold in (False, True):
-                fused_sac._lib = (lambda fold, h=clocked[fold]: h) if clock else real_lib
-                f0 = ns.fused_init(packed, adam)
-                times.setdefault((fold, clock), []).append(
-                    cuda_ms(lambda: call(fold), iters=5, warmup=2))
+            for name in labels:
+                use(name, clock)
+                fresh, call = calls[name]
+                f0 = fresh()
+                times.setdefault((name, clock), []).append(cuda_ms(lambda: call(f0), iters=5,
+                                                                   warmup=2))
+                use(name, False)
     finally:
-        fused_sac._lib = real_lib
-    for (fold, clock), ms in times.items():
-        print(f"time K{5 if fold else 4} {'with' if clock else 'without'} the phase clock "
+        fused_sac._lib, fused_td3._lib = real["sac"], real["td3"]
+    for (name, clock), ms in times.items():
+        print(f"time {labels[name]} {'with' if clock else 'without'} the phase clock "
               f"H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16=True: "
               + ", ".join(f"{t:.4f}" for t in ms) + f" ms per call by CUDA events on {card}",
               flush=True)
@@ -1343,15 +1406,15 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain, bnd, library=
 
 
 def tensor_core_counts():
-    """HMMA instructions in the SASS of the three learner libraries: K4 and
-    K5 run their bf16-mode products on the tensor cores, K6 does not yet."""
+    """HMMA instructions in the SASS of the three learner libraries: K4, K5
+    and K6 run their bf16-mode products on the tensor cores."""
     from space_gym_torch.utils import cuda_build
 
     counts = {n: cuda_build.sass_count(n, "HMMA")
               for n in ("sac_update", "sac_update_fold", "td3_update")}
     print(f"HMMA instructions in the SASS: {counts}", flush=True)
-    if counts["sac_update"] == 0 or counts["sac_update_fold"] == 0:
-        fail(f"K4/K5 hold no tensor-core instruction: {counts}")
+    if not all(counts.values()):
+        fail(f"a learner kernel holds no tensor-core instruction: {counts}")
     return counts
 
 

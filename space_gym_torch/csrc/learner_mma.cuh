@@ -1,6 +1,6 @@
 // Tensor-core products of the fused learner kernels: the bf16 mode of K4 and
-// K5 (sac_update.cuh).  MTile<H> has the interface of learner_tiles.cuh's
-// Tile<H>, so the shared stages run on either.
+// K5 (sac_update.cuh) and of K6 (td3_update.cuh).  MTile<H> has the interface
+// of learner_tiles.cuh's Tile<H>, so the shared stages run on either.
 //
 // Every operand of these products is a bf16 value already: the post-ReLU
 // activations and dz2 are rounded where they are stored, the weights are read
@@ -498,5 +498,10 @@ struct MTile {
         });
     }
 };
+
+// The tile type of a mode: float32 products on the CUDA cores, or bf16
+// products on the tensor cores.
+template <int H, bool BF>
+using TileOf = typename std::conditional<BF, MTile<H>, Tile<H>>::type;
 
 }  // namespace tiles

@@ -8,13 +8,13 @@
 //
 // The stages are templates over the tile type, which brings its products and
 // their stores as members and the layout of the activation buffers as
-// `ix(s, j)`: Tile<H> here (float32 multiply-adds on the CUDA cores, K6 and
-// the float32 mode of K4/K5) or MTile<H> of learner_mma.cuh (the tensor
-// cores, the bf16 mode of K4/K5).
+// `ix(s, j)`: Tile<H> here (float32 multiply-adds on the CUDA cores, the
+// float32 mode of K4, K5 and K6) or MTile<H> of learner_mma.cuh (the tensor
+// cores, their bf16 mode).
 //
 // The algorithm's header supplies `Args` (the launch's operands; the functions
 // here are templates over it and read the fields w, vec, mw, vw, mvec, vvec,
-// data, row_idx, noise, losses, partials, wt, B, W, lanes, rpb, od, tau) and a
+// data, row_idx, noise, losses, partials, wt, wb, B, W, lanes, rpb, od, tau) and a
 // layout class `LY` with the row offsets r_cw1(c), r_tw1(c) in `w` and the
 // rows V_CB1, V_CB2, V_CW3, V_TB1, V_TB2, V_TW3, V_MISC and columns M_CB3,
 // M_TB3 in `vec`.
@@ -377,11 +377,12 @@ __device__ void Tile<H>::w1grad(const Bufs& S, float* out, int nrows, int od, in
     }
 }
 
-// Sum of x[0..TS) by warp 0, the same value in all its lanes.
+// Sum of x[0..n) by warp 0 (n <= TS: the tile's samples), the same value in
+// all its lanes.
 template <int TS>
-__device__ float tile_sum(const float* x) {
+__device__ float tile_sum(const float* x, int n = TS) {
     float v = 0.f;
-    for (int s = threadIdx.x % 32; s < TS; s += 32) v += x[s];
+    for (int s = threadIdx.x % 32; s < n; s += 32) v += x[s];
     return warp_sum(v);
 }
 
@@ -403,6 +404,7 @@ __device__ float tile_sum(const float* x) {
     X(A_W1B1, "W1, b1 loop")
 #define SG_MARK_ID(id, name) id,
 #define SG_MARK_NAME(id, name) name,
+#define SG_SITE_ID(id, name, marks) id,
 enum StageMark { SG_STAGE_MARKS(SG_MARK_ID) };
 enum ActorBackMark { SG_ACTOR_BACK_MARKS(SG_MARK_ID) };
 #ifdef SG_PHASE_CLOCK
@@ -427,13 +429,19 @@ __device__ __forceinline__ void phase(int, int = -1) {}
 __device__ __forceinline__ void phase_site(int) {}
 #endif
 
-// cp.async in 16-byte pieces, its group commit and its wait for all but the
-// newest `N` groups.  Under a host compiler (no __CUDACC__: the kernel's logic
-// run on the CPU against stand-in headers) the copy is synchronous.
+// cp.async in 16-byte and 4-byte pieces, its group commit and its wait for
+// all but the newest `N` groups.  Under a host compiler (no __CUDACC__: the
+// kernel's logic run on the CPU against stand-in headers) the copy is
+// synchronous.
 #ifdef __CUDACC__
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
     unsigned s = (unsigned)__cvta_generic_to_shared(smem);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+// 4 bytes: .cg (L2 only) copies 16 bytes alone, .ca any of 4, 8, 16
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+    unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -444,46 +452,77 @@ __device__ __forceinline__ void cp_async_wait() {
 inline void cp_async16(void* smem, const void* gmem) {
     *static_cast<float4*>(smem) = *static_cast<const float4*>(gmem);
 }
+inline void cp_async4(void* smem, const void* gmem) {
+    *static_cast<float*>(smem) = *static_cast<const float*>(gmem);
+}
 inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}
 #endif
 
-// Where tile t of minibatch k starts in `data`, and its row stride: in ring
-// mode lane block (t*TS) % lanes of ring row row_idx[k*rpb + (t*TS) / lanes].
+// The tiles of a launch.  Minibatch k is rpb ring rows of `lanes` samples
+// (rpb 0: one gathered minibatch of lanes = B samples), and each row is cut
+// into ceil(lanes / TS) tiles of TS samples, the last of a row partial when TS
+// does not divide the lanes: tile t is samples [l0, l0 + nv) of row t / tpr
+// of the minibatch, l0 = (t % tpr) TS.  Where TS divides the lanes this is
+// the plain cut of the batch into B / TS tiles.
+__host__ __device__ inline int tiles_per_row(int lanes, int TS) { return (lanes + TS - 1) / TS; }
+__host__ __device__ inline int n_tiles(int lanes, int rpb, int TS) {
+    return (rpb ? rpb : 1) * tiles_per_row(lanes, TS);
+}
+// The samples of tile t that lie inside its row: TS but for a row's last tile.
 template <int TS, class Args>
-__device__ const float* tile_base(const Args& g, int k, int t, int& ld) {
-    int b0 = t * TS;
-    if (g.rpb == 0) {
-        ld = g.B;
-        return g.data + (size_t)k * g.W * g.B + b0;
-    }
-    int row = g.row_idx[k * g.rpb + b0 / g.lanes];
-    ld = g.lanes;
-    return g.data + (size_t)row * g.W * g.lanes + b0 % g.lanes;
+__device__ int tile_samples(const Args& g, int t) {
+    return min(TS, g.lanes - (t % tiles_per_row(g.lanes, TS)) * TS);
 }
 
 // Copy a tile's W data rows and NZ noise rows (of the (K, NZ, B) normals) into
-// shared memory: plain loads, or cp.async (completed by the caller).
+// shared memory, (rows, TS) each: plain loads, or cp.async (completed by the
+// caller).  A whole tile of rows whose stride is a multiple of 4 floats goes
+// in 16-byte pieces; a partial tile, or rows not 16-byte aligned (lanes or a
+// batch that is no multiple of 4), in 4-byte pieces, the samples past the
+// row's end zero (plain stores).
 template <int TS, int NZ, bool ASYNC, class Args>
 __device__ void load_tile(const Args& g, int k, int t, float* xs, float* nz) {
+    const int tpr = tiles_per_row(g.lanes, TS), r = t / tpr, l0 = (t % tpr) * TS;
+    const int nv = min(TS, g.lanes - l0);
+    // in ring mode B = rpb lanes, else lanes = B: the lanes' alignment is the rows'
     int ld;
-    const float* base = tile_base<TS>(g, k, t, ld);
-    const float* nbase = g.noise + (size_t)k * NZ * g.B + t * TS;
-    int n_data = g.W * TS / 4;
-    for (int idx = threadIdx.x; idx < n_data + NZ * TS / 4; idx += blockDim.x) {
-        const float* src;
-        float* dst;
-        if (idx < n_data) {
-            src = base + (size_t)(idx / (TS / 4)) * ld + (idx % (TS / 4)) * 4;
-            dst = xs + idx * 4;
-        } else {
-            int i = idx - n_data;
-            src = nbase + (size_t)(i / (TS / 4)) * g.B + (i % (TS / 4)) * 4;
-            dst = nz + i * 4;
+    const float* base;
+    if (g.rpb == 0) {
+        ld = g.B;
+        base = g.data + (size_t)k * g.W * g.B + l0;
+    } else {
+        ld = g.lanes;
+        base = g.data + (size_t)g.row_idx[k * g.rpb + r] * g.W * g.lanes + l0;
+    }
+    const float* nbase = g.noise + (size_t)k * NZ * g.B + (size_t)r * g.lanes + l0;
+    if (nv == TS && g.lanes % 4 == 0) {
+        const int n_data = g.W * TS / 4;
+        for (int idx = threadIdx.x; idx < n_data + NZ * TS / 4; idx += blockDim.x) {
+            const float* src;
+            float* dst;
+            if (idx < n_data) {
+                src = base + (size_t)(idx / (TS / 4)) * ld + (idx % (TS / 4)) * 4;
+                dst = xs + idx * 4;
+            } else {
+                int i = idx - n_data;
+                src = nbase + (size_t)(i / (TS / 4)) * g.B + (i % (TS / 4)) * 4;
+                dst = nz + i * 4;
+            }
+            if (ASYNC) cp_async16(dst, src);
+            else *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
         }
-        if (ASYNC) cp_async16(dst, src);
-        else *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+        return;
+    }
+    for (int idx = threadIdx.x; idx < (g.W + NZ) * TS; idx += blockDim.x) {
+        const int row = idx / TS, s = idx % TS;
+        float* dst = row < g.W ? xs + idx : nz + (idx - g.W * TS);
+        const float* src = row < g.W ? base + (size_t)row * ld + s
+                                     : nbase + (size_t)(row - g.W) * g.B + s;
+        if (s >= nv) *dst = 0.f;
+        else if (ASYNC) cp_async4(dst, src);
+        else *dst = *src;
     }
 }
 
@@ -625,20 +664,22 @@ __device__ void critic_forward(T& t, const Bufs& S, const CriticRefs& cr, int od
 // W1 (obs rows then the two action rows), n1 b1, n1+1 b2, n1+2 w3, [n1+3,
 // n1+3+H) W2; pm[0] takes the b3 gradient and pm[2] the loss sum.  q, dq and
 // lsum are (TS,) scratch.  The obs rows go through the rounded product, the
-// action rows, the bias and dq x w3 stay float32.
+// action rows, the bias and dq x w3 stay float32.  Only the tile's first nv
+// samples are real: the others get dq = 0 and no loss, so they add nothing.
 template <int H, class T>
 __device__ void critic_grad(T& t, const Bufs& S, const CriticRefs& cr, const float* tq,
                             float* q, float* dq, float* lsum, float* pc, float* pm, int od, int B,
-                            int bf, bool first) {
+                            int bf, bool first, int nv) {
     constexpr int TS = Tile<H>::TS, NT = Tile<H>::NT;
     const int n1 = od + 2, tid = threadIdx.x;
     const float invb = (float)(1.0 / B);
     critic_forward<H>(t, S, cr, od, bf, q);
     __syncthreads();
     if (tid < TS) {
+        const bool real = tid < nv;
         float d = q[tid] - tq[tid];
-        dq[tid] = 2.0f * d * invb;
-        lsum[tid] = d * d * invb;
+        dq[tid] = real ? 2.0f * d * invb : 0.f;
+        lsum[tid] = real ? d * d * invb : 0.f;
     }
     __syncthreads();
     phase(M_DQ);
@@ -683,9 +724,11 @@ __device__ void critic_grad(T& t, const Bufs& S, const CriticRefs& cr, const flo
 // part.  A slot holds critic 0's CS = n1 + 3 + H rows, critic 1's, and a row
 // with the two b3 gradients [0, 2) and the two loss sums [2, 4); the critic
 // loss of update k goes to losses[2 k].  The new W2 goes to the transposed
-// copy `wt`; in the bf16 mode of K4/K5 (BF) the new W1 obs rows and W2 of the
-// critics and the targets go to the bf16 shadow `wb` (rows as in `w`) instead,
-// and a thread takes four neighbouring elements (slot_sum4, adam4).
+// copy `wt`; in bf16 mode (BF) the new W1 obs rows and W2 of the critics, and
+// with POLYAK of the targets, go to the bf16 shadow `wb` (rows as in `w`)
+// instead, and a thread takes four neighbouring elements (slot_sum4, adam4).
+// Without POLYAK (TD3, whose targets move only on delayed updates) neither
+// the targets nor their shadow rows are written here.
 template <int H, class LY, bool POLYAK, bool BF = false, class Args>
 __device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c_eps) {
     const int n1 = g.od + 2, CS = n1 + 3 + H, prows = 2 * CS + 1;
@@ -837,3 +880,33 @@ __device__ void actor_backward(T& t, const Bufs& S, const float* gh, const float
 }
 
 }  // namespace tiles
+
+// The phase clock's two C entry points, for a library built with it:
+// `sg_phase_read(out)` copies the 256 counters out and zeroes them;
+// `sg_phase_name(i, out, n)` writes "site: mark" of id i into out[0, n), from
+// the kernel's site list SITES (X(id, name, marks), namespace NS).
+#ifdef SG_PHASE_CLOCK
+#include <cstdio>
+#define SG_SITE_CASE(id, name, marks)                                                      \
+    case id: {                                                                             \
+        static const char* const m[] = {marks(SG_MARK_NAME)};                              \
+        return snprintf(out, n, "%s: %s", name,                                            \
+                        mark < (int)(sizeof m / sizeof *m) ? m[mark] : "?");               \
+    }
+#define SG_PHASE_ENTRIES(NS, SITES)                                                        \
+    extern "C" int sg_phase_read(unsigned long long* out) {                                \
+        cudaError_t e = cudaMemcpyFromSymbol(out, tiles::sg_phase_cycles,                  \
+                                             sizeof(tiles::sg_phase_cycles));              \
+        if (e != cudaSuccess) return (int)e;                                               \
+        static const unsigned long long zero[256] = {};                                    \
+        return (int)cudaMemcpyToSymbol(tiles::sg_phase_cycles, zero, sizeof(zero));        \
+    }                                                                                      \
+    extern "C" int sg_phase_name(int i, char* out, int n) {                                \
+        using namespace NS;                                                                \
+        const int mark = i % 16;                                                           \
+        switch (i / 16) { SITES(SG_SITE_CASE) }                                            \
+        return snprintf(out, n, "%d", i);                                                  \
+    }
+#else
+#define SG_PHASE_ENTRIES(NS, SITES)
+#endif

@@ -71,10 +71,19 @@
 // back in the JAX layout.
 //
 // FOLD: K4 loads a tile's W data rows and noise from device memory in each
-// of the two phases.  K5 owns one tile per block, loads it once per update
-// into one of two shared-memory buffers, keeps it for both phases, and starts
-// the copy of the next update's tile (cp.async) before it computes this one.
-// The arithmetic and its order are the same, so are the bits.
+// of the two phases.  K5 keeps a block's first tile resident: it loads it
+// once per update into one of two shared-memory buffers, keeps it for both
+// phases, and starts the copy of the next update's first tile (cp.async)
+// before it computes this one.  A block with more tiles than one (a batch
+// with more tiles than resident blocks) loads the others in turn into the
+// second buffer, in each phase, as K4 does, and starts the next update's copy
+// after its last actor tile instead.  Both kernels take the same grid and add
+// a block's tiles into its slot in the same order, so they give the same bits.
+//
+// Partial tiles: a batch, or a ring's lanes, that TS does not divide ends in
+// a partial tile (learner_tiles.cuh, load_tile).  Its samples past the end are
+// zero inputs with zero seeds (dq, the actor's loss terms and head
+// gradients), so they add nothing to a gradient or a loss; means divide by B.
 #pragma once
 
 #include "learner_mma.cuh"
@@ -104,7 +113,6 @@ using namespace tiles;
     X(SITE_ACTOR_CRITICS, "actor stage, critics", SG_STAGE_MARKS)                  \
     X(SITE_DLDA, "actor stage, dL/da", SG_DLDA_MARKS)                              \
     X(SITE_ACTOR_BACK, "actor stage, actor backward", SG_ACTOR_BACK_MARKS)
-#define SG_SITE_ID(id, name, marks) id,
 enum KernelMark { SG_KERNEL_MARKS(SG_MARK_ID) };
 enum DldaMark { SG_DLDA_MARKS(SG_MARK_ID) };
 enum Site { SG_SITES(SG_SITE_ID) };
@@ -147,11 +155,6 @@ struct Lay {
     static constexpr int V_TB1 = sac::V_TB1, V_TB2 = sac::V_TB2, V_TW3 = sac::V_TW3;
     static constexpr int V_MISC = sac::V_MISC, M_CB3 = sac::M_CB3, M_TB3 = sac::M_TB3;
 };
-
-// The tile type of a mode: float32 products on the CUDA cores, or bf16
-// products on the tensor cores.
-template <int H, bool BF>
-using TileOf = typename std::conditional<BF, MTile<H>, Tile<H>>::type;
 
 template <int H, bool FOLD, bool BF>
 __host__ __device__ constexpr size_t smem_floats(int W) {
@@ -236,7 +239,7 @@ __device__ Smem carve(float* base, int W) {
 // slot's row 2*(n1+3+H) holds b3 of both critics and their loss sums.
 template <int H, class T>
 __device__ void critic_tile(const Args& g, const Smem& S, const float* xs, const float* nz,
-                            float* part, bool first) {
+                            float* part, bool first, int nv) {
     constexpr int TS = Tile<H>::TS;
     const int od = g.od, n1 = od + 2, bf = g.bf, CS = n1 + 3 + H;
     const int n0 = ceil8(od), a0 = ceil8(n0 + od), rr = a0 + 2, dd = rr + 1;
@@ -281,16 +284,17 @@ __device__ void critic_tile(const Args& g, const Smem& S, const float* xs, const
     phase_site(SITE_CRITICS);
     for (int c = 0; c < 2; c++)
         critic_grad<H>(t, S, critic_refs<H>(g, c), tq, q, dq, lsum, part + (size_t)c * CS * H,
-                       part + (size_t)2 * CS * H + c, od, g.B, bf, first);
+                       part + (size_t)2 * CS * H + c, od, g.B, bf, first, nv);
 }
 
 // ----------------------------------------------------------------- actor --
 // Gradient rows of the actor in a block's partial slot: [0, od) W1, od b1,
 // od+1 b2, [od+2, od+6) head^T, [od+6, od+6+H) W2; row od+6+H holds the head's
-// bias gradients [0, 4), the loss sum [4] and the logp sum [5].
+// bias gradients [0, 4), the loss sum [4] and the logp sum [5].  Samples from
+// nv on (a partial tile) get zero seeds and add nothing.
 template <int H, class T>
 __device__ void actor_tile(const Args& g, const Smem& S, const float* xs, const float* nz,
-                           float* part, float* stash, bool first) {
+                           float* part, float* stash, bool first, int nv) {
     using L = Lay<H>;
     constexpr int TS = Tile<H>::TS, NT = Tile<H>::NT;
     const int od = g.od, bf = g.bf;
@@ -346,13 +350,13 @@ __device__ void actor_tile(const Args& g, const Smem& S, const float* xs, const 
     }
     __syncthreads();
     if (tid < TS)
-        lsum[tid] = (alpha * logp[tid] - fminf(qc[tid], qc[TS + tid])) * invb;
+        lsum[tid] = tid < nv ? (alpha * logp[tid] - fminf(qc[tid], qc[TS + tid])) * invb : 0.f;
     // dL/da through the critic that gave the smaller q
     for (int c = 0; c < 2; c++) {
         __syncthreads();
         if (tid < TS) {
             bool pick0 = qc[tid] <= qc[TS + tid];
-            dq[tid] = -invb * ((c == 0) == pick0 ? 1.0f : 0.0f);
+            dq[tid] = tid < nv ? -invb * ((c == 0) == pick0 ? 1.0f : 0.0f) : 0.f;
         }
         __syncthreads();
         for (int j = tid; j < H; j += NT) {
@@ -406,14 +410,15 @@ __device__ void actor_tile(const Args& g, const Smem& S, const float* xs, const 
             float sig = 1.0f / (1.0f + expf(2.0f * p));
             float dpre = da[e * TS + tid] * (1.0f - a * a) + dlogp * (2.0f - 4.0f * sig);
             float clip = (l > LOG_STD_MIN && l < LOG_STD_MAX) ? 1.0f : 0.0f;
-            gh[e * TS + tid] = dpre;
-            gh[(2 + e) * TS + tid] = (dpre * sdv[e * TS + tid] * nz[(2 + e) * TS + tid] - dlogp)
-                                     * clip;
+            const bool in = tid < nv;
+            gh[e * TS + tid] = in ? dpre : 0.f;
+            gh[(2 + e) * TS + tid] =
+                in ? (dpre * sdv[e * TS + tid] * nz[(2 + e) * TS + tid] - dlogp) * clip : 0.f;
         }
     }
     if (tid < 32) {
         float* pm = part + (size_t)(od + 6 + H) * H;
-        float ls = tile_sum<TS>(lsum), lp = tile_sum<TS>(logp);
+        float ls = tile_sum<TS>(lsum), lp = tile_sum<TS>(logp, nv);
         if (tid == 0) {
             put(pm + 4, ls, first);
             put(pm + 5, lp, first);
@@ -507,10 +512,12 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
 #endif
     cg::grid_group grid = cg::this_grid();
     const int G = gridDim.x;
-    const int n_tiles = g.B / TS;
+    const int n_tiles = tiles::n_tiles(g.lanes, g.rpb, TS);
     const int n1 = g.od + 2, prows = 2 * (n1 + 3 + H) + 1;
     Smem S = carve<H, FOLD, BF>(smem_base, g.W);
     float* part = g.partials + (size_t)blockIdx.x * prows * H;
+    // K5: does this block hold more tiles than its resident one?
+    const bool more = FOLD && (int)blockIdx.x + G < n_tiles;
     phase(-1, SITE_KERNEL);  // starts the clock
 
     if (BF) {
@@ -541,16 +548,20 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
         // per-update scalars (fused_sac.py:460-474); b**t as exp(t log b)
         float a_lr, c_eps;
         adam_scalars(g.count0 + (float)k + 1.0f, g.lr, a_lr, c_eps);
-        // this update's tile buffers and the other pair, chosen by selects: an
-        // array indexed at run time would put S in local memory
+        // K5: this update's resident tile buffers and the other pair (the next
+        // update's, and until its copy starts those of the further tiles),
+        // chosen by selects: an array indexed at run time would put S in local
+        // memory.  K4: both are the one pair.
         const bool odd = FOLD && (k & 1);
         float* xs = odd ? S.xs[1] : S.xs[0];
         float* nz = odd ? S.nz[1] : S.nz[0];
+        float* xs2 = odd ? S.xs[0] : S.xs[1];
+        float* nz2 = odd ? S.nz[0] : S.nz[1];
         if (FOLD) {
-            // start the next update's copy, then wait for this update's
-            if (k + 1 < g.K) {
-                load_tile<TS, 4, true>(g, k + 1, blockIdx.x, odd ? S.xs[0] : S.xs[1],
-                                        odd ? S.nz[0] : S.nz[1]);
+            // start the next update's copy, then wait for this update's; a
+            // block with further tiles starts it after them
+            if (k + 1 < g.K && !more) {
+                load_tile<TS, 4, true>(g, k + 1, blockIdx.x, xs2, nz2);
                 cp_async_commit();
                 cp_async_wait<1>();
             } else {
@@ -560,16 +571,16 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
             phase(K_TILE, SITE_KERNEL);
         }
         for (int t = blockIdx.x; t < n_tiles; t += G) {
-            if (!FOLD) {
+            const bool resident = FOLD && t == (int)blockIdx.x;
+            if (!resident) {
                 __syncthreads();
-                load_tile<TS, 4, false>(g, k, t, S.xs[0], S.nz[0]);
+                load_tile<TS, 4, false>(g, k, t, xs2, nz2);
                 __syncthreads();
                 phase(K_TILE, SITE_KERNEL);
             }
-            // K5 holds one tile a block (grid == n_tiles): one pass, its first
-            critic_tile<H, T>(g, S, xs, nz, part, FOLD || t == (int)blockIdx.x);
+            critic_tile<H, T>(g, S, resident ? xs : xs2, resident ? nz : nz2, part,
+                              t == (int)blockIdx.x, tile_samples<TS>(g, t));
             phase(K_CRITIC, SITE_KERNEL);
-            if (FOLD) break;
         }
         grid.sync();
         phase(K_SYNC_C, SITE_KERNEL);
@@ -578,16 +589,24 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
         grid.sync();
         phase(K_SYNC_CA, SITE_KERNEL);
         for (int t = blockIdx.x; t < n_tiles; t += G) {
-            if (!FOLD) {
+            const bool resident = FOLD && t == (int)blockIdx.x;
+            if (!resident) {
                 __syncthreads();
-                load_tile<TS, 4, false>(g, k, t, S.xs[0], S.nz[0]);
+                load_tile<TS, 4, false>(g, k, t, xs2, nz2);
                 __syncthreads();
                 phase(K_ACTOR_TILE, SITE_KERNEL);
             }
-            actor_tile<H, T>(g, S, xs, nz, part, g.stash + (size_t)t * 2 * TS * H,
-                             FOLD || t == (int)blockIdx.x);
+            actor_tile<H, T>(g, S, resident ? xs : xs2, resident ? nz : nz2, part,
+                             g.stash + (size_t)t * 2 * TS * H, t == (int)blockIdx.x,
+                             tile_samples<TS>(g, t));
             phase(K_ACTOR, SITE_KERNEL);
-            if (FOLD) break;
+        }
+        if (more && k + 1 < g.K) {
+            // the further tiles are done with the second buffer: the next
+            // update's resident tile goes there
+            __syncthreads();
+            load_tile<TS, 4, true>(g, k + 1, blockIdx.x, xs2, nz2);
+            cp_async_commit();
         }
         grid.sync();
         phase(K_SYNC_A, SITE_KERNEL);
@@ -599,10 +618,10 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
 }
 
 // ------------------------------------------------------------------ host --
-// Plan errors: -1 width not built, -2 shared memory does not fit, -3 K5 needs
-// every tile resident (one per block); launch errors: -4 not the planned grid,
-// -5 no scratch for the mode (wt in float32, wb in bf16).  Other non-zero codes
-// are cudaError_t.
+// Plan errors: -1 width not built, -2 shared memory does not fit; launch
+// errors: -4 not the planned grid, -5 no scratch for the mode (wt in float32,
+// wb in bf16).  Other non-zero codes are cudaError_t.  K4 and K5 plan the same
+// grid, min(n_tiles, resident blocks).
 template <int H, bool FOLD, bool BF>
 int plan(int W, int n_tiles, int* out) {
     size_t smem = smem_floats<H, FOLD, BF>(W) * sizeof(float);
@@ -620,7 +639,6 @@ int plan(int W, int n_tiles, int* out) {
     if (e != cudaSuccess) return (int)e;
     int resident = per_sm * sms;
     if (resident < 1) return -2;
-    if (FOLD && n_tiles > resident) return -3;
     out[0] = n_tiles < resident ? n_tiles : resident;
     out[1] = (int)smem;
     return 0;
@@ -629,7 +647,7 @@ int plan(int W, int n_tiles, int* out) {
 template <int H, bool FOLD, bool BF>
 int launch(Args g, int grid, cudaStream_t stream) {
     int out[2];
-    int err = plan<H, FOLD, BF>(g.W, g.B / Tile<H>::TS, out);
+    int err = plan<H, FOLD, BF>(g.W, n_tiles(g.lanes, g.rpb, Tile<H>::TS), out);
     if (err != 0) return err;
     if (grid != out[0]) return -4;
     if ((BF && !g.wb) || (!BF && !g.wt)) return -5;
@@ -664,36 +682,14 @@ int launch_any(int H, const Args& g, int grid, cudaStream_t stream) {
 
 }  // namespace sac
 
+// The phase clock's entry points (a -DSG_PHASE_CLOCK build only).
+SG_PHASE_ENTRIES(sac, SG_SITES)
+
 // The two C entry points of one library: `NAME_plan(H, W, n_tiles, bf, out)`
 // gives the grid size and the shared-memory bytes of a mode, `NAME(...)`
 // launches: bf (mm_bf16) 0 the float32 products on the CUDA cores, reading
 // the transposed copy `wt`; 1 the bf16 products on the tensor cores, reading
 // the shadow `wb`.  The scratch of the other mode may be null.
-#ifdef SG_PHASE_CLOCK
-#include <cstdio>
-// The phase clock's cycles (learner_tiles.cuh) since the last read, then zero.
-extern "C" int sg_phase_read(unsigned long long* out) {
-    cudaError_t e = cudaMemcpyFromSymbol(out, tiles::sg_phase_cycles, sizeof(tiles::sg_phase_cycles));
-    if (e != cudaSuccess) return (int)e;
-    static const unsigned long long zero[256] = {};
-    return (int)cudaMemcpyToSymbol(tiles::sg_phase_cycles, zero, sizeof(zero));
-}
-// The name of the phase clock's id i, "site: mark", into out[0, n).
-extern "C" int sg_phase_name(int i, char* out, int n) {
-    const int mark = i % 16;
-    switch (i / 16) {
-#define SG_SITE_CASE(id, name, marks)                                                  \
-    case sac::id: {                                                                    \
-        static const char* const m[] = {marks(SG_MARK_NAME)};                          \
-        return snprintf(out, n, "%s: %s", name, mark < (int)(sizeof m / sizeof *m) ? m[mark] : "?"); \
-    }
-        SG_SITES(SG_SITE_CASE)
-#undef SG_SITE_CASE
-    }
-    return snprintf(out, n, "%d", i);
-}
-#endif
-
 #define SAC_UPDATE_ENTRY(NAME, FOLD)                                                          \
     extern "C" int NAME##_plan(int H, int W, int n_tiles, int bf, int* out) {                 \
         return bf ? sac::plan_any<FOLD, true>(H, W, n_tiles, out)                             \

@@ -57,8 +57,29 @@ LOG2 = 0.6931471805599453
 
 # Samples per thread block of the CUDA kernels, by hidden width (TS in
 # csrc/sac_update.cuh): a block's two (TS, H) float32 activation buffers must
-# fit its shared memory.
+# fit its shared memory.  These are the widths the kernels are built for: at
+# H=640 two (32, 640) float32 buffers (160 KB), two bf16 weight stages (40 KB)
+# and K5's tile buffers would pass the 227 KB a block may have, and a smaller
+# tile is not built (the tensor-core pieces are 32 samples).
 KERNEL_TILE = {128: 128, 256: 64, 384: 32, 512: 32}
+
+
+def n_tiles(lanes: int, rpb: int, ts: int) -> int:
+    """The kernels' tiles of one minibatch: each of its rpb ring rows (one
+    gathered minibatch of lanes = B samples when rpb is 0) cut into
+    ceil(lanes / ts) tiles, the last of a row partial when ts does not divide
+    the lanes (csrc/learner_tiles.cuh, n_tiles)."""
+    return max(rpb, 1) * -(-lanes // ts)
+
+
+def check_kernel_width(h: int):
+    """Raise ValueError unless the CUDA learner kernels are built for width h."""
+    if h not in KERNEL_TILE:
+        raise ValueError(
+            f"the CUDA learner kernels are built for hidden widths {sorted(KERNEL_TILE)}, got "
+            f"{h}: a wider layer does not fit a thread block's shared memory at the smallest "
+            f"tile of 32 samples (two (32, H) float32 activation buffers and the weight stages "
+            f"within 227 KB); run it on the CPU, or unfused")
 
 
 class PackedParams(NamedTuple):
@@ -208,17 +229,13 @@ def _gathered(data, row_idx, K, B, obs_dim):
     return unpack_flat(flat.to(torch.float32), obs_dim, 2)
 
 
-def _kernel_operands(f, data, row_idx, noises, lanes, rpb, vrows):
+def _kernel_operands(f, data, row_idx, noises, vrows):
     """Check what the CUDA kernels take; returns (tile samples, the six state
-    tensors in the kernels' order, row_idx as int32)."""
+    tensors in the kernels' order, row_idx as int32).  Any batch or number of
+    lanes: the last tile of a row may be partial."""
     h = f.w.shape[1]
-    if h not in KERNEL_TILE:
-        raise ValueError(f"the CUDA kernels are built for hidden widths "
-                         f"{sorted(KERNEL_TILE)}, got {h}")
+    check_kernel_width(h)
     ts = KERNEL_TILE[h]
-    if lanes % ts:
-        raise ValueError(f"{'batch' if rpb == 0 else 'lanes'} {lanes} must be a multiple of "
-                         f"the kernel's tile of {ts} samples at H={h}")
     dev = f.w.device
     state = (f.w, f.vec, f.mw, f.vw, f.mvec, f.vvec)
     for t in state + (data, noises):
@@ -524,7 +541,9 @@ def _build_width(h: int):
                      target_entropy, alpha_floor=0.0, block=2048, mm_bf16=True, fold=False):
         """Shared launcher of both data modes (`_data_mode`) and both kernels.
         `block` is checked as the JAX kernels check it; the CUDA kernels tile
-        the batch by KERNEL_TILE[H] samples per thread block whatever it is.
+        the batch, or each ring row, by KERNEL_TILE[H] samples per thread
+        block whatever it is, the last tile of a row partial where that does
+        not divide it.
         Returns (FusedState', critic_losses (K,), actor_losses (K,))."""
         K, B = noises.shape[0], noises.shape[1]
         if tuple(noises.shape) != (K, B, 2, 2):
@@ -548,17 +567,17 @@ def _build_width(h: int):
     def _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, fold, *, obs_dim,
                 gamma, tau, lr, target_entropy, alpha_floor):
         """Check what the kernel takes, allocate its scratch, launch it."""
-        ts, state, row_idx = _kernel_operands(f, data, row_idx, noises, lanes, rpb, VROWS)
+        ts, state, row_idx = _kernel_operands(f, data, row_idx, noises, VROWS)
         dev = f.w.device
-        n_tiles = B // ts
+        tiles = n_tiles(lanes, rpb, ts)
         lib, name = _lib(fold)
         with torch.cuda.device(dev):
             plan = (ctypes.c_int * 2)()
-            err = getattr(lib, name + "_plan")(H, W, n_tiles, int(bool(mm_bf16)), plan)
+            err = getattr(lib, name + "_plan")(H, W, tiles, int(bool(mm_bf16)), plan)
             if err != 0:
                 raise RuntimeError(
                     f"{name}: {_PLAN_ERRORS.get(err, 'CUDA error')} (code {err}) at H={H}, "
-                    f"W={W}, {n_tiles} tiles of {ts} samples")
+                    f"W={W}, {tiles} tiles of {ts} samples")
             grid = plan[0]
             # (K, 4, B): rows 0:2 the critic's normals, 2:4 the actor's
             noise = noises.reshape(K, B, 4).transpose(1, 2).contiguous()
@@ -572,7 +591,7 @@ def _build_width(h: int):
                 wb = torch.empty((5 * (IN1 + H), H), dtype=torch.bfloat16, device=dev)
             else:
                 wt = torch.empty((3, H, H), dtype=torch.float32, device=dev)
-            stash = torch.empty((n_tiles, 2, ts, H), dtype=torch.float32, device=dev)
+            stash = torch.empty((tiles, 2, ts, H), dtype=torch.float32, device=dev)
             losses = torch.empty((K, 2), dtype=torch.float32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, name)(
@@ -643,8 +662,6 @@ LAUNCHES = {"sac_update": 0, "sac_update_fold": 0}
 _PLAN_ERRORS = {
     -1: "hidden width not built",
     -2: "the kernel's shared memory does not fit one SM",
-    -3: "fold=True keeps one tile per thread block and this batch has more tiles than "
-        "blocks that can be resident; use fold=False",
     -4: "the grid is not the planned one",
     -5: "no scratch for the products' weights of this mode",
 }

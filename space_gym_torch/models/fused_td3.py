@@ -5,7 +5,9 @@ for TD3.  K sequential TD3 updates run inside one launch of a hand-written
 kernel, K6 (csrc/td3_update.cu, replaces the Pallas kernel fused_td3.py:421),
 which keeps the whole learner state (actor, critics, BOTH target networks,
 Adam moments) in the card's L2 and streams only the minibatch tiles.  It
-shares its tile code with the SAC kernels (csrc/learner_tiles.cuh).
+shares its tile code with the SAC kernels (csrc/learner_tiles.cuh), and in
+bf16 mode (`mm_bf16=True`, the trainer's) their tensor-core products
+(csrc/learner_mma.cuh).
 
 What an update is (models/td3.py::_update_once):
   * the critics' target uses the TARGET ACTOR and clipped Gaussian smoothing
@@ -44,7 +46,8 @@ import torch
 
 from ..utils import cuda_build
 from .fused_sac import (KERNEL_TILE, _BF16Dot, _BF16Round, _PLAN_ERRORS, _adam,  # noqa: F401
-                        _critic_leaves, _data_mode, _gathered, _kernel_operands, _pad_x, _sd)
+                        _critic_leaves, _data_mode, _gathered, _kernel_operands, _pad_x, _sd,
+                        n_tiles)
 from .replay import Transition, pack_slab
 
 IN1 = 128     # padded first-layer input width (obs | action | zeros)
@@ -378,8 +381,9 @@ def _build_width(h: int):
     def _kernel_call(f: FusedState, data, row_idx, noises, *, obs_dim, gamma, tau, lr,
                      smooth_std=0.2, smooth_clip=0.5, policy_delay=2, block=2048, mm_bf16=True):
         """Shared launcher of both data modes (fused_sac._data_mode).  `block`
-        is checked as the JAX kernel checks it; K6 tiles the batch by
-        KERNEL_TILE[H] samples per thread block whatever it is.  noises:
+        is checked as the JAX kernel checks it; K6 tiles the batch, or each
+        ring row, by KERNEL_TILE[H] samples per thread block whatever it is,
+        the last tile of a row partial where that does not divide it.  noises:
         (K, B, 2).  Returns (FusedState', critic_losses (K,), actor_losses
         (K,))."""
         K, B = noises.shape[0], noises.shape[1]
@@ -407,35 +411,43 @@ def _build_width(h: int):
     def _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, *, obs_dim, gamma, tau,
                 lr, smooth_std, smooth_clip, policy_delay):
         """Check what the kernel takes, allocate its scratch, launch it."""
-        ts, state, row_idx = _kernel_operands(f, data, row_idx, noises, lanes, rpb, VROWS)
+        ts, state, row_idx = _kernel_operands(f, data, row_idx, noises, VROWS)
         dev = f.w.device
-        n_tiles = B // ts
+        tiles = n_tiles(lanes, rpb, ts)
         lib = _lib()
         with torch.cuda.device(dev):
             plan = (ctypes.c_int * 2)()
-            err = lib.sg_td3_update_plan(H, W, n_tiles, plan)
+            err = lib.sg_td3_update_plan(H, W, tiles, int(bool(mm_bf16)), plan)
             if err != 0:
                 raise RuntimeError(
                     f"sg_td3_update: {_PLAN_ERRORS.get(err, 'CUDA error')} (code {err}) at "
-                    f"H={H}, W={W}, {n_tiles} tiles of {ts} samples")
+                    f"H={H}, W={W}, {tiles} tiles of {ts} samples")
             grid = plan[0]
             noise = noises.transpose(1, 2).contiguous()          # (K, 2, B)
             prows = 2 * (obs_dim + 2 + 3 + H) + 1
             partials = torch.empty((grid, prows, H), dtype=torch.float32, device=dev)
-            wt = torch.empty((3, H, H), dtype=torch.float32, device=dev)
-            stash = torch.empty((n_tiles, 2, ts, H), dtype=torch.float32, device=dev)
+            # the products' weights: in float32 mode the transposed W2 copies, in
+            # bf16 mode the bf16 shadow of the first 6 (IN1 + H) rows of `w`
+            wt = wb = None
+            if mm_bf16:
+                wb = torch.empty((6 * (IN1 + H), H), dtype=torch.bfloat16, device=dev)
+            else:
+                wt = torch.empty((3, H, H), dtype=torch.float32, device=dev)
+            stash = torch.empty((tiles, 2, ts, H), dtype=torch.float32, device=dev)
             alp = torch.empty((K, grid), dtype=torch.float32, device=dev)
             losses = torch.empty((K, 2), dtype=torch.float32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.sg_td3_update(
                 *[t.data_ptr() for t in state], data.data_ptr(),
                 row_idx.data_ptr() if row_idx is not None else None, noise.data_ptr(),
-                losses.data_ptr(), partials.data_ptr(), wt.data_ptr(), stash.data_ptr(),
-                alp.data_ptr(), H, K, B, W, lanes, rpb, obs_dim, grid, int(bool(mm_bf16)),
+                losses.data_ptr(), partials.data_ptr(), wt.data_ptr() if wt is not None else None,
+                stash.data_ptr(), alp.data_ptr(), wb.data_ptr() if wb is not None else None,
+                H, K, B, W, lanes, rpb, obs_dim, grid, int(bool(mm_bf16)),
                 int(f.count), int(f.count_a), policy_delay,
                 gamma, tau, lr, smooth_std, smooth_clip, stream)
         if err != 0:
-            raise RuntimeError(f"sg_td3_update kernel launch failed: error {err}")
+            raise RuntimeError(f"sg_td3_update kernel launch failed: "
+                           f"{_PLAN_ERRORS.get(err, 'CUDA error')} (code {err})")
         LAUNCHES["td3_update"] += 1
         return losses[:, 0], losses[:, 1]
 
@@ -501,12 +513,13 @@ def _lib():
     """The ctypes library of K6 with its two entry points typed."""
     lib = cuda_build.load("td3_update")
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # six state tensors, data, row_idx, noise, losses, partials, wt, stash, alp; H, K, B, W,
-    # lanes, rpb, obs_dim, grid, mm_bf16, count0, count_a0, policy_delay; gamma, tau, lr,
+    # six state tensors, data, row_idx, noise, losses, partials, wt, stash, alp, wb; H, K, B,
+    # W, lanes, rpb, obs_dim, grid, mm_bf16, count0, count_a0, policy_delay; gamma, tau, lr,
     # smooth_std, smooth_clip; stream
-    lib.sg_td3_update.argtypes = [p] * 14 + [i] * 12 + [fl] * 5 + [p]
+    lib.sg_td3_update.argtypes = [p] * 15 + [i] * 12 + [fl] * 5 + [p]
     lib.sg_td3_update.restype = i
-    lib.sg_td3_update_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]  # -> grid, smem
+    # H, W, n_tiles, mm_bf16 -> grid, smem
+    lib.sg_td3_update_plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.sg_td3_update_plan.restype = i
     return lib
 

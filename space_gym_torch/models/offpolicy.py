@@ -10,7 +10,7 @@ from typing import NamedTuple
 import torch
 
 from ..engine.core import EnvEngine
-from .fused_sac import KERNEL_TILE
+from .fused_sac import check_kernel_width
 from .replay import (Transition, replay_add_slab, replay_sample, replay_sample_rows)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -82,6 +82,11 @@ class OffPolicyTrainer:
         if config.fused_updates and self._layout is None:
             raise ValueError(
                 f"fused_updates requires hidden=(h, h) with h a multiple of 128, got {h}")
+        if config.fused_updates and self.device.type == "cuda":
+            # the CPU takes any multiple of 128 (the plain version); the card
+            # only the widths its kernels are built for, said here and not at
+            # the first launch
+            check_kernel_width(h[0])
 
     def generator(self, seed: int) -> torch.Generator:
         """A seeded generator on the trainer's device."""
@@ -123,9 +128,8 @@ class OffPolicyTrainer:
         K = c.updates_per_iter
         lanes_r = state.replay.data.shape[2]
         bt = min(c.fused_block, lanes_r)
-        tile = KERNEL_TILE.get(c.hidden[0], 1) if self.device.type == "cuda" else 1
         from_ring = batches is None and (row_idx is not None or (
-            c.batch_size % lanes_r == 0 and lanes_r % bt == 0 and lanes_r % tile == 0))
+            c.batch_size % lanes_r == 0 and lanes_r % bt == 0))
         if from_ring:
             if row_idx is None:
                 row_idx = torch.randint(0, max(state.replay.filled, 1),

@@ -197,6 +197,15 @@ def test_cuda_tier_matches_its_cpu_engine(kw):
 SAC_HYPER = dict(gamma=0.99, tau=0.005, lr=3e-4, target_entropy=-2.0)
 
 
+def _bf16_close(got, want, K, name):
+    """The bf16 mode against its plain version: an element may move by 2.5 lr
+    per update where bf16 flips the sign of a near-zero gradient, 99% agree
+    to 1e-4."""
+    d = (got - want).abs()
+    assert d.max().item() <= K * 2.5 * 3e-4, name
+    assert (d <= 1e-4).float().mean().item() > 0.99, name
+
+
 def _sac_case(h, K, B, lanes, obs_dim=13, rows=8, seed=3):
     """A learner state after one plain update, a ring, row indices with a
     repeated row, the same minibatches gathered, normals; all on the card."""
@@ -236,9 +245,13 @@ def _same_bits(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,K,B,lanes", [(256, 2, 4096, 2048), (512, 1, 2048, 1024),
-                                         (128, 2, 1024, 512)])
+                                         (128, 2, 1024, 512), (256, 2, 100, 50),
+                                         (512, 2, 8192, 4096)])
 def test_cuda_sac_update_kernels_match_the_plain_version(h, K, B, lanes):
-    """K4 and K5, from the ring and from gathered minibatches, float32."""
+    """K4 and K5, from the ring and from gathered minibatches, float32; B=100
+    and ring lanes of 50 end in partial tiles, and at H=512 B=8192 has more
+    tiles of 32 samples than the card has blocks, so K5 folds several tiles a
+    block."""
     _need_card()
     ns, od, packed, adam, ring, row_idx, batches, noises = _sac_case(h, K, B, lanes)
     hyper = dict(SAC_HYPER, obs_dim=od, mm_bf16=False)
@@ -273,7 +286,10 @@ def test_cuda_sac_update_kernels_match_the_plain_version(h, K, B, lanes):
                 assert torch.allclose(getattr(got_ad.v, f), getattr(want_ad.v, f), rtol=2e-3,
                                       atol=2e-5), f
     first = outs[(False, "ring")]
-    assert all(_same_bits(first, o) for o in outs.values()), "K5 = K4, ring = batches, bit for bit"
+    for mode in ("ring", "batches"):
+        assert _same_bits(outs[(False, mode)], outs[(True, mode)]), "K5 = K4, bit for bit"
+    if lanes % fused_sac.KERNEL_TILE[h] == 0:   # else each ring row ends in a tile of its own
+        assert _same_bits(first, outs[(False, "batches")]), "ring = batches, bit for bit"
     # K updates in one launch equal K launches of one update: the grid barriers
     # inside a launch order memory as the end of a launch does
     rpb = B // lanes
@@ -313,14 +329,12 @@ def test_cuda_sac_update_bf16_mode_and_floor():
 
 
 @pytest.mark.cuda
-def test_cuda_sac_kernels_use_the_tensor_cores_and_td3_does_not():
-    """K4 and K5 run their bf16-mode products on the tensor cores: HMMA
-    instructions in the SASS of their libraries.  K6 keeps its float32
-    CUDA-core products: none in its own."""
+def test_cuda_learner_kernels_use_the_tensor_cores():
+    """K4, K5 and K6 run their bf16-mode products on the tensor cores: HMMA
+    instructions in the SASS of their libraries."""
     _need_card()
-    assert cuda_build.sass_count("sac_update", "HMMA") > 0
-    assert cuda_build.sass_count("sac_update_fold", "HMMA") > 0
-    assert cuda_build.sass_count("td3_update", "HMMA") == 0
+    for name in ("sac_update", "sac_update_fold", "td3_update"):
+        assert cuda_build.sass_count(name, "HMMA") > 0, name
 
 
 @pytest.mark.cuda
@@ -331,18 +345,22 @@ def test_cuda_sac_entry_points_reject_what_the_kernels_do_not_take():
     f0 = ns.fused_init(packed, adam)
     with pytest.raises(TypeError):      # the ring in float64
         ns.fused_update_k_wmat(f0, ring.double(), row_idx, noises, **hyper)
-    with pytest.raises(ValueError):     # a batch that is no multiple of the kernel's tile
-        ns.fused_update_k_wmat_batches(f0, Transition(*[x[:, :100] for x in batches]),
-                                       noises[:, :100], **hyper)
+    # a batch that is no multiple of the kernel's tile: a partial tile, in bf16 mode
+    b100, n100 = Transition(*[x[:, :100] for x in batches]), noises[:, :100].contiguous()
+    want_p, _, want_cl, _ = ns.update_k_reference(packed, adam, b100, n100, mm_bf16=True,
+                                                  **hyper)
+    for fold in (False, True):
+        f1, cl, _ = ns.fused_update_k_wmat_batches(ns.fused_init(packed, adam), b100, n100,
+                                                   fold=fold, **hyper)
+        got_p, _ = ns.fused_unpack(f1)
+        assert torch.allclose(cl, want_cl, rtol=1e-3)
+        for f in ("a_w1", "a_w2", "c_w1", "c_w2"):
+            _bf16_close(getattr(got_p, f), getattr(want_p, f), 2, f)
     with pytest.raises(TypeError):      # row indices on the CPU
         ns.fused_update_k_wmat(f0, ring, row_idx.cpu(), noises, **hyper)
-    ns640 = fused_sac.build(640)
-    nets = [networks.TanhGaussianActor(od, 2, (640, 640))] + [
-        networks.DoubleCritic(od, 2, (640, 640)) for _ in range(2)]
-    p640 = fused_sac.PackedParams(*[x.cuda() for x in ns640.pack_params(*nets, torch.tensor(0.))])
-    with pytest.raises(ValueError):     # a width the kernels are not built for
-        ns640.fused_update_k_wmat(ns640.fused_init(p640, ns640.adam_init(p640)), ring, row_idx,
-                                  noises, **hyper)
+    with pytest.raises(ValueError, match="built for hidden widths"):   # a width not built
+        SACTrainer(EnvEngine(get_config("GoalContinuous2P-v0")),
+                   SACConfig(hidden=(640, 640), fused_updates=True))
 
 
 @pytest.mark.cuda
@@ -435,10 +453,12 @@ def _same_td3(a, b):
 @pytest.mark.parametrize("h,K,B,lanes,warm,delay", [(256, 3, 4096, 2048, 1, 2),
                                                     (256, 4, 4096, 2048, 1, 3),
                                                     (512, 2, 2048, 1024, 2, 2),
-                                                    (128, 3, 1024, 512, 3, 1)])
+                                                    (128, 3, 1024, 512, 3, 1),
+                                                    (256, 2, 100, 50, 1, 2)])
 def test_cuda_td3_update_kernel_matches_the_plain_version(h, K, B, lanes, warm, delay):
     """K6 from the ring and from gathered minibatches, float32, from an odd or
-    even count with policy_delay 1, 2 and 3."""
+    even count with policy_delay 1, 2 and 3; B=100 and ring lanes of 50 end
+    in partial tiles."""
     _need_card()
     ns, packed, adam, ring, row_idx, batches, noises, hyper = _td3_case(h, K, B, lanes, warm,
                                                                         delay)
@@ -470,7 +490,8 @@ def test_cuda_td3_update_kernel_matches_the_plain_version(h, K, B, lanes, warm, 
             _close_but_for_relu_flips(getattr(got_p, f), getattr(want_p, f), 2e-4, K, f)
             _close_but_for_relu_flips(getattr(got_ad.m, f), getattr(want_ad.m, f), 2e-3, K, f)
             _close_but_for_relu_flips(getattr(got_ad.v, f), getattr(want_ad.v, f), 2e-3, K, f)
-    assert _same_td3(outs["ring"], outs["batches"]), "ring = batches, bit for bit"
+    if lanes % fused_td3.KERNEL_TILE[h] == 0:   # else each ring row ends in a tile of its own
+        assert _same_td3(outs["ring"], outs["batches"]), "ring = batches, bit for bit"
     # K updates in one launch equal K launches of one update, both counts carried on
     rpb = B // lanes
     f0 = ns.fused_init(packed, adam)
@@ -485,37 +506,52 @@ def test_cuda_td3_update_kernel_matches_the_plain_version(h, K, B, lanes, warm, 
 
 @pytest.mark.cuda
 def test_cuda_td3_update_bf16_mode_and_rejections():
-    """mm_bf16=True (the trainer's mode on the card) against the plain
-    version's: an element may move by 2.5 lr per update where bf16 flips the
-    sign of a near-zero gradient, 99% agree to 1e-4.  Then what the entry
-    points do not take."""
+    """mm_bf16=True (the trainer's mode on the card, on the tensor cores)
+    against the plain version's: an element may move by 2.5 lr per update
+    where bf16 flips the sign of a near-zero gradient, 99% agree to 1e-4; a
+    second call and K launches of one update give the bits of one launch of
+    K.  Then a batch with a partial tile, and what the entry points do not
+    take."""
     _need_card()
     ns, packed, adam, ring, row_idx, batches, noises, hyper = _td3_case(256, 2, 4096, 2048, 1, 2)
     want_p, _, want_cl, _ = ns.update_k_reference(packed, adam, batches, noises, mm_bf16=True,
                                                   **hyper)
-    f1, cl, _ = ns.fused_update_k_wmat(ns.fused_init(packed, adam), ring, row_idx, noises,
-                                       mm_bf16=True, **hyper)
-    got_p, _ = ns.fused_unpack(f1)
-    assert torch.allclose(cl, want_cl, rtol=1e-3)
+    runs = [ns.fused_update_k_wmat(ns.fused_init(packed, adam), ring, row_idx, noises,
+                                   mm_bf16=True, **hyper) for _ in range(2)]
+    got_p, _ = ns.fused_unpack(runs[0][0])
+    assert torch.allclose(runs[0][1], want_cl, rtol=1e-3)
     for f in ("a_w1", "a_w2", "ta_w2", "c_w1", "c_w2", "t_w2"):
-        d = (getattr(got_p, f) - getattr(want_p, f)).abs()
-        assert d.max().item() <= 2 * 2.5 * TD3_HYPER["lr"], f
-        assert (d <= 1e-4).float().mean().item() > 0.99, f
+        _bf16_close(getattr(got_p, f), getattr(want_p, f), 2, f)
+    assert _same_td3(*runs), "a second call gives the same bits"
+    # K launches of one update: each builds the bf16 shadow anew, so equal
+    # bits show that one launch keeps every shadow row current
+    rpb = 4096 // 2048
+    f3, cls, als = ns.fused_init(packed, adam), [], []
+    for k in range(2):
+        f3, c3, a3 = ns.fused_update_k_wmat(f3, ring, row_idx[k * rpb:(k + 1) * rpb],
+                                            noises[k:k + 1], mm_bf16=True, **hyper)
+        cls.append(c3.clone())
+        als.append(a3.clone())
+    assert _same_td3((f3, torch.cat(cls), torch.cat(als)), runs[0]), \
+        "K launches of one update give the bits of one launch of K"
+    # a batch that is no multiple of the kernel's tile: a partial tile
+    b100, n100 = Transition(*[x[:, :100] for x in batches]), noises[:, :100].contiguous()
+    want_p, _, want_cl, _ = ns.update_k_reference(packed, adam, b100, n100, mm_bf16=True,
+                                                  **hyper)
+    f4, cl4, _ = ns.fused_update_k_wmat_batches(ns.fused_init(packed, adam), b100, n100,
+                                                mm_bf16=True, **hyper)
+    got_p, _ = ns.fused_unpack(f4)
+    assert torch.allclose(cl4, want_cl, rtol=1e-3)
+    for f in ("a_w1", "a_w2", "ta_w2", "c_w1", "c_w2", "t_w2"):
+        _bf16_close(getattr(got_p, f), getattr(want_p, f), 2, f)
     f0 = ns.fused_init(packed, adam)
     with pytest.raises(TypeError):      # the ring in float64
         ns.fused_update_k_wmat(f0, ring.double(), row_idx, noises, **hyper)
-    with pytest.raises(ValueError):     # a batch that is no multiple of the kernel's tile
-        ns.fused_update_k_wmat_batches(f0, Transition(*[x[:, :100] for x in batches]),
-                                       noises[:, :100], **hyper)
     with pytest.raises(TypeError):      # row indices on the CPU
         ns.fused_update_k_wmat(f0, ring, row_idx.cpu(), noises, **hyper)
-    ns640 = fused_td3.build(640)
-    nets = [networks.DeterministicActor(13, 2, (640, 640)) for _ in range(2)] + [
-        networks.DoubleCritic(13, 2, (640, 640)) for _ in range(2)]
-    p640 = fused_td3.PackedParams(*[x.cuda() for x in ns640.pack_params(*nets)])
-    with pytest.raises(ValueError):     # a width the kernel is not built for
-        ns640.fused_update_k_wmat(ns640.fused_init(p640, ns640.adam_init(p640)), ring, row_idx,
-                                  noises, **hyper)
+    with pytest.raises(ValueError, match="built for hidden widths"):   # a width not built
+        TD3Trainer(EnvEngine(get_config("GoalContinuous2P-v0")),
+                   TD3Config(hidden=(640, 640), fused_updates=True))
 
 
 @pytest.mark.cuda
