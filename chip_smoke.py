@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   3. kernels against their plain PyTorch twins on the card, same inputs, at
      B=65536 on states with live, truncating, crashing and goal-reaching
      lanes: K1 (csrc/fused_step.cu), K2 (csrc/env_step.cu, four env families,
-     both tableaux) and K3 (csrc/full_step.cu); the two in-kernel generators
+     both tableaux) and K3 (csrc/full_step.cu; also at B=65537, whose rows
+     are not 16-byte aligned and whose last tile is ragged); the two in-kernel generators
      (csrc/rng.cuh) bit for bit against ops/rng_plain.py, and K3-tf
      (csrc/full_step_threefry.cu) and K3-hw (csrc/full_step_philox.cu) given
      key words bit for bit against K3 fed the generator's block;
@@ -19,8 +20,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      reported; "threefry"; "philox") and DP5 x 2 / refine 12 for 32, each
      after 32 warm-up steps, with the launch counts, env steps/s, kernel
      times and their bounds, and device time by kernel over a short profiled
-     window; the engine on the card is also held against the engine on the
-     CPU on a small input;
+     window, and the registers, residency and waves of the K3
+     instantiation that ran; the engine on the card is also held against
+     the engine on the CPU on a small input;
   5. the other tiers at full width, a few steps each with the launch counts
      set to 0 before: fuse="env" (K2), fuse="physics" (K1) and
      physics="fixed" (no kernel), each held against fuse="full" from the same
@@ -60,11 +62,20 @@ and their ms per launch in both modes at the training path's shapes: two
 checkouts that print the same digest for a kernel and mode on one card
 compute the same bits there.
 
+    python3 chip_smoke.py --env-bits
+
+prints instead a SHA-256 of everything K1, K2, K3, K3-tf and K3-hw write over
+three steps from a seeded state, for every env family and both tableaux, and
+each kernel's ms per launch at the main path's shapes: a copy of this script
+run from two checkouts on one card prints equal digests where the two
+compute the same bits.
+
     python3 chip_smoke.py --phase-clock
 
-prints instead where a launch of K4, of K5 and of K6 (tensor-core path, the
-training path's shapes) spends its time, by stage, from builds with the phase
-clock (-DSG_PHASE_CLOCK): for want of a profiler of a kernel's insides.
+prints instead where a launch of K3 and of K3-hw (the main path's state,
+both tableaux) and of K4, of K5 and of K6 (tensor-core path, the training
+path's shapes) spends its time, by phase or stage, from builds with the
+phase clock (-DSG_PHASE_CLOCK): for want of a profiler of a kernel's insides.
 """
 from __future__ import annotations
 
@@ -327,10 +338,11 @@ def check_k3(dev, B):
     from space_gym_torch.ops.full_step import FullStep
 
     worst = 0.0
-    checks = [(MAIN_ENV, "bs3", 1, 8), (MAIN_ENV, "dp5", 2, 12),
-              ("GoalContinuous4P-v0", "bs3", 1, 8), ("KeplerRandomOrbits-v0", "bs3", 1, 8),
-              ("DoNotCrashContinuous-v0", "bs3", 1, 8)]
-    for env_id, tab, sub, ref in checks:
+    # the last at B + 1: a ragged last tile, and no row 16-byte aligned
+    checks = [(MAIN_ENV, "bs3", 1, 8, B), (MAIN_ENV, "dp5", 2, 12, B),
+              ("GoalContinuous4P-v0", "bs3", 1, 8, B), ("KeplerRandomOrbits-v0", "bs3", 1, 8, B),
+              ("DoNotCrashContinuous-v0", "bs3", 1, 8, B), (MAIN_ENV, "bs3", 1, 8, B + 1)]
+    for env_id, tab, sub, ref, B in checks:
         cfg = get_config(env_id)
         full = FullStep(cfg, sub, ref, tab)
         rows = full.to_rows(*scenario(cfg, B, seed=2, device=dev))
@@ -492,6 +504,35 @@ def read_launches():
 K3_NAMES = {False: "full_step", "threefry": "full_step_threefry", "philox": "full_step_philox"}
 
 
+def warm_engine(dev, B, tab, sub, ref, rng=False, seed=0):
+    """The main path's engine on GoalContinuous2P-v0 with K3's uniforms from
+    `rng`, B lanes after WARMUP_STEPS of the random policy: (engine,
+    generator, policy, state, obs)."""
+    from space_gym_torch import get_config
+    from space_gym_torch.engine import EnvEngine
+
+    eng = EnvEngine(get_config(MAIN_ENV), tableau=tab, substeps=sub, refine_iters=ref,
+                    device=dev, in_kernel_rng=rng)
+    g = eng.generator(seed)
+    policy = eng.random_policy()
+    state, obs = eng.init(B, g)
+    for _ in range(WARMUP_STEPS):
+        state, ts = eng.step(state, policy(g, obs), g)
+        obs = ts.obs
+    return eng, g, policy, state, obs
+
+
+def launch_line(full, B):
+    """Registers, local memory, residency and waves of the K3 instantiation
+    that a launch of B lanes runs (FullStep.kernel_info)."""
+    k = full.kernel_info(B)
+    waves = k["tiles"] / (k["blocks_per_sm"] * k["sms"])
+    return (f"{k['registers']} registers, {k['local_bytes']} B local memory a thread, "
+            f"{k['blocks_per_sm']} blocks of {k['threads']} threads resident per SM "
+            f"({k['smem_bytes']} B dynamic shared memory a block), {k['sms']} SMs, grid "
+            f"{k['grid']} for {k['tiles']} lane tiles: {waves:.3f} waves"), k
+
+
 def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, plain_iters=3,
               kernel_ms=None):
     """The main path at full width with K3's uniforms from `rng`; returns its
@@ -499,20 +540,12 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, 
     twins on the run's last state and times them there."""
     kernel_ms = kernel_ms or kernel_device_ms
     from space_gym_torch import get_config
-    from space_gym_torch.engine import EnvEngine
     from space_gym_torch.ops.env_step import EnvStep
     from space_gym_torch.ops.physics_step import PhysicsStep
 
     cfg = get_config(MAIN_ENV)
-    eng = EnvEngine(cfg, tableau=tab, substeps=sub, refine_iters=ref, device=dev,
-                    in_kernel_rng=rng)
+    eng, g, policy, state, obs = warm_engine(dev, B, tab, sub, ref, rng)
     name = K3_NAMES[rng]
-    g = eng.generator(0)
-    policy = eng.random_policy()
-    state, obs = eng.init(B, g)
-    for _ in range(WARMUP_STEPS):
-        state, ts = eng.step(state, policy(g, obs), g)
-        obs = ts.obs
     rew_sum = torch.zeros((), device=dev)
     done_sum = torch.zeros((), dtype=torch.int64, device=dev)
     term_sum = torch.zeros((), dtype=torch.int64, device=dev)
@@ -593,6 +626,8 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, 
           f"reward sum {rew_sum.item():.6g}, "
           f"dones {n_done}, terminated {int(term_sum.item())}; launches {launches}; "
           f"after the window sm clock, power: {clocks}", flush=True)
+    info_text, info = launch_line(full, B)
+    print(f"  K3 launch: {info_text}", flush=True)
     print(f"  K3 bound: operand list {full.bytes_per_lane()} B/lane-step -> "
           f"{full.bytes_per_lane() * B / HBM_BYTES_PER_S * 1e3:.5f} ms at "
           f"{HBM_BYTES_PER_S / 1e12} TB/s; this data's bytes {k3_bytes / B:.1f} B/lane -> "
@@ -601,7 +636,8 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, 
           f"{k3_ops / B:.0f} ops/lane -> {k3_bound['operations']:.5f} ms at "
           f"{F32_OPS_PER_S / 1e12} TFLOP/s f32", flush=True)
     res = dict(rng=rng, launches=launches, k3_err=k3_err, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
-               k3_bound=k3_bound, rand_ms=rand_ms, sps=sps, ms_step=ms_step, dones=n_done)
+               k3_bound=k3_bound, rand_ms=rand_ms, sps=sps, ms_step=ms_step, dones=n_done,
+               k3_launch=info)
     if rng:
         return res
 
@@ -1299,40 +1335,214 @@ def sac_bits(dev, card):
                   f"{ms:.4f} ms per call by CUDA events", flush=True)
 
 
-def phase_clock(dev, card):
-    """Where a launch of K4, K5 and K6 spends its time, for want of a profiler
-    of a kernel's insides: each built with the phase clock (-DSG_PHASE_CLOCK,
-    learner_tiles.cuh) into build/phase_clock/, launched once at the training
-    path's shapes (K=32, B=8192, H=256, ring, mm_bf16=True; K6 with
-    policy_delay 2), block 0's cycles per update printed by stage under the
-    names the library gives its marks; then the clocked and the plain build
-    timed in turns by CUDA events (the marks' barriers cost a little)."""
-    import ctypes
+ENV_IDS = (MAIN_ENV, "GoalContinuous3P-v0", "GoalContinuous4P-v0", "KeplerRandomOrbits-v0",
+           "DoNotCrashContinuous-v0")
+ENV_KERNELS = ("fused_step", "env_step", "full_step", "full_step_threefry", "full_step_philox")
 
-    from space_gym_torch.models import fused_sac, fused_td3
+
+def env_bits(dev, card, B=CHECK_B, n_steps=3):
+    """A SHA-256 of everything K1, K2, K3, K3-tf and K3-hw write over
+    `n_steps` steps from phase 3's seeded state, each kernel's outputs fed
+    back as its next inputs (the state rows; the same actions, fresh uniforms
+    or key words each step), for every env family and both tableaux; then
+    each kernel's ms per launch on the device at the main path's shapes.
+    Uses only the wrappers' step_rows and the engine, so a copy of this
+    script runs in an older checkout too: run it from two checkouts, and
+    equal digests mean equal bits."""
+    import hashlib
+
+    from space_gym_torch import get_config
+    from space_gym_torch.ops.env_step import EnvStep
+    from space_gym_torch.ops.full_step import FullStep
+    from space_gym_torch.ops.physics_step import PhysicsStep
+    from space_gym_torch.ops.rng_plain import key_words
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    for env_id in ENV_IDS:
+        cfg = get_config(env_id)
+        for tab, sub, ref in (("bs3", 1, 8), ("dp5", 2, 12)):
+            rows0 = FullStep.to_rows(*scenario(cfg, B, seed=8, device=dev))
+            k1, k2 = PhysicsStep(cfg, sub, ref, tab), EnvStep(cfg, sub, ref, tab)
+            hashes = {}
+            for name in ("K1", "K2"):
+                y, outs = rows0[0], []
+                for _ in range(n_steps):
+                    out = (k1.step_rows(y, *rows0[1:3]) if name == "K1"
+                           else k2.step_rows(y, *rows0[1:5]))
+                    outs += out
+                    y = out[0]
+                hashes[name] = digest(outs)
+            for name, rng in (("K3", False), ("K3-tf", "threefry"), ("K3-hw", "philox")):
+                full = FullStep(cfg, sub, ref, tab, in_kernel_rng=rng)
+                g = torch.Generator(device=dev).manual_seed(9)
+                y, a, p, gl, r, cs, _, ti = rows0
+                outs = []
+                for k in range(n_steps):
+                    u = (key_words([0x0BADC0DE + k, 0x00FACADE], dev) if rng else
+                         torch.rand((full.n_uniform_rows, B), generator=g, device=dev))
+                    out = full.step_rows(y, a, p, gl, r, cs, u, ti)
+                    outs += out
+                    y, p, gl, r, cs, ti = out[0], out[1], out[2], out[3], out[4], out[8]
+                hashes[name] = digest(outs)
+            torch.cuda.synchronize()
+            print(f"bits {env_id} {tab}x{sub} r{ref} B={B} {n_steps} steps: "
+                  + ", ".join(f"{k} {v}" for k, v in hashes.items()), flush=True)
+    for tab, sub, ref in (("bs3", 1, 8), ("dp5", 2, 12)):
+        eng, g, policy, state, obs = warm_engine(dev, MAIN_B, tab, sub, ref)
+        full = eng.full
+        u = torch.rand((MAIN_B, full.n_uniform_rows), generator=g, device=dev)
+        rows = full.to_rows(*eng.kernel_operands(state, eng._translate_action(policy(g, obs)), u))
+        key = eng.draw_key(g)
+        cfg = full.cfg
+        calls = {"K1": ("fused_step_kernel", lambda k=PhysicsStep(cfg, sub, ref, tab):
+                        k.step_rows(*rows[:3])),
+                 "K2": ("env_step_kernel", lambda k=EnvStep(cfg, sub, ref, tab):
+                        k.step_rows(*rows[:5])),
+                 "K3": ("full_step_kernel", lambda: full.step_rows(*rows))}
+        for name, rng in (("K3-tf", "threefry"), ("K3-hw", "philox")):
+            keyed = FullStep(cfg, sub, ref, tab, in_kernel_rng=rng)
+            calls[name] = ("full_step_kernel",
+                           lambda k=keyed: k.step_rows(*rows[:6], key, rows[7]))
+        print(f"time {MAIN_ENV} B={MAIN_B} {tab}x{sub} r{ref} on {card}, ms per launch on the "
+              f"device: " + ", ".join(f"{name} {kernel_device_ms(fn, kernel):.5f}"
+                                      for name, (kernel, fn) in calls.items()), flush=True)
+
+
+def clocked_builds(names):
+    """nvcc of each csrc/<name>.cu with the phase clock (-DSG_PHASE_CLOCK)
+    into build/phase_clock/, one process each, all started at once: {name:
+    (library path, process)}."""
     from space_gym_torch.utils import cuda_build
 
     root = os.path.join(HERE, "build", "phase_clock")
     os.makedirs(root, exist_ok=True)
-    labels = {"sac_update": "K4", "sac_update_fold": "K5", "td3_update": "K6"}
     procs = {}
-    for name in labels:
+    for name in names:
         lib = os.path.join(root, f"lib{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.nvcc_flags(name), "-DSG_PHASE_CLOCK", "-o", lib,
              os.path.join(cuda_build.CSRC, f"{name}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-    cuda_build.build_all(list(labels))
+    return procs
+
+
+def clocked_library(name, lib, proc):
+    """The loaded clocked build of `name`, after its nvcc has ended."""
+    import ctypes
+
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"the phase-clock build of {name} did not build:\n{out[-4000:]}")
+    return ctypes.CDLL(lib)
+
+
+K3_CLOCKED = {False: "K3", "philox": "K3-hw"}
+
+
+def k3_phase_clock(dev, card, procs, B=MAIN_B, cases=(("bs3", 1, 8), ("dp5", 2, 12))):
+    """Where a launch of K3 (uniforms from memory) and of K3-hw (in-kernel
+    Philox) spends its cycles, on the main path's state after its warm-up:
+    each built with the phase clock (csrc/step_clock.cuh) and launched once
+    through its wrapper; every warp's cycles summed by phase, the counts of
+    lanes that reached their goal or are done and of the warp tiles that
+    hold one; then the clocked and the plain build timed in turns
+    (profiler)."""
+    import ctypes
+
+    from space_gym_torch.ops import full_step as fs
+    from space_gym_torch.ops.full_step import RNG_MODES
+
+    real = fs._lib
+    times = {}
+    try:
+        for rng, label in K3_CLOCKED.items():
+            entry = RNG_MODES[rng][1]
+            handle = clocked_library(K3_NAMES[rng], *procs[K3_NAMES[rng]])
+            for fn in (entry, entry + "_info"):
+                getattr(handle, fn).argtypes = getattr(real(rng), fn).argtypes
+                getattr(handle, fn).restype = ctypes.c_int
+            handle.sg_k3_phase_read.argtypes = [ctypes.c_void_p]
+            handle.sg_k3_phase_name.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+            names, buf = [], ctypes.create_string_buffer(96)
+            while handle.sg_k3_phase_name(len(names), buf, len(buf)) > 0 and buf.value != b"?":
+                names.append(buf.value.decode())
+            n_marks = names.index("lanes")
+            cyc = (ctypes.c_ulonglong * len(names))()
+            for tab, sub, ref in cases:
+                eng, g, policy, state, obs = warm_engine(dev, B, tab, sub, ref, rng)
+                full = eng.full
+                u = eng.draw_key(g) if rng else torch.rand((B, full.n_uniform_rows), generator=g,
+                                                            device=dev)
+                rows = full.to_rows(*eng.kernel_operands(state, eng._translate_action(
+                    policy(g, obs)), u))
+                fs._lib = lambda mode, h=handle: h
+                handle.sg_k3_phase_read(cyc)
+                full.step_rows(*rows)
+                torch.cuda.synchronize()
+                if handle.sg_k3_phase_read(cyc) != 0:
+                    fail(f"{label}: the phase clock could not be read")
+                clocked_text, _ = launch_line(full, B)
+                fs._lib = real
+                plain_text, _ = launch_line(full, B)
+                total = sum(cyc[:n_marks])
+                c = dict(zip(names[n_marks:], cyc[n_marks:]))
+                print(f"phase clock {label} {MAIN_ENV} B={B} {tab}x{sub} r{ref} on {card}: "
+                      f"{total} warp-cycles over {c['warp tiles']} warp tiles "
+                      f"({total / max(c['warp tiles'], 1):.0f} a warp tile); {c['lanes']} lanes, "
+                      f"{c['lanes that reached their goal']} reached their goal, "
+                      f"{c['lanes done']} done; "
+                      f"{c['warp tiles with a lane that reached its goal or is done']} warp tiles "
+                      f"hold such a lane", flush=True)
+                for i in sorted(range(n_marks), key=lambda i: -cyc[i]):
+                    print(f"  {100 * cyc[i] / total:5.1f}% {cyc[i] / max(c['warp tiles'], 1):9.0f} "
+                          f"cycles a warp tile  {names[i]}", flush=True)
+                print(f"  launch, plain build: {plain_text}; clocked build: {clocked_text}",
+                      flush=True)
+                call = lambda: full.step_rows(*rows)
+                for clock in (False, True, True, False):
+                    fs._lib = (lambda mode, h=handle: h) if clock else real
+                    times.setdefault((label, tab, clock), []).append(
+                        kernel_device_ms(call, "full_step_kernel"))
+                    fs._lib = real
+    finally:
+        fs._lib = real
+    for (label, tab, clock), ms in times.items():
+        print(f"time {label} {tab} {'with' if clock else 'without'} the phase clock B={B}: "
+              + ", ".join(f"{t:.5f}" for t in ms) + f" ms per launch on the device on {card}",
+              flush=True)
+
+
+def phase_clock(dev, card):
+    """Where a launch of K3 and K3-hw (k3_phase_clock), then of K4, K5 and K6
+    spends its time, for want of a profiler of a kernel's insides: each built
+    with the phase clock (-DSG_PHASE_CLOCK) into build/phase_clock/, all five
+    builds at once.  K4-K6 launched once at the training path's shapes (K=32,
+    B=8192, H=256, ring, mm_bf16=True; K6 with policy_delay 2), block 0's
+    cycles per update printed by stage under the names the library gives its
+    marks (learner_tiles.cuh); then the clocked and the plain build timed in
+    turns by CUDA events (the marks' barriers cost a little)."""
+    import ctypes
+
+    from space_gym_torch.models import fused_sac, fused_td3
+    from space_gym_torch.utils import cuda_build
+
+    labels = {"sac_update": "K4", "sac_update_fold": "K5", "td3_update": "K6"}
+    procs = clocked_builds([*labels, *(K3_NAMES[r] for r in K3_CLOCKED)])
+    cuda_build.build_all([*labels, *(K3_NAMES[r] for r in K3_CLOCKED)])
+    k3_phase_clock(dev, card, procs)
     sac_in = sac_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES)
     td3_in = td3_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES, delay=2, warm=2)
     real = {"sac": fused_sac._lib, "td3": fused_td3._lib}
     # per kernel: what its module's _lib gives for the clocked build, and the call
     clocked, calls = {}, {}
-    for name, (lib, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            fail(f"the phase-clock build of {labels[name]} did not build:\n{out[-4000:]}")
-        handle = ctypes.CDLL(lib)
+    for name in labels:
+        lib, proc = procs[name]
+        handle = clocked_library(labels[name], lib, proc)
         if name == "td3_update":
             fns, clocked[name] = ("sg_td3_update", "sg_td3_update_plan"), handle
             ref = real["td3"]()
@@ -1445,6 +1655,12 @@ def main():
         return
     if sys.argv[1:] == ["--phase-clock"]:
         phase_clock(dev, card)
+        return
+    if sys.argv[1:] == ["--env-bits"]:
+        t0 = time.perf_counter()
+        reports = cuda_build.build_all(list(ENV_KERNELS))
+        print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(reports)}", flush=True)
+        env_bits(dev, card)
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")

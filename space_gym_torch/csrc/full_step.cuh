@@ -1,7 +1,8 @@
 // Kernel K3 and its two in-kernel-random variants: the whole env step, for
 // every lane, in one launch.  Included by full_step.cu (uniforms from memory),
 // full_step_threefry.cu and full_step_philox.cu, one translation unit per
-// source of uniforms so that the three build side by side.
+// source of uniforms so that the three build side by side; and, for the CPU,
+// by host/full_step_host.cpp against the stand-in headers of host/.
 //
 // Replaces the Pallas TPU kernel space_gym_tpu/ops/pallas_full.py::
 // make_full_step.<locals>.kernel (pallas_full.py:500, pallas_call at :663) in
@@ -26,21 +27,41 @@
 // same resets, lane for lane, and a lane that does not
 // reach its goal skips the resample and a lane that is not done skips the
 // reset: their results would be discarded by the JAX kernel's selects.  With
-// a generator the skipped rows are never computed.
+// a generator the skipped rows are never computed.  A done lane skips the
+// resample too: the reset overwrites everything the resample writes, and
+// takes its rows from GP_ROWS on either way.
 //
 // What bounds it on an H100: bytes.  It moves (in + out) x 4 bytes per lane
 // (536 B for GoalContinuous2P-v0 by the operand list, 336 B without the u
-// rows, less where lanes skip
-// their uniform rows) against a few hundred float operations per lane, which
-// at the card's f32 rate take a tenth of the memory time (chip_smoke.py
-// prints both).  The operations form one long dependent chain per lane, so
-// latency and occupancy, not the bound, set its time for now.  Design: one
-// thread per lane with all state in
-// registers; the source of uniforms, the planet count, tile count, column
-// count, task and tableau
-// are template parameters, so the tile loops unroll and the per-tile arrays
-// stay in registers (printed by -Xptxas -v at build time); the ragged edge
-// is masked, so any B works.  Not tuned yet: see PERF.md.
+// rows, less where lanes skip their uniform rows) against a few hundred float
+// operations per lane, which at the card's f32 rate take a tenth of the
+// memory time (chip_smoke.py prints both).  But each lane's operations form
+// one long dependent chain (physics, observation, reward) and the rare
+// branches (resample, reset and its second observation) are long too, so
+// latency, residency and divergence set its time (the phase clock,
+// csrc/step_clock.cuh, splits it; PERF.md).  Design:
+//   * persistent blocks of SG_TILE threads, one thread a lane of a tile of
+//     SG_TILE lanes: as many blocks as the card holds at once (the
+//     occupancy query), each walking an equal share of the tiles;
+//     `__launch_bounds__` asks for a residency at which ptxas spills
+//     nothing, or next to nothing (K3MinBlocks);
+//   * each thread loads its lane's input rows into its own column of a
+//     shared-memory stage, which keeps them out of its registers through
+//     physics (no spills at that residency); the warps of a block need no
+//     barrier between tiles.  Bulk copies of whole rows into a double-buffered
+//     stage were no faster (PERF.md);
+//   * the rare branches compacted across the block: a lane that must reset
+//     or resample writes the outputs of the common path only and joins a
+//     list in shared memory (ballot, one atomic a warp and list); at the
+//     block's end its threads work through the lists together, reading what
+//     they need from the operands in memory.  A lane's uniforms are a
+//     function of (key or u, lane, row) only, so which thread runs a lane
+//     does not change a bit;
+//   * stores are streaming (evict-first), each row of a tile one coalesced
+//     span; the uniform rows are read where a lane takes them.
+// The source of uniforms, the planet count, tile count, column count, task
+// and tableau are template parameters, so the loops unroll and the per-lane
+// arrays stay in registers (printed by -Xptxas -v at build time).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -299,50 +320,87 @@ __device__ void sg_orbit_reset(const FullParams& P, ROWS& U, bool kepler, float*
   y[5] = fminf(fmaxf(sg_norminv(U.take()) * (kepler ? P.max_w_5 : P.max_w_3), -P.max_w), P.max_w);
 }
 
-template <class ROWS, int TASK, int NP, int NT, int COLS, int TAB>
-__global__ void __launch_bounds__(128)
-    full_step_kernel(const FullParams P, const float* __restrict__ y_in,
-                     const float* __restrict__ a_in, const float* __restrict__ p_in,
-                     const float* __restrict__ g_in, const float* __restrict__ r_in,
-                     const float* __restrict__ cs_in, const void* __restrict__ u_in, int n_u,
-                     const int* __restrict__ ti_in, float* __restrict__ yo,
-                     float* __restrict__ po, float* __restrict__ go, float* __restrict__ ro,
-                     float* __restrict__ cso, float* __restrict__ obs_out,
-                     float* __restrict__ fobs_out, float* __restrict__ rew_out,
-                     int* __restrict__ tio, int* __restrict__ flags, int B) {
-  constexpr bool GOAL = TASK == SG_TASK_GOAL;
-  constexpr int NTA = NT > 0 ? NT : 1;  // array extents
-  constexpr int CSR = COLS > 0 ? COLS : 1;
-  constexpr int IR = GOAL ? NT + 5 : 3;
-  constexpr int D = ObsDim<TASK, NP>::D;
-  constexpr int GP_ROWS = 1 + NT * SG_DUP + 2;  // rows of one goal placement
+// ------------------------------------------------------------ the kernel --
+#define SG_TILE 128  // lanes a tile = threads a block
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const size_t n = (size_t)B;
+// Row layout of one env's operands: the input rows a lane loads (y, a, p,
+// g, ref, cs, ti; the u rows are read where they are taken) and the row
+// counts; the block's shared memory.
+template <int TASK, int NP, int NT, int COLS>
+struct StepShape {
+  static constexpr bool GOAL = TASK == SG_TASK_GOAL;
+  static constexpr int NTA = NT > 0 ? NT : 1;  // array extents
+  static constexpr int CSR = COLS > 0 ? COLS : 1;
+  static constexpr int IR = GOAL ? NT + 5 : 3;
+  static constexpr int D = ObsDim<TASK, NP>::D;
+  static constexpr int GP_ROWS = 1 + NT * SG_DUP + 2;  // rows of one goal placement
+  static constexpr int R_Y = 0, R_A = 6, R_P = 8, R_G = R_P + 2 * NP, R_REF = R_G + 2,
+                       R_CS = R_REF + 3, R_TI = R_CS + CSR, ROWS = R_TI + IR;
+  static constexpr int LIST = 3 * SG_TILE;  // entries of each rare-lane list
+  // dynamic shared memory: two list counts, two lists, the stage
+  static constexpr int SMEM = 2 * 4 + 2 * LIST * 4 + ROWS * SG_TILE * 4;
+};
 
-  float y0[6], pl[2 * NP], ref[3], cs[CSR];
+// The operands of one launch, in the kernel's order.
+struct FullStepArgs {
+  const float *y, *a, *p, *g, *r, *cs;
+  const void* u;  // (n_u, B) float32 uniforms, or two uint32 key words
+  int n_u;
+  const int* ti;
+  float *yo, *po, *go, *ro, *cso, *obs, *fobs, *rew;
+  int *tio, *flags;
+  int B;
+  cudaStream_t stream;
+};
+
+// The kernel's one parameter.
+struct K3Args {
+  FullParams P;
+  FullStepArgs A;
+  int tiles;  // ceil(B / SG_TILE)
+};
+
+// f(input row, row pointer) for every input row a lane loads.
+template <class S, class F>
+__device__ __forceinline__ void sg_each_input_row(const FullStepArgs& A, size_t n, F f) {
 #pragma unroll
-  for (int c = 0; c < 6; ++c) y0[c] = y_in[c * n + lane];
-  const float ae = a_in[lane], at = a_in[n + lane];
+  for (int c = 0; c < 6; ++c) f(S::R_Y + c, A.y + c * n);
 #pragma unroll
-  for (int i = 0; i < 2 * NP; ++i) pl[i] = p_in[i * n + lane];
-  float gx = g_in[lane], gy = g_in[n + lane];
+  for (int c = 0; c < 2; ++c) f(S::R_A + c, A.a + c * n);
 #pragma unroll
-  for (int i = 0; i < 3; ++i) ref[i] = r_in[i * n + lane];
+  for (int c = 0; c < S::R_G - S::R_P; ++c) f(S::R_P + c, A.p + c * n);
 #pragma unroll
-  for (int i = 0; i < CSR; ++i) cs[i] = cs_in[i * n + lane];
-  int fr[NTA];
-  int ship = 0, goal = 0;
-  if (GOAL) {
+  for (int c = 0; c < 2; ++c) f(S::R_G + c, A.g + c * n);
 #pragma unroll
-    for (int i = 0; i < NT; ++i) fr[i] = ti_in[i * n + lane];
-    ship = ti_in[NT * n + lane];
-    goal = ti_in[(NT + 1) * n + lane];
-  }
-  const int steps = ti_in[(IR - 3) * n + lane];
-  bool case_b = ti_in[(IR - 2) * n + lane] > 0;
-  bool flip = ti_in[(IR - 1) * n + lane] > 0;
+  for (int c = 0; c < 3; ++c) f(S::R_REF + c, A.r + c * n);
+#pragma unroll
+  for (int c = 0; c < S::CSR; ++c) f(S::R_CS + c, A.cs + c * n);
+#pragma unroll
+  for (int c = 0; c < S::IR; ++c) f(S::R_TI + c, (const float*)(A.ti + c * n));
+}
+
+// The common path of one lane, from its input rows `in` (row r at in[r *
+// STRIDE]; the int rows hold their bits): physics, final observation, reward,
+// flags; writes every output of a lane that neither resets nor resamples, and
+// of the others what the rare path leaves (flags, reward, final observation,
+// the step count; a lane that reached its goal without being done also its
+// state, planets, ref, cs, observation and case/flip rows).  Returns 1 where
+// the lane is done, 2 where it reached its goal and is not done, else 0.
+template <int TASK, int NP, int NT, int COLS, int TAB, int STRIDE>
+__device__ __forceinline__ int sg_step_common(const FullParams& P, const FullStepArgs& A,
+                                              const float* in, int lane, size_t n) {
+  using S = StepShape<TASK, NP, NT, COLS>;
+  auto ti = [&](int i) { return __float_as_int(in[(S::R_TI + i) * STRIDE]); };
+  float y0[6], pl[2 * NP], ref[3];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) y0[c] = in[(S::R_Y + c) * STRIDE];
+  const float ae = in[S::R_A * STRIDE], at = in[(S::R_A + 1) * STRIDE];
+#pragma unroll
+  for (int i = 0; i < 2 * NP; ++i) pl[i] = in[(S::R_P + i) * STRIDE];
+  const float gx = in[S::R_G * STRIDE], gy = in[(S::R_G + 1) * STRIDE];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ref[i] = in[(S::R_REF + i) * STRIDE];
+  const int steps = ti(S::IR - 3);
 
   // ---- physics ----
   float px[NP], py[NP], yf[6];
@@ -357,97 +415,264 @@ __global__ void __launch_bounds__(128)
   const bool done = terminated || truncated;
 
   // ---- final obs (pre-resample goal) + reward ----
-  float fobs[D];
+  float fobs[S::D];
   sg_observe<TASK, NP>(P, yf, pl, gx, gy, ref, fobs);
   bool reached;
   const float rew = sg_reward<TASK, NP>(P, y0, yf, pl, gx, gy, ref, ae, at, reached);
+  reached = S::GOAL && reached;
+  SG_K3_MARK(K3_OBSERVE);
 
-  ROWS U(u_in, n, lane, n_u);
-  // ---- Goal resample, where reached ----
-  if constexpr (GOAL) {
-    if (reached) sg_goal_place<NTA, CSR>(P, U, fr, ship, goal, case_b, flip, cs, gx, gy);
-  }
-  // ---- auto-reset, where done ----
-  float y_out[6];
+  // ---- the common outputs ----
 #pragma unroll
-  for (int c = 0; c < 6; ++c) y_out[c] = yf[c];
-  if (done) {
-    if constexpr (GOAL) {
-      U.i = GP_ROWS;
-      sg_goal_reset<NP, NTA, CSR>(P, U, y_out, pl, gx, gy, fr, ship, goal, case_b, flip, cs);
-    } else {
-      float oa = ref[0], ecc = ref[1];
-      sg_orbit_reset(P, U, TASK == SG_TASK_KEPLER, y_out, oa, ecc);
-      ref[0] = oa;
-      ref[1] = ecc;
+  for (int i = 0; i < S::D; ++i) __stcs(A.fobs + i * n + lane, fobs[i]);
+  __stcs(A.rew + lane, rew);
+  __stcs(A.flags + lane, terminated ? 1 : 0);
+  __stcs(A.flags + n + lane, truncated ? 1 : 0);
+  __stcs(A.flags + 2 * n + lane, done ? 1 : 0);
+  __stcs(A.tio + (S::IR - 3) * n + lane, done ? 0 : steps1);
+  if (!done) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) __stcs(A.yo + c * n + lane, yf[c]);
+#pragma unroll
+    for (int i = 0; i < 2 * NP; ++i) __stcs(A.po + i * n + lane, pl[i]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) __stcs(A.ro + i * n + lane, ref[i]);
+#pragma unroll
+    for (int i = 0; i < S::CSR; ++i) __stcs(A.cso + i * n + lane, in[(S::R_CS + i) * STRIDE]);
+#pragma unroll
+    for (int i = 0; i < S::D; ++i) __stcs(A.obs + i * n + lane, fobs[i]);
+    __stcs(A.tio + (S::IR - 2) * n + lane, S::GOAL ? (ti(S::IR - 2) > 0 ? 1 : 0) : 0);
+    __stcs(A.tio + (S::IR - 1) * n + lane, S::GOAL ? (ti(S::IR - 1) > 0 ? 1 : 0) : 0);
+    if (!reached) {
+      __stcs(A.go + lane, gx);
+      __stcs(A.go + n + lane, gy);
+      if (S::GOAL) {
+#pragma unroll
+        for (int i = 0; i < NT + 2; ++i) __stcs(A.tio + i * n + lane, ti(i));
+      }
     }
   }
-  const int steps_out = done ? 0 : steps1;
-
-  // ---- write outputs ----
-#pragma unroll
-  for (int c = 0; c < 6; ++c) yo[c * n + lane] = y_out[c];
-#pragma unroll
-  for (int i = 0; i < 2 * NP; ++i) po[i * n + lane] = pl[i];
-  go[lane] = gx;
-  go[n + lane] = gy;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) ro[i * n + lane] = ref[i];
-#pragma unroll
-  for (int i = 0; i < CSR; ++i) cso[i * n + lane] = cs[i];
-  float obs[D];
-  if (done) {
-    sg_observe<TASK, NP>(P, y_out, pl, gx, gy, ref, obs);
-  } else {
-#pragma unroll
-    for (int i = 0; i < D; ++i) obs[i] = fobs[i];
-  }
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    obs_out[i * n + lane] = obs[i];
-    fobs_out[i * n + lane] = fobs[i];
-  }
-  rew_out[lane] = rew;
-  if (GOAL) {
-#pragma unroll
-    for (int i = 0; i < NT; ++i) tio[i * n + lane] = fr[i];
-    tio[NT * n + lane] = ship;
-    tio[(NT + 1) * n + lane] = goal;
-  }
-  tio[(IR - 3) * n + lane] = steps_out;
-  tio[(IR - 2) * n + lane] = GOAL ? (case_b ? 1 : 0) : 0;
-  tio[(IR - 1) * n + lane] = GOAL ? (flip ? 1 : 0) : 0;
-  flags[lane] = terminated ? 1 : 0;
-  flags[n + lane] = truncated ? 1 : 0;
-  flags[2 * n + lane] = done ? 1 : 0;
+  SG_K3_MARK(K3_STORES);
+  return done ? 1 : (reached ? 2 : 0);
 }
 
-// The operands of one launch, in the kernel's order.
-struct FullStepArgs {
-  const float *y, *a, *p, *g, *r, *cs;
-  const void* u;  // (n_u, B) float32 uniforms, or two uint32 key words
-  int n_u;
-  const int* ti;
-  float *yo, *po, *go, *ro, *cso, *obs, *fobs, *rew;
-  int *tio, *flags;
-  int B;
-  cudaStream_t stream;
+// The auto-reset of a done lane, with its second observation: writes its
+// state, planets, goal, ref, cs, observation and tiling rows but the step
+// count.  Reads the rows it passes through from the operands in memory.
+template <class ROWS, int TASK, int NP, int NT, int COLS>
+__device__ void sg_step_reset(const FullParams& P, const FullStepArgs& A, int lane, size_t n) {
+  using S = StepShape<TASK, NP, NT, COLS>;
+  float y_out[6], pl[2 * NP], ref[3], cs[S::CSR], gx, gy;
+  int fr[S::NTA], ship = 0, goal = 0;
+  bool case_b = false, flip = false;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ref[i] = A.r[i * n + lane];
+  ROWS U(A.u, n, lane, A.n_u);
+  if constexpr (S::GOAL) {
+    U.i = S::GP_ROWS;
+    sg_goal_reset<NP, S::NTA, S::CSR>(P, U, y_out, pl, gx, gy, fr, ship, goal, case_b, flip, cs);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2 * NP; ++i) pl[i] = A.p[i * n + lane];
+#pragma unroll
+    for (int i = 0; i < S::CSR; ++i) cs[i] = A.cs[i * n + lane];
+    gx = A.g[lane];
+    gy = A.g[n + lane];
+    float oa = ref[0], ecc = ref[1];
+    sg_orbit_reset(P, U, TASK == SG_TASK_KEPLER, y_out, oa, ecc);
+    ref[0] = oa;
+    ref[1] = ecc;
+  }
+  float obs[S::D];
+  sg_observe<TASK, NP>(P, y_out, pl, gx, gy, ref, obs);
+#pragma unroll
+  for (int c = 0; c < 6; ++c) __stcs(A.yo + c * n + lane, y_out[c]);
+#pragma unroll
+  for (int i = 0; i < 2 * NP; ++i) __stcs(A.po + i * n + lane, pl[i]);
+  __stcs(A.go + lane, gx);
+  __stcs(A.go + n + lane, gy);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) __stcs(A.ro + i * n + lane, ref[i]);
+#pragma unroll
+  for (int i = 0; i < S::CSR; ++i) __stcs(A.cso + i * n + lane, cs[i]);
+#pragma unroll
+  for (int i = 0; i < S::D; ++i) __stcs(A.obs + i * n + lane, obs[i]);
+  if constexpr (S::GOAL) {
+#pragma unroll
+    for (int i = 0; i < NT; ++i) __stcs(A.tio + i * n + lane, fr[i]);
+    __stcs(A.tio + NT * n + lane, ship);
+    __stcs(A.tio + (NT + 1) * n + lane, goal);
+  }
+  __stcs(A.tio + (S::IR - 2) * n + lane, S::GOAL ? (case_b ? 1 : 0) : 0);
+  __stcs(A.tio + (S::IR - 1) * n + lane, S::GOAL ? (flip ? 1 : 0) : 0);
+}
+
+// The Goal resample of a lane that reached its goal and is not done: writes
+// its goal and its free-tile, ship-tile and goal-tile rows.
+template <class ROWS, int TASK, int NP, int NT, int COLS>
+__device__ void sg_step_resample(const FullParams& P, const FullStepArgs& A, int lane, size_t n) {
+  using S = StepShape<TASK, NP, NT, COLS>;
+  if constexpr (S::GOAL) {
+    int fr[NT];
+    float cs[S::CSR], gx, gy;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) fr[i] = A.ti[i * n + lane];
+    int ship = A.ti[NT * n + lane], goal = A.ti[(NT + 1) * n + lane];
+    const bool case_b = A.ti[(S::IR - 2) * n + lane] > 0;
+    const bool flip = A.ti[(S::IR - 1) * n + lane] > 0;
+#pragma unroll
+    for (int i = 0; i < S::CSR; ++i) cs[i] = A.cs[i * n + lane];
+    ROWS U(A.u, n, lane, A.n_u);
+    sg_goal_place<NT, S::CSR>(P, U, fr, ship, goal, case_b, flip, cs, gx, gy);
+    __stcs(A.go + lane, gx);
+    __stcs(A.go + n + lane, gy);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) __stcs(A.tio + i * n + lane, fr[i]);
+    __stcs(A.tio + NT * n + lane, ship);
+    __stcs(A.tio + (NT + 1) * n + lane, goal);
+  }
+}
+
+// Residency per SM that `__launch_bounds__` asks of ptxas, per instantiation:
+// the most blocks at which its registers hold the body without spills, and
+// no more than the main path's grid fills (B=262144: 512 blocks of four
+// tiles, 3.9 an SM of 132).  On an H100, DP5 at 2 planets took 20% less time
+// at 4 blocks and 127 registers than at 3 and 138; BS3 at 2 planets 1-2% less
+// at 4 blocks and 98-100 registers than at 5 and 92-95; at 6 blocks, 80
+// registers, every instantiation spilled and lost time (PERF.md).
+template <int TASK, int NP, int TAB>
+struct K3MinBlocks {
+  static constexpr int value = (NP <= 2 || TAB == SG_TAB_BS3) ? 4 : 3;
 };
 
 template <class ROWS, int TASK, int NP, int NT, int COLS, int TAB>
-static int launch(const FullParams& P, const FullStepArgs& A) {
-  const int threads = 128;
-  full_step_kernel<ROWS, TASK, NP, NT, COLS, TAB>
-      <<<(A.B + threads - 1) / threads, threads, 0, A.stream>>>(
-          P, A.y, A.a, A.p, A.g, A.r, A.cs, A.u, A.n_u, A.ti, A.yo, A.po, A.go, A.ro, A.cso,
-          A.obs, A.fobs, A.rew, A.tio, A.flags, A.B);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(SG_TILE, (K3MinBlocks<TASK, NP, TAB>::value))
+    full_step_kernel(const K3Args args) {
+  using S = StepShape<TASK, NP, NT, COLS>;
+  constexpr int T = SG_TILE;
+  const FullParams& P = args.P;
+  const FullStepArgs& A = args.A;
+  const size_t n = (size_t)A.B;
+  const int tid = threadIdx.x, wl = tid % 32, G = gridDim.x;
+
+#ifdef __CUDACC__
+  extern __shared__ __align__(16) unsigned char sg_smem[];
+#else
+  unsigned char* sg_smem = reinterpret_cast<unsigned char*>(host_shared_memory());
+#endif
+  int* count = reinterpret_cast<int*>(sg_smem);  // [2]: lanes that joined each list
+  int* list = count + 2;                          // [2][S::LIST]: done lanes, reached lanes
+  // [S::ROWS][T]: the input rows of the tile, each thread's own column only,
+  // which holds them out of its registers through physics
+  float* stage = reinterpret_cast<float*>(list + 2 * S::LIST);
+
+  // The rare branch of one lane, where a thread takes it.
+  auto rare = [&](int kind, int l) {
+    if (kind == 1) {
+      sg_step_reset<ROWS, TASK, NP, NT, COLS>(P, A, l, n);
+      SG_K3_MARK(K3_RESET);
+    } else if (kind == 2) {
+      sg_step_resample<ROWS, TASK, NP, NT, COLS>(P, A, l, n);
+      SG_K3_MARK(K3_RESAMPLE);
+    }
+  };
+
+  SG_K3_CLOCK_START();
+  if (tid == 0) count[0] = count[1] = 0;
+  __syncthreads();
+  for (int t = blockIdx.x; t < args.tiles; t += G) {
+    const int lane = t * T + tid;
+    const bool live = (size_t)lane < n;
+    int kind = 0;
+    if (live)
+      sg_each_input_row<S>(A, n, [&](int r, const float* row) { stage[r * T + tid] = row[lane]; });
+    SG_K3_MARK(K3_WAIT);
+    if (live) kind = sg_step_common<TASK, NP, NT, COLS, TAB, T>(P, A, stage + tid, lane, n);
+    SG_K3_COUNT(live, kind == 2, kind == 1);
+
+    // Join the rare-lane lists (one atomic a warp and list); a lane that
+    // finds its list full takes its branch here.
+    const unsigned wd = __ballot_sync(0xFFFFFFFFu, kind == 1);
+    const unsigned wr = __ballot_sync(0xFFFFFFFFu, kind == 2);
+    int bd = 0, br = 0;
+    if (wl == 0) {
+      if (wd) bd = atomicAdd(&count[0], __popc(wd));
+      if (wr) br = atomicAdd(&count[1], __popc(wr));
+    }
+    bd = __shfl_sync(0xFFFFFFFFu, bd, 0);
+    br = __shfl_sync(0xFFFFFFFFu, br, 0);
+    const unsigned below = (1u << wl) - 1u;
+    const int pos = kind == 1 ? bd + __popc(wd & below) : br + __popc(wr & below);
+    if (kind != 0 && pos < S::LIST) {
+      list[(kind - 1) * S::LIST + pos] = lane;
+      kind = 0;
+    }
+    SG_K3_MARK(K3_SYNC);
+    rare(kind, lane);
+  }
+
+  // The rare lanes, together: the resets first, then the resamples, one lane
+  // a thread.
+  __syncthreads();
+  const int nd = min(count[0], S::LIST), nr = min(count[1], S::LIST);
+  SG_K3_MARK(K3_SYNC);
+  for (int i = tid; i < nd + nr; i += T)
+    rare(i < nd ? 1 : 2, i < nd ? list[i] : list[S::LIST + i - nd]);
+  SG_K3_CLOCK_END();
+}
+
+// What a launch of one instantiation looks like on this device, for
+// chip_smoke.py: registers, local memory (stack frame and spills) per thread,
+// resident blocks per SM, SMs, the grid, threads a block, dynamic shared
+// memory, lane tiles.
+template <class KERNEL>
+static int sg_kernel_info(KERNEL k, int grid, int threads, int smem, int tiles, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, k);
+  int bps = 0, dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, k, threads, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int v[8] = {fa.numRegs, (int)fa.localSizeBytes, bps, sms, grid, threads, smem, tiles};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+// Launches one instantiation on a persistent grid (the blocks the current
+// device holds at once, each with an equal share of the tiles), or with
+// `info` fills sg_kernel_info's numbers instead.  The blocks an SM holds are queried once
+// per device.
+template <class ROWS, int TASK, int NP, int NT, int COLS, int TAB>
+static int launch(const FullParams& P, const FullStepArgs& A, int* info) {
+  using S = StepShape<TASK, NP, NT, COLS>;
+  auto k = full_step_kernel<ROWS, TASK, NP, NT, COLS, TAB>;
+  static int known_dev = -1, per_sm = 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev != known_dev) {
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, SG_TILE, S::SMEM);
+    if (e == cudaSuccess) known_dev = dev;
+  }
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && per_sm * sms <= 0) e = cudaErrorInvalidConfiguration;
+  if (e != cudaSuccess) return (int)e;
+  const int resident = per_sm * sms;
+  K3Args args{P, A, (A.B + SG_TILE - 1) / SG_TILE};
+  const int per_block = (args.tiles + resident - 1) / resident;
+  const int grid = (args.tiles + per_block - 1) / per_block;
+  if (info) return sg_kernel_info(k, grid, SG_TILE, S::SMEM, args.tiles, info);
+  void* params[] = {&args};
+  e = cudaLaunchKernel((const void*)k, dim3(grid), dim3(SG_TILE), params, S::SMEM, A.stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 template <class ROWS, int TASK, int NP, int NT, int COLS>
-static int launch_tab(int tableau, const FullParams& P, const FullStepArgs& A) {
-  if (tableau == SG_TAB_DP5) return launch<ROWS, TASK, NP, NT, COLS, SG_TAB_DP5>(P, A);
-  if (tableau == SG_TAB_BS3) return launch<ROWS, TASK, NP, NT, COLS, SG_TAB_BS3>(P, A);
+static int launch_tab(int tableau, const FullParams& P, const FullStepArgs& A, int* info) {
+  if (tableau == SG_TAB_DP5) return launch<ROWS, TASK, NP, NT, COLS, SG_TAB_DP5>(P, A, info);
+  if (tableau == SG_TAB_BS3) return launch<ROWS, TASK, NP, NT, COLS, SG_TAB_BS3>(P, A, info);
   return SG_ERR_UNSUPPORTED;
 }
 
@@ -457,26 +682,29 @@ static int launch_tab(int tableau, const FullParams& P, const FullStepArgs& A) {
 // their planet + border.
 template <class ROWS>
 static int sg_full_step_impl(const FullParams& P, int task, int n_planets, int n_tiles, int cols,
-                             int tableau, const FullStepArgs& A) {
+                             int tableau, const FullStepArgs& A, int* info = nullptr) {
   if (A.B <= 0 || A.n_u <= 0) return SG_ERR_UNSUPPORTED;
   if (task == SG_TASK_GOAL) {
     if (n_planets == 2 && n_tiles == 4 && cols == 2)
-      return launch_tab<ROWS, SG_TASK_GOAL, 2, 4, 2>(tableau, P, A);
+      return launch_tab<ROWS, SG_TASK_GOAL, 2, 4, 2>(tableau, P, A, info);
     if (n_planets == 3 && n_tiles == 9 && cols == 3)
-      return launch_tab<ROWS, SG_TASK_GOAL, 3, 9, 3>(tableau, P, A);
+      return launch_tab<ROWS, SG_TASK_GOAL, 3, 9, 3>(tableau, P, A, info);
     if (n_planets == 4 && n_tiles == 16 && cols == 4)
-      return launch_tab<ROWS, SG_TASK_GOAL, 4, 16, 4>(tableau, P, A);
+      return launch_tab<ROWS, SG_TASK_GOAL, 4, 16, 4>(tableau, P, A, info);
   } else if (task == SG_TASK_KEPLER && n_planets == 2 && n_tiles == 0) {
-    return launch_tab<ROWS, SG_TASK_KEPLER, 2, 0, 0>(tableau, P, A);
+    return launch_tab<ROWS, SG_TASK_KEPLER, 2, 0, 0>(tableau, P, A, info);
   } else if (task == SG_TASK_DNC && n_planets == 2 && n_tiles == 0) {
-    return launch_tab<ROWS, SG_TASK_DNC, 2, 0, 0>(tableau, P, A);
+    return launch_tab<ROWS, SG_TASK_DNC, 2, 0, 0>(tableau, P, A, info);
   }
   return SG_ERR_UNSUPPORTED;
 }
 
 // The C interface of one translation unit: `NAME` launches the step with the
 // row source ROWS.  Arguments: params, task, planets, tiles, cols, tableau,
-// the 8 inputs with n_u after u, the 10 outputs, B, stream.
+// the 8 inputs with n_u after u, the 10 outputs, B, stream.  `NAME_info`
+// writes sg_kernel_info's eight numbers of the instantiation a launch of B
+// lanes would use; with -DSG_PHASE_CLOCK the library also has the clock's
+// entry points (step_clock.cuh).
 #define SG_DEFINE_FULL_STEP(NAME, ROWS)                                                         \
   extern "C" int NAME(const FullParams* P, int task, int n_planets, int n_tiles, int cols,       \
                       int tableau, const float* y, const float* a, const float* p,               \
@@ -487,7 +715,15 @@ static int sg_full_step_impl(const FullParams& P, int task, int n_planets, int n
     const FullStepArgs A{y,  a,  p,  g,  r,   cs,   u,   n_u, ti,    yo, po,                     \
                          go, ro, cso, obs, fobs, rew, tio, flags, B, (cudaStream_t)stream};      \
     return sg_full_step_impl<ROWS>(*P, task, n_planets, n_tiles, cols, tableau, A);              \
-  }
+  }                                                                                              \
+  extern "C" int NAME##_info(int task, int n_planets, int n_tiles, int cols, int tableau, int B, \
+                             int* out) {                                                         \
+    FullStepArgs A{};                                                                            \
+    A.B = B;                                                                                     \
+    A.n_u = 1;                                                                                   \
+    return sg_full_step_impl<ROWS>(FullParams{}, task, n_planets, n_tiles, cols, tableau, A, out); \
+  }                                                                                              \
+  SG_K3_CLOCK_ENTRIES()
 
 // `NAME` writes the (n_u, B) block that ROWS draws from the key words at `key`.
 #define SG_DEFINE_FILL_UNIFORMS(NAME, ROWS)                                        \

@@ -5,8 +5,9 @@
 // barriers, shared memory as one array per block.  It says nothing about
 // registers, memory coherence or speed; it finds wrong indices, missing
 // barriers and wrong arithmetic where there is no card.  Used by
-// tests/test_torch_sac_kernel_host.py through sac_update_host.cpp and by
-// tests/test_torch_td3_kernel_host.py through td3_update_host.cpp.
+// tests/test_torch_sac_kernel_host.py through sac_update_host.cpp, by
+// tests/test_torch_td3_kernel_host.py through td3_update_host.cpp and by
+// tests/test_torch_full_step_host.py through full_step_host.cpp.
 #include <atomic>
 #include <cmath>
 #include <cstdint>
@@ -15,7 +16,10 @@
 #include <thread>
 #include <vector>
 #include <algorithm>
+#include <bit>
+#include <cstdlib>
 #define __host__
+#define __constant__
 #define __device__
 #define __global__
 #define __forceinline__ inline
@@ -80,6 +84,24 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
     tctx.warp_bar->arrive_and_wait();
     return r;
 }
+inline int __shfl_sync(unsigned, int v, int src) {
+    int lane = tctx.tid.x % 32;
+    tctx.warp_slots[lane] = std::bit_cast<float>(v);
+    tctx.warp_bar->arrive_and_wait();
+    int r = std::bit_cast<int>(tctx.warp_slots[src]);
+    tctx.warp_bar->arrive_and_wait();
+    return r;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+    return (unsigned)(((unsigned long long)a * b) >> 32);
+}
+inline float __uint_as_float(unsigned x) { return std::bit_cast<float>(x); }
+inline int __float_as_int(float x) { return std::bit_cast<int>(x); }
+inline float rsqrtf(float x) { return 1.f / sqrtf(x); }
+using std::isfinite;
+using std::isnan;
 inline unsigned __ballot_sync(unsigned, bool p) {
     int lane = tctx.tid.x % 32;
     tctx.warp_bits[lane] = p ? 1u : 0u;
@@ -92,9 +114,12 @@ inline unsigned __ballot_sync(unsigned, bool p) {
 using std::min;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-constexpr int cudaSuccess = 0;
+constexpr int cudaSuccess = 0, cudaErrorInvalidConfiguration = 9;
 enum { cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerBlockOptin,
        cudaFuncAttributeMaxDynamicSharedMemorySize };
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class F> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+    *a = {0, 0}; return 0; }
 inline int EMUL_SMS = 4;
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int a, int) {
@@ -135,3 +160,4 @@ cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, siz
     return 0;
 }
 cudaError_t cudaLaunchCooperativeKernel(void* fn, dim3 grid, dim3 block, void** params, size_t smem, cudaStream_t);
+cudaError_t cudaLaunchKernel(const void* fn, dim3 grid, dim3 block, void** params, size_t smem, cudaStream_t);

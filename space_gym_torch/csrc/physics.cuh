@@ -13,6 +13,9 @@
 //     (pallas_step.py:226-239), grazing-crossing stall included;
 //   * state returned at the event time; angle wrapped into [0, 2pi).
 //
+// The two marks of the full-step kernels' phase clock (csrc/step_clock.cuh)
+// compile to nothing without -DSG_PHASE_CLOCK.
+//
 // Design: one thread per lane, everything in registers, the planet count and
 // the tableau as template parameters so every stage loop unrolls.  Operations
 // follow the JAX body's order and are built without FMA contraction
@@ -27,6 +30,7 @@
 #include <math_constants.h>
 
 #include "params.cuh"
+#include "step_clock.cuh"
 
 // Dormand-Prince 5(4) (rk45.py DP_A, DP_B, DP_P) and Bogacki-Shampine 3(2)
 // (BS3_A, BS3_B, BS3_P); double literals rounded to float once, as JAX rounds
@@ -217,6 +221,7 @@ __device__ bool sg_physics(const PhysParams& P, const float* y0, const float* px
       fire = fire || active[e];
     }
 
+    SG_K3_MARK(K3_SUBSTEPS);
     if (fire) {
       float Q[6][NPW];
 #pragma unroll
@@ -291,6 +296,7 @@ __device__ bool sg_physics(const PhysParams& P, const float* y0, const float* px
 #pragma unroll
       for (int e = 0; e < NE; ++e) g[e] = g_new[e];
     }
+    SG_K3_MARK(K3_REFINE);
   }
   yf[2] = sg_wrap_angle(yf[2]);
   return terminated;

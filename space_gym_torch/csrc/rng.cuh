@@ -131,6 +131,7 @@ __global__ void fill_uniforms_kernel(const void* __restrict__ operand, float* __
   for (int r = 0; r < n_u; ++r) out[(size_t)r * B + lane] = U.take();
 }
 
+#ifdef __CUDACC__
 template <class ROWS>
 static int sg_fill_uniforms(const void* operand, float* out, int n_u, int B, void* stream) {
   if (B <= 0 || n_u <= 0) return -1;
@@ -139,3 +140,4 @@ static int sg_fill_uniforms(const void* operand, float* out, int n_u, int B, voi
       operand, out, n_u, B);
   return (int)cudaGetLastError();
 }
+#endif

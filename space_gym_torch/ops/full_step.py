@@ -57,6 +57,9 @@ def _lib(mode):
     fn = getattr(lib, entry)
     fn.argtypes = [p] + [i] * 5 + [p] * 7 + [i] + [p] * 11 + [i, p]
     fn.restype = i
+    info = getattr(lib, entry + "_info")
+    info.argtypes = [i] * 6 + [p]  # task, planets, tiles, cols, tableau, B, out
+    info.restype = i
     if fill:
         fl = getattr(lib, fill)
         fl.argtypes = [p, p, i, i, p]  # key, out, n_u, B, stream
@@ -183,6 +186,22 @@ class FullStep:
         if err != 0:
             raise RuntimeError(f"fill_uniforms kernel launch failed: error {err}")
         return out
+
+    INFO_KEYS = ("registers", "local_bytes", "blocks_per_sm", "sms", "grid", "threads",
+                 "smem_bytes", "tiles")
+
+    def kernel_info(self, B):
+        """How a launch of B lanes runs on the current CUDA device: the
+        instantiation's registers and local memory (stack frame and spills)
+        per thread, resident blocks per SM, SMs, grid, threads a block,
+        dynamic shared memory and lane tiles (INFO_KEYS)."""
+        out = (ctypes.c_int * len(self.INFO_KEYS))()
+        err = getattr(_lib(self.rng), RNG_MODES[self.rng][1] + "_info")(
+            TASK_IDS[self.cfg.task], self.cfg.n_planets, self.n_tiles, self.cols,
+            TABLEAU_IDS[self.tableau], B, out)
+        if err != 0:
+            raise RuntimeError(f"full_step kernel info failed: error {err}")
+        return dict(zip(self.INFO_KEYS, out))
 
     def _launch(self, ins, B):
         if ins[0].dtype != torch.float32:

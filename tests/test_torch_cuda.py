@@ -32,7 +32,8 @@ from space_gym_torch.ops.physics_step import PhysicsStep
 from space_gym_torch.ops.rng_plain import key_words
 from space_gym_torch.utils import cuda_build
 
-from .torch_scenarios import one_torch_thread, scenario_inputs  # noqa: F401 (autouse)
+from .torch_scenarios import (one_torch_thread, pattern_operands,  # noqa: F401 (autouse)
+                              scenario_inputs)
 
 TOL_STATE = 1e-5
 TOL_REWARD = 1e-3
@@ -61,6 +62,39 @@ def test_cuda_full_step_matches_plain_twin(env_id, tableau, substeps, refine):
     for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
         tol = TOL_REWARD if i == 7 else TOL_STATE
         assert torch.allclose(g, w, rtol=0, atol=tol, equal_nan=True), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", [False, "threefry", "philox"], ids=["mem", "threefry", "philox"])
+@pytest.mark.parametrize("batch", [1, 127, 65537])
+@pytest.mark.parametrize("env_id,tableau,substeps,refine",
+                         [("GoalContinuous2P-v0", "bs3", 1, 8),
+                          ("DoNotCrashContinuous-v0", "dp5", 2, 12)])
+def test_cuda_full_step_any_batch_matches_plain_twin(env_id, tableau, substeps, refine, batch,
+                                                     rng):
+    """K3, K3-tf and K3-hw at a batch of one lane, of less than a tile, and of
+    a ragged last tile with no row 16-byte aligned after 512 whole tiles: flags and integer rows equal to the twin's on every lane
+    (on 99.9% at 65537 lanes, where the ulps of rsqrtf/sinf/cosf may flip a
+    grazing event, as in chip_smoke.py), floats within the tolerances on the
+    lanes that agree."""
+    _need_card()
+    cfg = get_config(env_id)
+    full = FullStep(cfg, substeps, refine, tableau, in_kernel_rng=rng)
+    rows = pattern_operands(cfg, max(batch, 10), seed=batch)
+    rows = [t[:, :batch].contiguous() for t in rows]
+    if rng:
+        rows[6] = key_words([0x600DF00D, batch])
+    want = full.step_rows(*rows)
+    launches = FullStep.launches
+    got = [o.cpu() for o in full.step_rows(*[t.cuda() for t in rows])]
+    assert FullStep.launches == launches + 1
+    agree = (got[-1] == want[-1]).all(0) & (got[-2] == want[-2]).all(0)
+    assert agree.all() if batch < 1000 else agree.float().mean() >= 0.999
+    for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
+        tol = TOL_REWARD if i == 7 else TOL_STATE
+        assert torch.allclose(g[:, agree], w[:, agree], rtol=0, atol=tol, equal_nan=True), i
+    if batch > 1:
+        assert want[-1][2].any(), "some lane resets"
 
 
 @pytest.mark.cuda

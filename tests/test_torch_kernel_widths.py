@@ -5,11 +5,14 @@ The CUDA learner kernels (K4, K5, K6) are built for hidden widths 128, 256,
 tile of 32 samples.  A fused trainer on a CUDA device says so when it is
 made, not at its first launch; on the CPU every multiple of 128 runs the
 plain version.  Any batch, and any number of ring lanes, is cut into the
-kernels' tiles, the last of a ring row partial.
+kernels' tiles, the last of a ring row partial.  The widths the card takes
+are held against the JAX kernels' own device VMEM claim.
 """
 import numpy as np
 import pytest
 import torch
+from space_gym_tpu.models import fused_sac as jax_fused_sac
+from space_gym_tpu.models import fused_td3 as jax_fused_td3
 
 from space_gym_torch import get_config
 from space_gym_torch.engine import EnvEngine
@@ -61,3 +64,36 @@ def test_tiles_of_a_launch():
     assert fused_sac.n_tiles(2048, 4, 64) == 128
     assert fused_sac.n_tiles(45, 2, 64) == 2
     assert fused_sac.n_tiles(2039, 4, 64) == 128
+
+
+VMEM_CLAIM = 64 * 2**20  # vmem_limit_bytes of both JAX kernels (fused_sac.py, fused_td3.py)
+
+
+def jax_kernel_block_bytes(mod, h):
+    """VMEM bytes of the blocks that the JAX fused K-update kernel of
+    `build(h)` names in its specs and holds for the whole launch, counted
+    once each: the six parameter and moment blocks in, their six aliased
+    outputs, and the (GROWS, H) and (VROWS, H) float32 scratch.  Its data
+    tile, its activations and any second pipeline buffer come on top."""
+    ns = mod.build(h)
+    return 4 * h * (3 * ns.WROWS + 3 * ns.VROWS) * 2 + 4 * h * (ns.GROWS + ns.VROWS)
+
+
+@pytest.mark.parametrize("mod", [jax_fused_sac, jax_fused_td3], ids=["sac", "td3"])
+def test_kernel_widths_against_the_jax_kernels_vmem_claim(mod):
+    """The card's learner kernels take H in KERNEL_TILE (128-512).  Under its
+    64 MiB claim the JAX TD3 kernel's blocks alone fit at those widths and
+    no wider (73.7 MiB at H=640).  The JAX SAC kernel's blocks fit at H=640
+    too (62.3 MiB), with 1.7 MiB left for its data tile and every
+    activation; whether it runs there on its device is not settled by its
+    specs."""
+    fits = [h for h in range(128, 1024 + 1, 128) if jax_kernel_block_bytes(mod, h) <= VMEM_CLAIM]
+    widths = sorted(fused_sac.KERNEL_TILE)
+    mib = {h: round(jax_kernel_block_bytes(mod, h) / 2**20, 1) for h in (512, 640)}
+    if mod is jax_fused_td3:
+        assert fits == widths
+        assert mib == {512: 49.2, 640: 73.7}
+    else:
+        assert fits == widths + [640]
+        assert mib == {512: 41.6, 640: 62.3}
+        assert VMEM_CLAIM - jax_kernel_block_bytes(mod, 640) < 2 * 2**20

@@ -1,13 +1,15 @@
 """Shared inputs of the port's tests: numpy-seeded env states in which lanes
 are live, truncating, crashing and reaching the goal, so every branch of the
-step runs; and `one_torch_thread`, the autouse fixture every port test module
-imports."""
+step runs (`scenario_inputs` at B >= 8 in float64, `pattern_operands` at any
+B in float32); and `one_torch_thread`, the autouse fixture every port test
+module imports."""
 import numpy as np
 import pytest
 import torch
 
 from space_gym_torch import get_config
 from space_gym_torch.engine import EnvEngine
+from space_gym_torch.ops.full_step import FullStep
 from space_gym_torch.ops.full_step_plain import count_uniform_rows
 
 
@@ -68,3 +70,41 @@ def scenario_inputs(env_id, B, seed):
         cs = np.zeros((B, 1))
     u = rng.random((B, count_uniform_rows(cfg)))
     return cfg, (y, action_b, p, g, state.ref_orbit.numpy(), cs, tili, u)
+
+
+def pattern_operands(cfg, B, seed, device="cpu"):
+    """Component-major float32 operands of one step in the kernel's order
+    (FullStep.step_rows), at any B, made from a numpy seed: lane % 10 == 0
+    truncates, 1 crashes into planet 0, 2 reaches its goal (Goal) or leaves
+    the world, 3 carries a known goal tile (Goal); the rest are fresh
+    episodes."""
+    rng = np.random.default_rng(seed)
+    eng = EnvEngine(cfg, device="cpu")
+    state, _ = eng.reset(B, u=torch.as_tensor(rng.random((B, eng.n_reset_rand),
+                                                         dtype=np.float32)))
+    y = state.y.clone()
+    p, g = state.planets_pos, state.goal_pos
+    lane = torch.arange(B)
+    steps = torch.full((B,), 3, dtype=torch.int32)
+    steps[lane % 10 == 0] = cfg.max_episode_steps - 1
+    crash = lane % 10 == 1
+    y[crash, 0] = p[crash, 0, 0] + cfg.planet_radii[0] + 0.02
+    y[crash, 1] = p[crash, 0, 1]
+    y[crash, 3], y[crash, 4] = -2.0, 0.0
+    special = lane % 10 == 2
+    ts = state.tiling
+    if cfg.task == "goal":
+        y[special, 0:2] = g[special]
+        y[special, 3:6] = 0.0
+        known = lane % 10 == 3
+        goal_tile = ts.goal_tile.clone()
+        goal_tile[known] = ((ts.ship_tile[known] + 1) % cfg.tiling.n_tiles).to(torch.int32)
+        ts = ts._replace(goal_tile=goal_tile)
+    else:
+        y[special, 0], y[special, 1] = cfg.world_size / 2 - 0.01, 0.0
+        y[special, 3], y[special, 4] = 3.0, 0.0
+    action = torch.as_tensor(rng.uniform(-1, 1, (B, 2)).astype(np.float32))
+    u = torch.as_tensor(rng.random((B, eng.n_step_rand), dtype=np.float32))
+    state = state._replace(y=y, steps=steps, tiling=ts)
+    rows = FullStep.to_rows(*eng.kernel_operands(state, eng._translate_action(action), u))
+    return [t.to(device) for t in rows]
