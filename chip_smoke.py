@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   3. kernels against their plain PyTorch twins on the card, same inputs, at
      B=65536 on states with live, truncating, crashing and goal-reaching
      lanes: K1 (csrc/fused_step.cu), K2 (csrc/env_step.cu, four env families,
-     both tableaux) and K3 (csrc/full_step.cu; also at B=65537, whose rows
+     both tableaux; K1 and K2 also on a state where four lanes in five fire
+     an event, more than the blocks' lists of deferred lanes hold) and K3
+     (csrc/full_step.cu; also at B=65537, whose rows
      are not 16-byte aligned and whose last tile is ragged); the two in-kernel generators
      (csrc/rng.cuh) bit for bit against ops/rng_plain.py, and K3-tf
      (csrc/full_step_threefry.cu) and K3-hw (csrc/full_step_philox.cu) given
@@ -21,7 +23,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      after 32 warm-up steps, with the launch counts, env steps/s, kernel
      times and their bounds, and device time by kernel over a short profiled
      window, and the registers, residency and waves of the K3
-     instantiation that ran; the engine on the card is also held against
+     instantiation that ran (and of K1's and K2's at the same shapes); the
+     engine on the card is also held against
      the engine on the CPU on a small input;
   5. the other tiers at full width, a few steps each with the launch counts
      set to 0 before: fuse="env" (K2), fuse="physics" (K1) and
@@ -72,10 +75,11 @@ compute the same bits.
 
     python3 chip_smoke.py --phase-clock
 
-prints instead where a launch of K3 and of K3-hw (the main path's state,
-both tableaux) and of K4, of K5 and of K6 (tensor-core path, the training
-path's shapes) spends its time, by phase or stage, from builds with the
-phase clock (-DSG_PHASE_CLOCK): for want of a profiler of a kernel's insides.
+prints instead where a launch of K1, K2, K3 and K3-hw (the main path's
+state, both tableaux) and of K4, of K5 and of K6 (tensor-core path, the
+training path's shapes) spends its time, by phase or stage, from builds with
+the phase clock (-DSG_PHASE_CLOCK): for want of a profiler of a kernel's
+insides.
 """
 from __future__ import annotations
 
@@ -254,6 +258,29 @@ def scenario(cfg, B: int, seed: int, device):
     return eng.kernel_operands(state, eng._translate_action(action), u)
 
 
+def firing_rows(cfg, B: int, seed: int, device):
+    """Component-major operands of K2 (y, a, p, g, ref; K1 takes the first
+    three) in which most lanes' events fire: of every five lanes three sit
+    just outside planet 0's surface heading into it and one just inside the
+    world's border heading out.  Where B is more than the lanes the card
+    holds at once, a block walks several tiles and its firing lanes are more
+    than its list of deferred lanes holds (csrc/env_lanes.cuh, 128)."""
+    from space_gym_torch.ops.full_step import FullStep
+
+    ops = list(scenario(cfg, B, seed, device))
+    y, p = ops[0].clone(), ops[2]
+    lane = torch.arange(B, device=device)
+    crash = lane % 5 < 3
+    y[crash, 0] = p[crash, 0, 0] + cfg.planet_radii[0] + 0.02
+    y[crash, 1] = p[crash, 0, 1]
+    y[crash, 3], y[crash, 4] = -2.0, 0.0
+    out = lane % 5 == 3
+    y[out, 0], y[out, 1] = cfg.world_size / 2 - 0.01, 0.0
+    y[out, 3], y[out, 4] = 3.0, 0.0
+    ops[0] = y
+    return FullStep.to_rows(*ops)[:5]
+
+
 OUT_NAMES = ("y", "planets", "goal", "ref", "col_shift", "obs", "final_obs", "reward")
 
 
@@ -315,20 +342,23 @@ def check_k1(dev, B):
 
     cfg = get_config(MAIN_ENV)
     worst = 0.0
+    states = {"branches": FullStep.to_rows(*scenario(cfg, B, seed=1, device=dev))[:3],
+              "most lanes fire": firing_rows(cfg, MAIN_B, 1, dev)[:3]}
     for tab, sub, ref in (("dp5", 2, 12), ("bs3", 1, 8)):
         k1 = PhysicsStep(cfg, sub, ref, tab)
-        rows = FullStep.to_rows(*scenario(cfg, B, seed=1, device=dev))[:3]
-        yo, term = k1.step_rows(*rows)
-        yw, tw = k1.plain_rows(*rows)
-        agree = (term == tw)[0]
-        err = (yo[:, agree] - yw[:, agree]).abs().max().item()
-        frac = agree.float().mean().item()
-        print(f"K1 {MAIN_ENV} {tab}x{sub} r{ref} B={B}: flag agreement {frac:.6f} "
-              f"({int((~agree).sum())} lanes), terminated {int(tw.sum())}, max|err| {err:.3g}",
-              flush=True)
-        if frac < MIN_FLAG_AGREEMENT or not err <= TOL_STATE or int(tw.sum()) == 0:
-            fail("K1 disagrees with its plain twin, or no lane terminated")
-        worst = max(worst, err)
+        for state, rows in states.items():
+            yo, term = k1.step_rows(*rows)
+            yw, tw = k1.plain_rows(*rows)
+            agree = (term == tw)[0]
+            err = (yo[:, agree] - yw[:, agree]).abs().max().item()
+            frac = agree.float().mean().item()
+            print(f"K1 {MAIN_ENV} {tab}x{sub} r{ref} B={rows[0].shape[1]} ({state}): flag "
+                  f"agreement {frac:.6f} "
+                  f"({int((~agree).sum())} lanes), terminated {int(tw.sum())}, max|err| "
+                  f"{err:.3g}", flush=True)
+            if frac < MIN_FLAG_AGREEMENT or not err <= TOL_STATE or int(tw.sum()) == 0:
+                fail("K1 disagrees with its plain twin, or no lane terminated")
+            worst = max(worst, err)
     return worst
 
 
@@ -392,19 +422,22 @@ def check_k2(dev, B):
     for env_id in (MAIN_ENV, "GoalContinuous4P-v0", "KeplerRandomOrbits-v0",
                    "DoNotCrashContinuous-v0"):
         cfg = get_config(env_id)
-        rows = FullStep.to_rows(*scenario(cfg, B, seed=4, device=dev))[:5]
+        states = {"branches": FullStep.to_rows(*scenario(cfg, B, seed=4, device=dev))[:5]}
+        if env_id in (MAIN_ENV, "KeplerRandomOrbits-v0"):
+            states["most lanes fire"] = firing_rows(cfg, MAIN_B, 4, dev)
         for tab, sub, ref in (("bs3", 1, 8), ("dp5", 2, 12)):
             k2 = EnvStep(cfg, sub, ref, tab)
-            got = k2.step_rows(*rows)
-            want = k2.plain_rows(*rows)
-            frac, errs = compare_k2(got, want)
-            n_term = int(want[1].sum())
-            print(f"K2 {env_id} {tab}x{sub} r{ref} B={B}: flag agreement {frac:.6f}, terminated "
-                  f"{n_term}; max|err| state {errs[0]:.3g} obs {errs[1]:.3g} reward "
-                  f"{errs[2]:.3g}", flush=True)
-            if frac < MIN_FLAG_AGREEMENT or n_term == 0:
-                fail(f"K2 {env_id}: flags agree on {frac:.6f} of lanes, {n_term} terminated")
-            worst = max(worst, max(errs))
+            for state, rows in states.items():
+                got = k2.step_rows(*rows)
+                want = k2.plain_rows(*rows)
+                frac, errs = compare_k2(got, want)
+                n_term = int(want[1].sum())
+                print(f"K2 {env_id} {tab}x{sub} r{ref} B={rows[0].shape[1]} ({state}): flag agreement "
+                      f"{frac:.6f}, terminated {n_term}; max|err| state {errs[0]:.3g} obs "
+                      f"{errs[1]:.3g} reward {errs[2]:.3g}", flush=True)
+                if frac < MIN_FLAG_AGREEMENT or n_term == 0:
+                    fail(f"K2 {env_id}: flags agree on {frac:.6f} of lanes, {n_term} terminated")
+                worst = max(worst, max(errs))
     return worst
 
 
@@ -523,8 +556,9 @@ def warm_engine(dev, B, tab, sub, ref, rng=False, seed=0):
 
 
 def launch_line(full, B):
-    """Registers, local memory, residency and waves of the K3 instantiation
-    that a launch of B lanes runs (FullStep.kernel_info)."""
+    """Registers, local memory, residency and waves of the instantiation that
+    a launch of B lanes runs (`kernel_info` of FullStep, EnvStep or
+    PhysicsStep)."""
     k = full.kernel_info(B)
     waves = k["tiles"] / (k["blocks_per_sm"] * k["sms"])
     return (f"{k['registers']} registers, {k['local_bytes']} B local memory a thread, "
@@ -659,6 +693,7 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, 
     print(f"  K1: {k1_ms:.5f} ms/launch on the device ({k1_call_ms:.5f} ms per wrapper call), "
           f"plain {k1_plain_ms:.3f} ms, bound bytes {k1_bound['bytes']:.5f} ms, operations "
           f"{k1_bound['operations']:.5f} ms", flush=True)
+    print(f"  K1 launch: {launch_line(k1, B)[0]}", flush=True)
 
     k2 = EnvStep(cfg, sub, ref, tab)
     got2 = k2.step_rows(*rows[:5])
@@ -677,6 +712,7 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, 
     print(f"  K2: {k2_ms:.5f} ms/launch on the device ({k2_call_ms:.5f} ms per wrapper call), "
           f"plain {k2_plain_ms:.3f} ms, bound bytes {k2_bound['bytes']:.5f} ms "
           f"({k2.bytes_per_lane()} B/lane), operations {k2_bound['operations']:.5f} ms", flush=True)
+    print(f"  K2 launch: {launch_line(k2, B)[0]}", flush=True)
     res.update(k1_err=k1_err, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k1_bound=k1_bound,
                k2_err=k2_err, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_bound=k2_bound)
     return res
@@ -1432,85 +1468,137 @@ def clocked_builds(names):
 
 
 def clocked_library(name, lib, proc):
-    """The loaded clocked build of `name`, after its nvcc has ended."""
+    """The loaded clocked build of `name`, after its nvcc has ended; its
+    ptxas report goes to CLOCKED_REPORTS[name]."""
     import ctypes
 
     out, _ = proc.communicate()
     if proc.returncode != 0:
         fail(f"the phase-clock build of {name} did not build:\n{out[-4000:]}")
+    CLOCKED_REPORTS[name] = out
     return ctypes.CDLL(lib)
 
 
-K3_CLOCKED = {False: "K3", "philox": "K3-hw"}
+CLOCKED_REPORTS = {}
+TAB_IDS = {"dp5": 0, "bs3": 1}
 
 
-def k3_phase_clock(dev, card, procs, B=MAIN_B, cases=(("bs3", 1, 8), ("dp5", 2, 12))):
-    """Where a launch of K3 (uniforms from memory) and of K3-hw (in-kernel
+def ptxas_summary(text, kernel, targs):
+    """Registers and spills ptxas reported for the instantiation of `kernel`
+    whose mangled template arguments start with `targs` (e.g. "ILi2ELi1E")."""
+    if not text:
+        return "no ptxas report (library not rebuilt)"
+    m = re.search(rf"Function properties for _Z\d+{kernel}{targs}\w*\n[^\n]*?(\d+) bytes stack "
+                  rf"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n[^\n]*?Used (\d+) "
+                  r"registers", text)
+    if not m:
+        return "not in the ptxas report"
+    return (f"ptxas {m.group(4)} registers, {m.group(1)} B stack frame, spill stores "
+            f"{m.group(2)} B, loads {m.group(3)} B")
+
+
+# The env kernels the phase clock splits: label -> (library, uniforms of the
+# main path's state, kernel name, template arguments of its Goal 2-planet
+# instantiation before the tableau's)
+ENV_CLOCKED = {"K1": ("fused_step", False, "fused_step_kernel", "ILi2E"),
+               "K2": ("env_step", False, "env_step_kernel", "ILi0ELi2E"),
+               "K3": ("full_step", False, "full_step_kernel", r"I\w+Li0ELi2ELi4ELi2E"),
+               "K3-hw": ("full_step_philox", "philox", "full_step_kernel",
+                         r"I\w+Li0ELi2ELi4ELi2E")}
+
+
+def env_clock_targets(label, eng, sub, ref, tab, rows):
+    """(module whose _lib the clocked build replaces, its C entry points, a
+    call of one launch, the wrapper that describes the launch) of an env
+    kernel on the main path's operands `rows`."""
+    from space_gym_torch.ops import env_step, full_step, physics_step
+
+    cfg = eng.full.cfg
+    if label == "K1":
+        k = physics_step.PhysicsStep(cfg, sub, ref, tab)
+        return physics_step, ("sg_fused_step",), lambda: k.step_rows(*rows[:3]), k
+    if label == "K2":
+        k = env_step.EnvStep(cfg, sub, ref, tab)
+        return env_step, ("sg_env_step",), lambda: k.step_rows(*rows[:5]), k
+    full = eng.full
+    return (full_step, (full_step.RNG_MODES[full.rng][1],), lambda: full.step_rows(*rows), full)
+
+
+def env_phase_clock(dev, card, procs, reports, B=MAIN_B, cases=(("bs3", 1, 8), ("dp5", 2, 12))):
+    """Where a launch of K1, K2, K3 (uniforms from memory) and K3-hw (in-kernel
     Philox) spends its cycles, on the main path's state after its warm-up:
     each built with the phase clock (csrc/step_clock.cuh) and launched once
-    through its wrapper; every warp's cycles summed by phase, the counts of
-    lanes that reached their goal or are done and of the warp tiles that
-    hold one; then the clocked and the plain build timed in turns
-    (profiler)."""
+    through its wrapper; every warp's cycles summed by phase, the counts (K1
+    and K2: lanes whose events fire; K3: lanes that reached their goal or are
+    done) and of the warp tiles that hold one; registers, spills, residency
+    and waves of the plain and the clocked build; then the two builds timed
+    in turns (profiler).  `reports`: the plain builds' ptxas output."""
     import ctypes
 
-    from space_gym_torch.ops import full_step as fs
-    from space_gym_torch.ops.full_step import RNG_MODES
-
-    real = fs._lib
     times = {}
-    try:
-        for rng, label in K3_CLOCKED.items():
-            entry = RNG_MODES[rng][1]
-            handle = clocked_library(K3_NAMES[rng], *procs[K3_NAMES[rng]])
-            for fn in (entry, entry + "_info"):
-                getattr(handle, fn).argtypes = getattr(real(rng), fn).argtypes
+    for label, (name, rng, kname, targs) in ENV_CLOCKED.items():
+        handle = clocked_library(name, *procs[name])
+        handle.sg_k3_phase_read.argtypes = [ctypes.c_void_p]
+        handle.sg_k3_phase_name.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+        names, buf = [], ctypes.create_string_buffer(96)
+        while handle.sg_k3_phase_name(len(names), buf, len(buf)) > 0 and buf.value != b"?":
+            names.append(buf.value.decode())
+        n_marks = names.index("lanes")
+        cyc = (ctypes.c_ulonglong * len(names))()
+        for tab, sub, ref in cases:
+            eng, g, policy, state, obs = warm_engine(dev, B, tab, sub, ref, rng)
+            full = eng.full
+            u = eng.draw_key(g) if rng else torch.rand((B, full.n_uniform_rows), generator=g,
+                                                        device=dev)
+            rows = full.to_rows(*eng.kernel_operands(state, eng._translate_action(
+                policy(g, obs)), u))
+            module, entries, call, wrapper = env_clock_targets(label, eng, sub, ref, tab, rows)
+            real = module._lib
+            built = real(rng) if label.startswith("K3") else real()
+            for fn in entries + tuple(e + "_info" for e in entries):
+                getattr(handle, fn).argtypes = getattr(built, fn).argtypes
                 getattr(handle, fn).restype = ctypes.c_int
-            handle.sg_k3_phase_read.argtypes = [ctypes.c_void_p]
-            handle.sg_k3_phase_name.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
-            names, buf = [], ctypes.create_string_buffer(96)
-            while handle.sg_k3_phase_name(len(names), buf, len(buf)) > 0 and buf.value != b"?":
-                names.append(buf.value.decode())
-            n_marks = names.index("lanes")
-            cyc = (ctypes.c_ulonglong * len(names))()
-            for tab, sub, ref in cases:
-                eng, g, policy, state, obs = warm_engine(dev, B, tab, sub, ref, rng)
-                full = eng.full
-                u = eng.draw_key(g) if rng else torch.rand((B, full.n_uniform_rows), generator=g,
-                                                            device=dev)
-                rows = full.to_rows(*eng.kernel_operands(state, eng._translate_action(
-                    policy(g, obs)), u))
-                fs._lib = lambda mode, h=handle: h
+            try:
+                module._lib = lambda *a, h=handle: h
                 handle.sg_k3_phase_read(cyc)
-                full.step_rows(*rows)
+                call()
                 torch.cuda.synchronize()
                 if handle.sg_k3_phase_read(cyc) != 0:
                     fail(f"{label}: the phase clock could not be read")
-                clocked_text, _ = launch_line(full, B)
-                fs._lib = real
-                plain_text, _ = launch_line(full, B)
+                clocked_text, _ = launch_line(wrapper, B)
+                module._lib = real
+                plain_text, _ = launch_line(wrapper, B)
                 total = sum(cyc[:n_marks])
                 c = dict(zip(names[n_marks:], cyc[n_marks:]))
+                w = max(c["warp tiles"], 1)
+                if label.startswith("K3"):
+                    what = (f"{c['lanes that reached their goal']} reached their goal, "
+                            f"{c['lanes done']} done; "
+                            f"{c['warp tiles with a lane that reached its goal or is done']} warp "
+                            f"tiles hold such a lane")
+                else:
+                    what = (f"{c['lanes whose events fire']} lanes whose events fire; "
+                            f"{c['warp tiles with a lane whose events fire']} warp tiles hold "
+                            f"such a lane")
                 print(f"phase clock {label} {MAIN_ENV} B={B} {tab}x{sub} r{ref} on {card}: "
-                      f"{total} warp-cycles over {c['warp tiles']} warp tiles "
-                      f"({total / max(c['warp tiles'], 1):.0f} a warp tile); {c['lanes']} lanes, "
-                      f"{c['lanes that reached their goal']} reached their goal, "
-                      f"{c['lanes done']} done; "
-                      f"{c['warp tiles with a lane that reached its goal or is done']} warp tiles "
-                      f"hold such a lane", flush=True)
+                      f"{total} warp-cycles over {c['warp tiles']} warp tiles ({total / w:.0f} a "
+                      f"warp tile); {c['lanes']} lanes, {what}", flush=True)
                 for i in sorted(range(n_marks), key=lambda i: -cyc[i]):
-                    print(f"  {100 * cyc[i] / total:5.1f}% {cyc[i] / max(c['warp tiles'], 1):9.0f} "
-                          f"cycles a warp tile  {names[i]}", flush=True)
-                print(f"  launch, plain build: {plain_text}; clocked build: {clocked_text}",
+                    if cyc[i]:
+                        print(f"  {100 * cyc[i] / total:5.1f}% {cyc[i] / w:9.0f} cycles a warp "
+                              f"tile  {names[i]}", flush=True)
+                tid = f"{targs}Li{TAB_IDS[tab]}E"
+                print(f"  launch, plain build: {plain_text} "
+                      f"({ptxas_summary(reports.get(name), kname, tid)}); clocked build: "
+                      f"{clocked_text} ({ptxas_summary(CLOCKED_REPORTS.get(name), kname, tid)})",
                       flush=True)
-                call = lambda: full.step_rows(*rows)
                 for clock in (False, True, True, False):
-                    fs._lib = (lambda mode, h=handle: h) if clock else real
+                    module._lib = (lambda *a, h=handle: h) if clock else real
                     times.setdefault((label, tab, clock), []).append(
-                        kernel_device_ms(call, "full_step_kernel"))
-                    fs._lib = real
-    finally:
-        fs._lib = real
+                        kernel_device_ms(call, kname))
+                    module._lib = real
+            finally:
+                module._lib = real
     for (label, tab, clock), ms in times.items():
         print(f"time {label} {tab} {'with' if clock else 'without'} the phase clock B={B}: "
               + ", ".join(f"{t:.5f}" for t in ms) + f" ms per launch on the device on {card}",
@@ -1518,7 +1606,7 @@ def k3_phase_clock(dev, card, procs, B=MAIN_B, cases=(("bs3", 1, 8), ("dp5", 2, 
 
 
 def phase_clock(dev, card):
-    """Where a launch of K3 and K3-hw (k3_phase_clock), then of K4, K5 and K6
+    """Where a launch of K1, K2, K3 and K3-hw (env_phase_clock), then of K4, K5 and K6
     spends its time, for want of a profiler of a kernel's insides: each built
     with the phase clock (-DSG_PHASE_CLOCK) into build/phase_clock/, all five
     builds at once.  K4-K6 launched once at the training path's shapes (K=32,
@@ -1532,9 +1620,15 @@ def phase_clock(dev, card):
     from space_gym_torch.utils import cuda_build
 
     labels = {"sac_update": "K4", "sac_update_fold": "K5", "td3_update": "K6"}
-    procs = clocked_builds([*labels, *(K3_NAMES[r] for r in K3_CLOCKED)])
-    cuda_build.build_all([*labels, *(K3_NAMES[r] for r in K3_CLOCKED)])
-    k3_phase_clock(dev, card, procs)
+    env_names = [v[0] for v in ENV_CLOCKED.values()]
+    procs = clocked_builds([*labels, *env_names])
+    reports = {n: text for n, (_, text) in cuda_build.build_all([*labels, *env_names]).items()}
+    for n in env_names:  # a library built earlier: the report print_build wrote then
+        path = os.path.join(OUT_DIR, f"ptxas_{n}.txt")
+        if n not in reports and os.path.exists(path):
+            with open(path) as f:
+                reports[n] = f.read()
+    env_phase_clock(dev, card, procs, reports)
     sac_in = sac_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES)
     td3_in = td3_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES, delay=2, warm=2)
     real = {"sac": fused_sac._lib, "td3": fused_td3._lib}

@@ -66,6 +66,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_info.cuh"
 #include "observe_reward.cuh"
 #include "rng.cuh"
 
@@ -621,24 +622,6 @@ __global__ void __launch_bounds__(SG_TILE, (K3MinBlocks<TASK, NP, TAB>::value))
   SG_K3_CLOCK_END();
 }
 
-// What a launch of one instantiation looks like on this device, for
-// chip_smoke.py: registers, local memory (stack frame and spills) per thread,
-// resident blocks per SM, SMs, the grid, threads a block, dynamic shared
-// memory, lane tiles.
-template <class KERNEL>
-static int sg_kernel_info(KERNEL k, int grid, int threads, int smem, int tiles, int* out) {
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, k);
-  int bps = 0, dev = 0, sms = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, k, threads, smem);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int v[8] = {fa.numRegs, (int)fa.localSizeBytes, bps, sms, grid, threads, smem, tiles};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
-  return 0;
-}
-
 // Launches one instantiation on a persistent grid (the blocks the current
 // device holds at once, each with an equal share of the tiles), or with
 // `info` fills sg_kernel_info's numbers instead.  The blocks an SM holds are queried once
@@ -648,25 +631,14 @@ static int launch(const FullParams& P, const FullStepArgs& A, int* info) {
   using S = StepShape<TASK, NP, NT, COLS>;
   auto k = full_step_kernel<ROWS, TASK, NP, NT, COLS, TAB>;
   static int known_dev = -1, per_sm = 0;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && dev != known_dev) {
-    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, SG_TILE, S::SMEM);
-    if (e == cudaSuccess) known_dev = dev;
-  }
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && per_sm * sms <= 0) e = cudaErrorInvalidConfiguration;
-  if (e != cudaSuccess) return (int)e;
-  const int resident = per_sm * sms;
+  int resident = 0;
+  const int e = sg_resident_blocks(k, SG_TILE, S::SMEM, known_dev, per_sm, &resident);
+  if (e) return e;
   K3Args args{P, A, (A.B + SG_TILE - 1) / SG_TILE};
   const int per_block = (args.tiles + resident - 1) / resident;
   const int grid = (args.tiles + per_block - 1) / per_block;
   if (info) return sg_kernel_info(k, grid, SG_TILE, S::SMEM, args.tiles, info);
-  void* params[] = {&args};
-  e = cudaLaunchKernel((const void*)k, dim3(grid), dim3(SG_TILE), params, S::SMEM, A.stream);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  return sg_launch(k, grid, SG_TILE, S::SMEM, A.stream, args);
 }
 
 template <class ROWS, int TASK, int NP, int NT, int COLS>

@@ -7,7 +7,8 @@
 // barriers and wrong arithmetic where there is no card.  Used by
 // tests/test_torch_sac_kernel_host.py through sac_update_host.cpp, by
 // tests/test_torch_td3_kernel_host.py through td3_update_host.cpp and by
-// tests/test_torch_full_step_host.py through full_step_host.cpp.
+// tests/test_torch_full_step_host.py through full_step_host.cpp and by
+// tests/test_torch_env_step_host.py through env_step_host.cpp.
 #include <atomic>
 #include <cmath>
 #include <cstdint>
@@ -94,11 +95,13 @@ inline int __shfl_sync(unsigned, int v, int src) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+
 inline unsigned __umulhi(unsigned a, unsigned b) {
     return (unsigned)(((unsigned long long)a * b) >> 32);
 }
 inline float __uint_as_float(unsigned x) { return std::bit_cast<float>(x); }
 inline int __float_as_int(float x) { return std::bit_cast<int>(x); }
+inline float __int_as_float(int x) { return std::bit_cast<float>(x); }
 inline float rsqrtf(float x) { return 1.f / sqrtf(x); }
 using std::isfinite;
 using std::isnan;
@@ -160,4 +163,3 @@ cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, siz
     return 0;
 }
 cudaError_t cudaLaunchCooperativeKernel(void* fn, dim3 grid, dim3 block, void** params, size_t smem, cudaStream_t);
-cudaError_t cudaLaunchKernel(const void* fn, dim3 grid, dim3 block, void** params, size_t smem, cudaStream_t);

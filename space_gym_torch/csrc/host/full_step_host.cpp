@@ -8,11 +8,5 @@ SG_DEFINE_FULL_STEP(sg_full_step, MemRows)
 SG_DEFINE_FULL_STEP(sg_full_step_threefry, ThreefryRows)
 SG_DEFINE_FULL_STEP(sg_full_step_philox, PhiloxRows)
 
-cudaError_t cudaLaunchKernel(const void* fn, dim3 grid, dim3 block, void** params, size_t smem,
-                             cudaStream_t) {
-    return launch_emul(reinterpret_cast<void (*)(K3Args)>(const_cast<void*>(fn)), grid, block,
-                       params, smem);
-}
-
 // How many blocks the stand-in device holds at once (one per "SM").
 extern "C" void host_set_sms(int n) { EMUL_SMS = n; }

@@ -13,8 +13,8 @@
 //     (pallas_step.py:226-239), grazing-crossing stall included;
 //   * state returned at the event time; angle wrapped into [0, 2pi).
 //
-// The two marks of the full-step kernels' phase clock (csrc/step_clock.cuh)
-// compile to nothing without -DSG_PHASE_CLOCK.
+// The two marks of the phase clock (csrc/step_clock.cuh) compile to nothing
+// without -DSG_PHASE_CLOCK.
 //
 // Design: one thread per lane, everything in registers, the planet count and
 // the tableau as template parameters so every stage loop unrolls.  Operations
@@ -25,6 +25,11 @@
 // branches skip work whose result the JAX body computes and then discards:
 // a lane that terminated in an earlier substep stops integrating (its state
 // is frozen there), and a lane with no sign change skips the refinement.
+// The step is two parts, sg_integrate (up to the substep whose events fire,
+// and that substep's bracket) and sg_refine (the bracket to the state at the
+// event); sg_physics runs both in place, the env kernels K1 and K2 may hand a
+// bracket to another thread (csrc/env_lanes.cuh).  Either way the same
+// operations on the same values give the same bits.
 #pragma once
 
 #include <math_constants.h>
@@ -115,8 +120,12 @@ template <int NP>
 __device__ __forceinline__ void sg_rhs(const PhysParams& P, const float* y, const float* px,
                                        const float* py, float ae, float at, float* f) {
   const float efs = ae * P.max_engine_force;
-  float fx = -cosf(y[2]) * efs;
-  float fy = -sinf(y[2]) * efs;
+  // one argument reduction for both: the bits of cosf and sinf (every
+  // --env-bits digest unchanged), in fewer instructions
+  float sn, cs;
+  sincosf(y[2], &sn, &cs);
+  float fx = -cs * efs;
+  float fy = -sn * efs;
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
     const float dx = px[i] - y[0];
@@ -162,11 +171,29 @@ __device__ __forceinline__ float sg_m_norm(const bool* active, const float* sgn,
   return mm;
 }
 
-// Integrates one control step.  y0: the lane's state; yf: the state at the
-// step's end or at the earliest event.  Returns `terminated`.
+// What the refinement needs to finish a lane whose events changed sign in a
+// substep (sg_refine): the substep's dense-output coefficients and start
+// state, the sign-normalised event minimum at its two ends, and in `bits`
+// the active events (bits 0-7), the events negative at its start (8-15) and
+// the substep's index (16 on).  Kept in registers (sg_physics), or saved to a
+// list and finished by another thread (the env kernels, csrc/env_lanes.cuh).
+template <int TAB>
+struct SgBracket {
+  static constexpr int NPW = Tab<TAB>::NPW;
+  float Q[6][NPW];
+  float comp[6];
+  float f_lo, f_hi;
+  unsigned bits;
+};
+
+// Integrates one control step up to its first substep whose events change
+// sign.  y0: the lane's state.  Returns false with yf the state at the step's
+// end, or true with `br` the bracket of that substep (for sg_refine to
+// finish into yf).
 template <int NP, int TAB>
-__device__ bool sg_physics(const PhysParams& P, const float* y0, const float* px, const float* py,
-                           float ae, float at, float* yf) {
+__device__ __forceinline__ bool sg_integrate(const PhysParams& P, const float* y0, const float* px,
+                                             const float* py, float ae, float at, float* yf,
+                                             SgBracket<TAB>& br) {
   using T = Tab<TAB>;
   constexpr int NE = NP + 3;
   constexpr int S = T::S;
@@ -184,9 +211,8 @@ __device__ bool sg_physics(const PhysParams& P, const float* y0, const float* px
   sg_events<NP>(P, comp[0], comp[1], comp[5], px, py, g);
 #pragma unroll
   for (int c = 0; c < 6; ++c) yf[c] = comp[c] + 0.f;
-  bool terminated = false;
 
-  for (int sub = 0; sub < P.n_substeps && !terminated; ++sub) {
+  for (int sub = 0; sub < P.n_substeps; ++sub) {
 #pragma unroll
     for (int s = 1; s < S; ++s) {
       float ys[6];
@@ -223,7 +249,6 @@ __device__ bool sg_physics(const PhysParams& P, const float* y0, const float* px
 
     SG_K3_MARK(K3_SUBSTEPS);
     if (fire) {
-      float Q[6][NPW];
 #pragma unroll
       for (int c = 0; c < 6; ++c) {
 #pragma unroll
@@ -231,73 +256,109 @@ __device__ bool sg_physics(const PhysParams& P, const float* y0, const float* px
           float acc = K[0][c] * T::P(0, m);
 #pragma unroll
           for (int j = 1; j <= S; ++j) acc = acc + K[j][c] * T::P(j, m);
-          Q[c][m] = acc;
+          br.Q[c][m] = acc;
         }
+        br.comp[c] = comp[c];
       }
       float sgn[NE];
+      unsigned bits = (unsigned)sub << 16;
 #pragma unroll
-      for (int e = 0; e < NE; ++e) sgn[e] = g[e] < 0.f ? -1.f : 1.f;
-
-      const float t0 = P.t0[sub];
-      float lo = t0;
-      float hi = P.t1[sub];
-      float f_lo = sg_m_norm<NE>(active, sgn, g);
-      float f_hi = sg_m_norm<NE>(active, sgn, g_new);
-      float side = 0.f;  // +1: hi moved last, -1: lo moved last
-      for (int it = 0; it < P.refine_iters; ++it) {
-        const float mid_fp = hi - f_hi * (hi - lo) / (f_hi - f_lo);
-        const bool good = isfinite(mid_fp) && (mid_fp > lo) && (mid_fp < hi);
-        const float mid = good ? mid_fp : 0.5f * (lo + hi);
-        // dense output at mid, only the components the events read
-        const float xq = (mid - t0) / h;
-        float pw[NPW];
-        pw[0] = xq;
-#pragma unroll
-        for (int m = 1; m < NPW; ++m) pw[m] = pw[m - 1] * xq;
-        float sv[3];
-        const int cs[3] = {0, 1, 5};
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          float acc = Q[cs[k]][0] * pw[0];
-#pragma unroll
-          for (int m = 1; m < NPW; ++m) acc = acc + Q[cs[k]][m] * pw[m];
-          sv[k] = h * acc + comp[cs[k]];
-        }
-        float gm[NE];
-        sg_events<NP>(P, sv[0], sv[1], sv[2], px, py, gm);
-        const float g_mid = sg_m_norm<NE>(active, sgn, gm);
-        const bool left = g_mid <= 0.f;  // root in [lo, mid]
-        f_lo = left ? (side > 0.f ? 0.5f * f_lo : f_lo) : g_mid;
-        f_hi = left ? g_mid : (side < 0.f ? 0.5f * f_hi : f_hi);
-        lo = left ? lo : mid;
-        hi = left ? mid : hi;
-        side = left ? 1.f : -1.f;
+      for (int e = 0; e < NE; ++e) {
+        sgn[e] = g[e] < 0.f ? -1.f : 1.f;
+        bits |= (active[e] ? 1u << e : 0u) | (g[e] < 0.f ? 1u << (8 + e) : 0u);
       }
-      const float xq = (hi - t0) / h;
-      float pw[NPW];
-      pw[0] = xq;
-#pragma unroll
-      for (int m = 1; m < NPW; ++m) pw[m] = pw[m - 1] * xq;
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        float acc = Q[c][0] * pw[0];
-#pragma unroll
-        for (int m = 1; m < NPW; ++m) acc = acc + Q[c][m] * pw[m];
-        yf[c] = h * acc + comp[c];
-      }
-      terminated = true;
-    } else {
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        yf[c] = y_new[c];
-        comp[c] = y_new[c];
-        K[0][c] = K[S][c];  // FSAL
-      }
-#pragma unroll
-      for (int e = 0; e < NE; ++e) g[e] = g_new[e];
+      br.f_lo = sg_m_norm<NE>(active, sgn, g);
+      br.f_hi = sg_m_norm<NE>(active, sgn, g_new);
+      br.bits = bits;
+      return true;
     }
-    SG_K3_MARK(K3_REFINE);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      yf[c] = y_new[c];
+      comp[c] = y_new[c];
+      K[0][c] = K[S][c];  // FSAL
+    }
+#pragma unroll
+    for (int e = 0; e < NE; ++e) g[e] = g_new[e];
   }
+  return false;
+}
+
+// Finishes a lane from its bracket: one joint refinement of the earliest
+// crossing by safeguarded Illinois false position on the dense interpolant,
+// then the state there (angle not yet wrapped) into yf.
+template <int NP, int TAB>
+__device__ __forceinline__ void sg_refine(const PhysParams& P, const SgBracket<TAB>& br,
+                                          const float* px, const float* py, float* yf) {
+  constexpr int NE = NP + 3;
+  constexpr int NPW = Tab<TAB>::NPW;
+  const float h = P.h;
+  bool active[NE];
+  float sgn[NE];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    active[e] = (br.bits >> e) & 1u;
+    sgn[e] = (br.bits >> (8 + e)) & 1u ? -1.f : 1.f;
+  }
+  const int sub = (int)(br.bits >> 16);
+  const float t0 = P.t0[sub];
+  float lo = t0;
+  float hi = P.t1[sub];
+  float f_lo = br.f_lo;
+  float f_hi = br.f_hi;
+  float side = 0.f;  // +1: hi moved last, -1: lo moved last
+  for (int it = 0; it < P.refine_iters; ++it) {
+    const float mid_fp = hi - f_hi * (hi - lo) / (f_hi - f_lo);
+    const bool good = isfinite(mid_fp) && (mid_fp > lo) && (mid_fp < hi);
+    const float mid = good ? mid_fp : 0.5f * (lo + hi);
+    // dense output at mid, only the components the events read
+    const float xq = (mid - t0) / h;
+    float pw[NPW];
+    pw[0] = xq;
+#pragma unroll
+    for (int m = 1; m < NPW; ++m) pw[m] = pw[m - 1] * xq;
+    float sv[3];
+    const int cs[3] = {0, 1, 5};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float acc = br.Q[cs[k]][0] * pw[0];
+#pragma unroll
+      for (int m = 1; m < NPW; ++m) acc = acc + br.Q[cs[k]][m] * pw[m];
+      sv[k] = h * acc + br.comp[cs[k]];
+    }
+    float gm[NE];
+    sg_events<NP>(P, sv[0], sv[1], sv[2], px, py, gm);
+    const float g_mid = sg_m_norm<NE>(active, sgn, gm);
+    const bool left = g_mid <= 0.f;  // root in [lo, mid]
+    f_lo = left ? (side > 0.f ? 0.5f * f_lo : f_lo) : g_mid;
+    f_hi = left ? g_mid : (side < 0.f ? 0.5f * f_hi : f_hi);
+    lo = left ? lo : mid;
+    hi = left ? mid : hi;
+    side = left ? 1.f : -1.f;
+  }
+  const float xq = (hi - t0) / h;
+  float pw[NPW];
+  pw[0] = xq;
+#pragma unroll
+  for (int m = 1; m < NPW; ++m) pw[m] = pw[m - 1] * xq;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    float acc = br.Q[c][0] * pw[0];
+#pragma unroll
+    for (int m = 1; m < NPW; ++m) acc = acc + br.Q[c][m] * pw[m];
+    yf[c] = h * acc + br.comp[c];
+  }
+}
+
+// Integrates one control step.  y0: the lane's state; yf: the state at the
+// step's end or at the earliest event.  Returns `terminated`.
+template <int NP, int TAB>
+__device__ bool sg_physics(const PhysParams& P, const float* y0, const float* px, const float* py,
+                           float ae, float at, float* yf) {
+  SgBracket<TAB> br;
+  const bool terminated = sg_integrate<NP, TAB>(P, y0, px, py, ae, at, yf, br);
+  if (terminated) sg_refine<NP, TAB>(P, br, px, py, yf);
+  SG_K3_MARK(K3_REFINE);
   yf[2] = sg_wrap_angle(yf[2]);
   return terminated;
 }

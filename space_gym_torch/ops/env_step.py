@@ -21,6 +21,7 @@ import functools
 import torch
 
 from ..utils import cuda_build
+from .full_step import FullStep
 from .kernel_params import TABLEAU_IDS, TASK_IDS, full_params
 from .observe_reward import make_observe_reward
 from .physics import physics_for_config
@@ -33,6 +34,8 @@ def _lib():
     # params, task, planets, tableau, 5 inputs, 4 outputs, B, stream
     lib.sg_env_step.argtypes = [p] + [ctypes.c_int] * 3 + [p] * 9 + [ctypes.c_int, p]
     lib.sg_env_step.restype = ctypes.c_int
+    lib.sg_env_step_info.argtypes = [ctypes.c_int] * 4 + [p]  # task, planets, tableau, B, out
+    lib.sg_env_step_info.restype = ctypes.c_int
     return lib
 
 
@@ -110,6 +113,16 @@ class EnvStep:
             raise RuntimeError(f"env_step kernel launch failed: error {err}")
         EnvStep.launches += 1
         return tuple(outs)
+
+    def kernel_info(self, B):
+        """How a launch of B lanes runs on the current CUDA device, as
+        FullStep.kernel_info (FullStep.INFO_KEYS)."""
+        out = (ctypes.c_int * len(FullStep.INFO_KEYS))()
+        err = _lib().sg_env_step_info(TASK_IDS[self.cfg.task], self.cfg.n_planets,
+                                      TABLEAU_IDS[self.tableau], B, out)
+        if err != 0:
+            raise RuntimeError(f"env_step kernel info failed: error {err}")
+        return dict(zip(FullStep.INFO_KEYS, out))
 
     def __call__(self, y, action, planets, goal, ref_orbit):
         B = y.shape[0]

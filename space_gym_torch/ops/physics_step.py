@@ -17,6 +17,7 @@ import functools
 import torch
 
 from ..utils import cuda_build
+from .full_step import FullStep
 from .kernel_params import TABLEAU_IDS, phys_params
 from .physics import physics_for_config
 
@@ -28,6 +29,8 @@ def _lib():
     # params, planets, tableau, y, a, p, y', terminated, B, stream
     lib.sg_fused_step.argtypes = [p, ctypes.c_int, ctypes.c_int] + [p] * 5 + [ctypes.c_int, p]
     lib.sg_fused_step.restype = ctypes.c_int
+    lib.sg_fused_step_info.argtypes = [ctypes.c_int] * 3 + [p]  # planets, tableau, B, out
+    lib.sg_fused_step_info.restype = ctypes.c_int
     return lib
 
 
@@ -84,6 +87,15 @@ class PhysicsStep:
             raise RuntimeError(f"fused_step kernel launch failed: error {err}")
         PhysicsStep.launches += 1
         return yo, term
+
+    def kernel_info(self, B):
+        """How a launch of B lanes runs on the current CUDA device, as
+        FullStep.kernel_info (FullStep.INFO_KEYS)."""
+        out = (ctypes.c_int * len(FullStep.INFO_KEYS))()
+        err = _lib().sg_fused_step_info(self.cfg.n_planets, TABLEAU_IDS[self.tableau], B, out)
+        if err != 0:
+            raise RuntimeError(f"fused_step kernel info failed: error {err}")
+        return dict(zip(FullStep.INFO_KEYS, out))
 
     def __call__(self, y, action, planets):
         B = y.shape[0]

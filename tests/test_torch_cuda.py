@@ -32,8 +32,8 @@ from space_gym_torch.ops.physics_step import PhysicsStep
 from space_gym_torch.ops.rng_plain import key_words
 from space_gym_torch.utils import cuda_build
 
-from .torch_scenarios import (one_torch_thread, pattern_operands,  # noqa: F401 (autouse)
-                              scenario_inputs)
+from .torch_scenarios import (firing_operands, one_torch_thread,  # noqa: F401 (autouse)
+                              pattern_operands, scenario_inputs)
 
 TOL_STATE = 1e-5
 TOL_REWARD = 1e-3
@@ -162,6 +162,32 @@ def test_cuda_env_step_matches_plain_twin(env_id, tableau, substeps, refine):
     assert torch.allclose(got[3], want[3], rtol=0, atol=TOL_REWARD, equal_nan=True)
     with pytest.raises(TypeError):
         k2(*[torch.as_tensor(v).cuda() for v in ins[:5]])  # float64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tableau,substeps,refine", [("bs3", 1, 8), ("dp5", 2, 12)])
+@pytest.mark.parametrize("env_id,batch", [("GoalContinuous2P-v0", 150001),
+                                          ("KeplerRandomOrbits-v0", 333)])
+def test_cuda_env_kernels_defer_firing_lanes(env_id, batch, tableau, substeps, refine):
+    """K1 and K2 where three lanes in four fire, against the plain twins, and
+    a second launch in equal bits.  At B=150001 (more lanes than the card
+    holds at once) blocks walk two tiles or more, so their firing lanes are
+    more than a block's list of deferred lanes holds: it fills and the rest
+    refine in place."""
+    _need_card()
+    cfg = get_config(env_id)
+    rows = firing_operands(cfg, batch, seed=7, device="cuda")
+    for k, n_in in ((PhysicsStep(cfg, substeps, refine, tableau), 3),
+                    (EnvStep(cfg, substeps, refine, tableau), 5)):
+        got = [o.cpu() for o in k.step_rows(*rows[:n_in])]
+        again = [o.cpu() for o in k.step_rows(*rows[:n_in])]
+        want = k.plain_rows(*[r.cpu() for r in rows[:n_in]])
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, again))
+        assert torch.equal(got[1], want[1]) and int(want[1].sum()) > batch // 2
+        for g, w in zip(got[:1] + got[2:], want[:1] + want[2:]):
+            tol = TOL_REWARD if g.shape[0] == 1 else TOL_STATE
+            assert torch.allclose(g, w, rtol=0, atol=tol, equal_nan=True)
 
 
 @pytest.mark.cuda

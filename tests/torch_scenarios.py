@@ -1,8 +1,8 @@
 """Shared inputs of the port's tests: numpy-seeded env states in which lanes
 are live, truncating, crashing and reaching the goal, so every branch of the
 step runs (`scenario_inputs` at B >= 8 in float64, `pattern_operands` at any
-B in float32); and `one_torch_thread`, the autouse fixture every port test
-module imports."""
+B in float32, `firing_operands` with most lanes' events firing); and
+`one_torch_thread`, the autouse fixture every port test module imports."""
 import numpy as np
 import pytest
 import torch
@@ -108,3 +108,17 @@ def pattern_operands(cfg, B, seed, device="cpu"):
     state = state._replace(y=y, steps=steps, tiling=ts)
     rows = FullStep.to_rows(*eng.kernel_operands(state, eng._translate_action(action), u))
     return [t.to(device) for t in rows]
+
+
+def firing_operands(cfg, B, seed, device="cpu"):
+    """`pattern_operands` in which three lanes of every four sit just outside
+    planet 0's surface heading into it: their events fire, more of them
+    than a block's list of deferred lanes in K1 and K2 holds (128 lanes
+    where a block walks two tiles or more)."""
+    rows = pattern_operands(cfg, B, seed, device)
+    y, p = rows[0], rows[2]
+    crash = torch.arange(B, device=device) % 4 != 3
+    y[0, crash] = p[0, crash] + cfg.planet_radii[0] + 0.02
+    y[1, crash] = p[1, crash]
+    y[3, crash], y[4, crash] = -2.0, 0.0
+    return rows
