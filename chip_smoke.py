@@ -45,14 +45,28 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      the same way, with policy_delay 2 and 3 from an odd update count, at
      H=512, and on partial tiles, in both modes, the two step counts held to
      the plain version's;
+  4b. the main path as `python -m space_gym_torch.bench` runs it: the
+     rollout at B=262144, BS3 x 1 / refine 8, captured into one CUDA graph,
+     once per source of uniforms: held over 16 steps to the same steps run
+     eagerly and to the loop of `step` from one generator state (equal
+     SHA-256 digests of observations, rewards, dones, the final state and
+     the generator), then timed captured and eager over 256 steps without a
+     trajectory, its launch counts (a graph's launches times its replays)
+     and the device's idle share from the profiler;
   7. the training paths at full width on GoalContinuous2P-v0, lanes 2048,
      rollout 8, K=32 updates of B=8192 per train_iter, H=256, ring of 2048
      rows: SACTrainer with `fused_fold` False (K4) then True (K5), then
-     TD3Trainer (K6); for each the launch counts set to 0 before and read
-     after, the warm-up gate, finite losses, ms per train_iter split into
-     rollout and K-update, device time per launch;
-  8. a `kernels` JSON line (K1, K2, K3, K3-tf, K3-hw, K4, K5, K6), the card
-     line again, and the final {"ok": true, "device": ...} line.
+     TD3Trainer (K6), all over the captured rollout; for each the launch
+     counts set to 0 before and read after, the warm-up gate, finite
+     losses, ms per train_iter split into rollout and K-update, device time
+     per launch; then PPOTrainer and DQNTrainer (GoalDiscrete3-v0) at the
+     JAX trainers' defaults; for all five, one train_iter on the captured
+     rollout against one on the eager loop from one state and generator
+     state, every leaf equal, and ms per train_iter both ways;
+  7b. one `python -m space_gym_torch.bench` run, its line printed;
+  8. a JSON line of the bench line and the train_iter times, a `kernels`
+     JSON line (K1, K2, K3, K3-tf, K3-hw, K4, K5, K6), the card line again,
+     and the final {"ok": true, "device": ...} line.
 
 Everything is made from seeds; it needs no network and imports no JAX.
 
@@ -514,24 +528,32 @@ def reset_launches():
     from space_gym_torch.ops.full_step import FullStep
     from space_gym_torch.ops.physics_step import PhysicsStep
 
+    from space_gym_torch.utils import graphs
+
     FullStep.reset_launches()
     EnvStep.launches = 0
     PhysicsStep.launches = 0
     fused_sac.reset_launches()
     fused_td3.reset_launches()
+    graphs.reset_launches()
 
 
 def read_launches():
-    """Launch counts by kernel since the last reset."""
+    """Launch counts by kernel since the last reset: the launches each wrapper
+    made, plus, for K3 and its variants, those of the CUDA graphs' replays
+    (a graph's launches once per replay, utils/graphs.py)."""
     from space_gym_torch.models import fused_sac, fused_td3
     from space_gym_torch.ops.env_step import EnvStep
     from space_gym_torch.ops.full_step import FullStep
     from space_gym_torch.ops.physics_step import PhysicsStep
+    from space_gym_torch.utils import graphs
 
-    by = FullStep.launches_by_rng
-    return {"full_step": by[False], "full_step_threefry": by["threefry"],
-            "full_step_philox": by["philox"], "env_step": EnvStep.launches,
-            "fused_step": PhysicsStep.launches, **fused_sac.LAUNCHES, **fused_td3.LAUNCHES}
+    by, rep = FullStep.launches_by_rng, graphs.REPLAYED
+    return {"full_step": by[False] + rep.get("full_step", 0),
+            "full_step_threefry": by["threefry"] + rep.get("full_step_threefry", 0),
+            "full_step_philox": by["philox"] + rep.get("full_step_philox", 0),
+            "env_step": EnvStep.launches, "fused_step": PhysicsStep.launches,
+            **fused_sac.LAUNCHES, **fused_td3.LAUNCHES}
 
 
 K3_NAMES = {False: "full_step", "threefry": "full_step_threefry", "philox": "full_step_philox"}
@@ -833,6 +855,164 @@ def profile_main_path(dev, B, tab, sub, ref, rng=False, n_steps=8, top=10):
     for key, us, count in rows[:top]:
         print(f"  {100 * us / busy:5.1f}%  {us / n_steps / 1e3:.4f} ms/step  "
               f"{count / n_steps:g}/step  {key[:100]}", flush=True)
+
+
+# ------------------------------------------------- the captured rollout --
+ROLLOUT_CHECK_STEPS = 16
+
+
+def digest(*tensors) -> str:
+    """SHA-256 (first 16 hex digits) of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def leaves(tree):
+    """Every leaf of a state (NamedTuples, dicts, the replay ring), in order."""
+    from space_gym_torch.utils import checkpoint
+
+    return checkpoint._flatten(tree, [])
+
+
+def state_digest(state) -> str:
+    return digest(*[t for t in leaves(state) if isinstance(t, torch.Tensor)])
+
+
+def device_window(fn, kernel, n_steps, top=8):
+    """fn() under torch.profiler: (device busy ms, the window's ms from the
+    first device activity to the last, launches of the kernel whose name
+    contains `kernel`).  Busy is the union of the device intervals.  Prints
+    the `top` kernels by device time per step of the n_steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    hits = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name)
+    if not spans:
+        return None, None, hits
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
+    total = sum(r[0] for r in rows)
+    for us, count, key in rows[:top]:
+        print(f"  {100 * us / total:5.1f}%  {us / n_steps / 1e3:.5f} ms/step  "
+              f"{count / n_steps:g}/step  {key[:90]}", flush=True)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3, hits
+
+
+def rollout_path(dev, card, rng, B=MAIN_B, n_steps=256):
+    """The main path as the bench runs it: EnvEngine.capture_rollout of the
+    random policy at B lanes, BS3 x 1 / refine 8, K3's uniforms from `rng`,
+    no trajectory, one captured CUDA graph.  First the captured rollout
+    against the eager loops from one generator state over
+    ROLLOUT_CHECK_STEPS steps with a trajectory: the same steps unrolled
+    (`EnvEngine.rollout`) and the loop of `step`; equal SHA-256 digests of
+    obs, reward, done and the final state, or the run fails.  Then
+    env-steps/s captured and eager over n_steps, and one captured rollout
+    under the profiler with the counts set to 0 just before: the device's
+    idle share, and K3's launches that the profiler saw on the device,
+    which must equal n_steps and the count the graph's replay added
+    (utils/graphs.py).  The launches returned are the profiler's."""
+    from space_gym_torch import get_config
+    from space_gym_torch.engine import EnvEngine
+
+    eng = EnvEngine(get_config(MAIN_ENV), tableau="bs3", substeps=1, refine_iters=8, device=dev,
+                    in_kernel_rng=rng)
+    g = eng.generator(11)
+    policy = eng.random_policy()
+    state, obs = eng.init(B, g)
+    for _ in range(WARMUP_STEPS):
+        state, ts = eng.step(state, policy(g, obs), g)
+        obs = ts.obs
+    g0 = g.get_state()
+    T = ROLLOUT_CHECK_STEPS
+    digests = {}
+    for how in ("captured", "unrolled", "step loop"):
+        g.set_state(g0)
+        if how == "step loop":
+            s, o, obs_l, rew_l, done_l = state, obs, [], [], []
+            for _ in range(T):
+                obs_l.append(o)
+                s, ts = eng.step(s, policy(g, o), g)
+                o = ts.obs
+                rew_l.append(ts.reward)
+                done_l.append(ts.done)
+            traj_obs, rew, done = torch.stack(obs_l), torch.stack(rew_l), torch.stack(done_l)
+        else:
+            s, o, traj = (eng.capture_rollout(policy, T, g)(state, obs) if how == "captured"
+                          else eng.rollout(state, obs, policy, T, g))
+            traj_obs, rew, done = traj.obs, traj.reward, traj.done
+        torch.cuda.synchronize()
+        digests[how] = (digest(traj_obs), digest(rew), digest(done), state_digest(s),
+                        digest(o), digest(g.get_state()))
+    print(f"rollout {MAIN_ENV} B={B} bs3x1 r8 uniforms by {RNG_NAMES[rng]}, {T} steps from one "
+          f"generator state, SHA-256 of obs / reward / done / final state / final obs / "
+          f"generator after: " + "; ".join(f"{k} {' '.join(v)}" for k, v in digests.items()),
+          flush=True)
+    if len(set(digests.values())) != 1:
+        fail(f"the captured rollout ({RNG_NAMES[rng]}) differs from the eager loop")
+
+    # throughput, captured and eager, no trajectory (the bench's run)
+    captured = eng.capture_rollout(policy, n_steps, g, trajectory=False)
+
+    def run(graph):
+        nonlocal state, obs
+        state, obs, traj = (captured(state, obs) if graph else
+                            eng.rollout(state, obs, policy, n_steps, g, trajectory=False))
+        return traj
+
+    w0 = time.perf_counter()
+    run(True)                                      # captures the graph
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - w0
+    ms = {}
+    for graph in (True, False, False, True):       # in turns
+        ms.setdefault("captured" if graph else "eager", []).append(
+            cuda_ms(lambda: run(graph), iters=1, warmup=0))
+    print(f"profile of a captured rollout, {MAIN_ENV} B={B} uniforms by {RNG_NAMES[rng]}, "
+          f"{n_steps} steps (profiler on), device time by kernel:", flush=True)
+    name = K3_NAMES[rng]
+    reset_launches()
+    busy, window, hits = device_window(lambda: run(True), "full_step_kernel", n_steps)
+    launches = read_launches()
+    if hits != n_steps or launches[name] != hits or sum(launches.values()) != hits:
+        fail(f"captured rollout of {n_steps} steps: the profiler saw {hits} {name} launches on "
+             f"the device, the counts say {launches}")
+    launches[name] = hits
+    traj = run(True)
+    if not np.isfinite(float(traj.reward_sum)) or int(traj.done_sum) == 0:
+        fail(f"captured rollout: reward sum {float(traj.reward_sum)}, dones {int(traj.done_sum)}")
+    sps = {k: B * n_steps / (min(v) / 1e3) for k, v in ms.items()}
+    idle = None if busy is None else 1 - busy / window
+    print(f"rollout {MAIN_ENV} B={B} bs3x1 r8 uniforms by {RNG_NAMES[rng]}, {n_steps} steps, "
+          f"no trajectory, on {card}: captured {sps['captured']:.6g} env-steps/s "
+          f"({min(ms['captured']) / n_steps:.5f} ms/step; runs "
+          + ", ".join(f"{t:.3f}" for t in ms["captured"])
+          + f" ms), eager {sps['eager']:.6g} ({min(ms['eager']) / n_steps:.5f} ms/step; runs "
+          + ", ".join(f"{t:.3f}" for t in ms["eager"])
+          + f" ms); first call {capture_s:.3f} s (warm-up and capture); profiled captured run: "
+          "device busy "
+          + (f"{busy:.3f} of {window:.3f} ms, idle share {100 * idle:.1f}%, "
+             if busy is not None else "not recorded, ")
+          + f"{hits} {name} launches seen on the device, counts {launches}", flush=True)
+    return dict(rng=rng, launches=launches, sps=sps, ms=ms, idle=idle, digests=digests)
 
 
 # ------------------------------------------- the learner kernels K4, K5, K6 --
@@ -1153,6 +1333,60 @@ def work_bound(work):
             "operations": (ops["bf16"] / BF16_OPS_PER_S + ops["f32"] / F32_OPS_PER_S) * 1e3}
 
 
+def restore_into(live, saved):
+    """Copy the saved leaves' values into the live state's tensors (so that
+    the tensors a captured rollout reads stay where they are); returns the
+    live state with the saved Python numbers."""
+    from space_gym_torch.utils import checkpoint
+
+    mixed = []
+    for a, b in zip(leaves(live), saved):
+        if isinstance(a, torch.Tensor):
+            a.copy_(b)
+            mixed.append(a)
+        else:
+            mixed.append(b)
+    return checkpoint._unflatten(live, iter(mixed))
+
+
+def captured_vs_eager(tr, st, g, label, iters=3):
+    """One train_iter on the captured rollout and one on the eager loop (the
+    trainer's PolicyRollout with graph=False), from one state and generator
+    state: every leaf of the state after must be equal, bit for bit.  Then
+    ms per train_iter of each, `iters` of one and `iters` of the other, by
+    CUDA events.  Returns (state, measurements)."""
+    saved = [t.clone() if isinstance(t, torch.Tensor) else t for t in leaves(st)]
+    g0 = g.get_state()
+    out = {}
+    for how in ("captured", "eager"):
+        st = restore_into(st, saved)
+        g.set_state(g0)
+        tr.collect.graph = how == "captured"
+        st, _ = tr.train_iter(st, g)
+        torch.cuda.synchronize()
+        out[how] = [t.clone() if isinstance(t, torch.Tensor) else t for t in leaves(st)]
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(out["captured"], out["eager"]))
+    dg = {k: digest(*[t for t in v if isinstance(t, torch.Tensor)]) for k, v in out.items()}
+    print(f"  {label}: state after one train_iter from one state and generator state, "
+          f"SHA-256 captured {dg['captured']}, eager {dg['eager']}", flush=True)
+    if not same:
+        fail(f"{label}: one train_iter on the captured rollout differs from the eager loop")
+    ms = {"captured": [], "eager": []}
+    for how in ("captured", "eager", "eager", "captured"):
+        tr.collect.graph = how == "captured"
+        for _ in range(iters):
+            def one():
+                nonlocal st
+                st, _ = tr.train_iter(st, g)
+            ms[how].append(cuda_ms(one, iters=1, warmup=0))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"  {label}: train_iter median {med['captured']:.3f} ms on the captured rollout "
+          f"({', '.join(f'{t:.3f}' for t in ms['captured'])}), {med['eager']:.3f} ms on the "
+          f"eager loop ({', '.join(f'{t:.3f}' for t in ms['eager'])}), in turns", flush=True)
+    return st, med
+
+
 def train_path(dev, card, algo, fold=False, n_iters=9, kernel_ms=None):
     """The training path at full width: SACTrainer (algo "sac": fused updates
     through K4, or K5 with `fold`) or TD3Trainer (algo "td3": K6) over the
@@ -1221,7 +1455,9 @@ def train_path(dev, card, algo, fold=False, n_iters=9, kernel_ms=None):
     if moved_at != dead:
         fail(f"the learner state first changed in train_iter {moved_at}, the warm-up gate opens "
              f"in {dead}")
-    want = {name: live, "full_step": n_iters * cfg.rollout_len}
+    # the first train_iter captures the rollout: its warm-up launches K3
+    # rollout_len times eagerly, then every train_iter replays the graph
+    want = {name: live, "full_step": (n_iters + 1) * cfg.rollout_len}
     if any(v != want.get(k, 0) for k, v in launches.items()):
         fail(f"train path {label}: launches {launches}, expected {want}")
     actor_moved = max((st.actor_params[k] - ns.unpack_actor(w0, st.fused.vec, tr.obs_dim)[k])
@@ -1255,6 +1491,7 @@ def train_path(dev, card, algo, fold=False, n_iters=9, kernel_ms=None):
         st, _ = tr.train_iter(st, g)
 
     dev_ms = kernel_ms(one_iter, name.split("_")[0] + "_update_kernel", iters=3, warmup=0)
+    st, vs_eager = captured_vs_eager(tr, st, g, f"train path {label}")
 
     # the plain version and the library yardstick at the launch's shapes
     row_idx = torch.randint(0, st.replay.filled, (SAC_K * SAC_B // SAC_LANES,), generator=g,
@@ -1320,7 +1557,95 @@ def train_path(dev, card, algo, fold=False, n_iters=9, kernel_ms=None):
     return dict(launches=launches, ms=dev_ms, plain_ms=plain_ms, bound=bnd, bound_f32=bnd_f32,
                 library_ms=matmul_ms * products, library16_ms=matmul16_ms * products,
                 it_ms=it_mean, roll_ms=roll_mean,
-                upd_ms=upd_mean, sps=sps, call_ms=call_ms, peak_mb=peak_mb)
+                upd_ms=upd_mean, sps=sps, call_ms=call_ms, peak_mb=peak_mb, vs_eager=vs_eager)
+
+
+def onpolicy_path(dev, card, algo, n_iters=3):
+    """PPO (GoalContinuous2P-v0) or DQN (GoalDiscrete3-v0) at the JAX
+    trainers' default configurations, over the captured rollout: the launch
+    counts (set to 0 just before), finite metrics, parameters that moved, ms
+    per train_iter split into rollout and update, and one train_iter against
+    the eager loop bit for bit."""
+    from space_gym_torch import get_config
+    from space_gym_torch.engine import EnvEngine
+    from space_gym_torch.models.dqn import DQNConfig, DQNTrainer
+    from space_gym_torch.models.ppo import PPOConfig, PPOTrainer
+
+    if algo == "ppo":
+        tr = PPOTrainer(EnvEngine(get_config(MAIN_ENV), device=dev), PPOConfig())
+        key = "torso.layers.0.kernel"
+    else:
+        tr = DQNTrainer(EnvEngine(get_config("GoalDiscrete3-v0"), device=dev), DQNConfig())
+        key = "layers.0.kernel"
+    c = tr.cfg
+    torch.cuda.reset_peak_memory_stats()
+    st = tr.init(0)
+    g = tr.generator(1)
+    p0 = st.params[key].clone()
+    spans = []
+    inner = tr._rollout
+
+    def timed_rollout(*a, **k):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = inner(*a, **k)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    tr._rollout = timed_rollout
+    reset_launches()
+    its, metrics = [], None
+    try:
+        for _ in range(n_iters):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            st, metrics = tr.train_iter(st, g)
+            e.record()
+            its.append((s, e))
+        torch.cuda.synchronize()
+    finally:
+        del tr._rollout
+    launches = read_launches()
+    want = {"full_step": (n_iters + 1) * c.rollout_len}  # the first captures (eager warm-up)
+    if any(v != want.get(k, 0) for k, v in launches.items()):
+        fail(f"train path {algo}: launches {launches}, expected {want}")
+    last = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in last.values()) or torch.equal(p0, st.params[key]):
+        fail(f"train path {algo}: metrics {last}, parameters moved "
+             f"{not torch.equal(p0, st.params[key])}")
+    it_ms = [a.elapsed_time(b) for a, b in its][1:]
+    roll_ms = [a.elapsed_time(b) for a, b in spans][1:]
+    it_mean, roll_mean = sum(it_ms) / len(it_ms), sum(roll_ms) / len(roll_ms)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    shape = (f"lanes={c.lanes} rollout={c.rollout_len} epochs={c.epochs} "
+             f"minibatches={c.minibatches} hidden={c.hidden}" if algo == "ppo" else
+             f"lanes={c.lanes} rollout={c.rollout_len} K={c.updates_per_iter} "
+             f"B={c.batch_size} hidden={c.hidden} ring {tuple(st.replay.data.shape)}")
+    print(f"train path {algo.upper()} {tr.engine.config.env_id} {shape} on {card}: "
+          f"{n_iters} train_iters, launches {launches}; steady train_iter {it_mean:.3f} ms = "
+          f"rollout {roll_mean:.3f} ms + update {it_mean - roll_mean:.3f} ms; "
+          f"{c.lanes * c.rollout_len / (it_mean / 1e3):.6g} env-steps/s; peak device memory "
+          f"{peak_mb:.0f} MiB; last metrics {last}", flush=True)
+    st, vs_eager = captured_vs_eager(tr, st, g, f"train path {algo.upper()}", iters=1)
+    return dict(launches=launches, it_ms=it_mean, roll_ms=roll_mean, vs_eager=vs_eager)
+
+
+def bench_run(card):
+    """`python -m space_gym_torch.bench` as a user runs it; returns its line."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "space_gym_torch.bench"], cwd=HERE,
+                         capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    if out.returncode != 0 or len(lines) != 1:
+        fail(f"python -m space_gym_torch.bench: rc {out.returncode}, stdout {out.stdout[-2000:]}"
+             f" stderr {out.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    if not line["value"] > 0 or line["device_kind"] != card:
+        fail(f"bench line {line}")
+    print(f"bench ({time.perf_counter() - t0:.1f} s with the process start): {lines[0]}",
+          flush=True)
+    return line
 
 
 def sac_bits(dev, card):
@@ -1802,6 +2127,12 @@ def main():
     profile_main_path(dev, MAIN_B, "bs3", 1, 8)
     profile_main_path(dev, MAIN_B, "bs3", 1, 8, rng="philox")
 
+    # ------------------------- 4b. the captured rollout, the bench's main path --
+    rollouts = {rng: rollout_path(dev, card, rng) for rng in (False, "threefry", "philox")}
+    print("captured rollout by source of uniforms, env-steps/s captured / eager: "
+          + ", ".join(f"{RNG_NAMES[r]} {v['sps']['captured']:.6g} / {v['sps']['eager']:.6g}"
+                      for r, v in rollouts.items()), flush=True)
+
     # ----------------------------------------- 5. the other tiers' paths --
     tiers = {tier: tier_path(dev, card, MAIN_B, tier) for tier in ("env", "physics", "fixed")}
 
@@ -1816,11 +2147,17 @@ def main():
     train["td3"] = train_path(dev, card, "td3")
     print("train path by kernel: "
           + ", ".join(f"{'TD3' if f == 'td3' else f'SAC fused_fold={f}'} {r['sps']:.6g} "
-                      f"env-steps/s, train_iter {r['it_ms']:.3f} ms, kernel {r['ms']:.3f} "
+                      f"env-steps/s, train_iter {r['it_ms']:.3f} ms (eager rollout "
+                      f"{r['vs_eager']['eager']:.3f}), kernel {r['ms']:.3f} "
                       f"ms/launch" for f, r in train.items()), flush=True)
+    onpolicy = {algo: onpolicy_path(dev, card, algo) for algo in ("ppo", "dqn")}
+
+    # ------------------------------------------------ 7b. the bench entry --
+    bench = bench_run(card)
 
     # ------------------------------------------------------ 8. the lines --
-    # launches: K3, K3-tf and K3-hw from their main-path runs, K2 from the
+    # launches: K3, K3-tf and K3-hw from their captured main-path runs (a
+    # graph's launches times its replays), K2 from the
     # fuse="env" path, K1 from the fuse="physics" path.  library_ms of the two
     # in-kernel variants is torch.rand of the (B, n_u) block: the one library
     # call for the random part alone, not for the step.  K4 and K5: launches,
@@ -1845,15 +2182,17 @@ def main():
                      tiers["env"]["launches"]["env_step"],
                      k2_err, main["k2_ms"], main["k2_plain_ms"], main["k2_bound"]),
         kernel_entry("full_step", csrc + "full_step.cu", "space_gym_tpu/ops/pallas_full.py:500",
-                     main["launches"]["full_step"],
+                     rollouts[False]["launches"]["full_step"],
                      k3_err, main["k3_ms"], main["k3_plain_ms"], main["k3_bound"]),
         kernel_entry("full_step_threefry", csrc + "full_step_threefry.cu",
                      "space_gym_tpu/ops/pallas_full.py:529",
-                     tf["launches"]["full_step_threefry"], tf["k3_err"], tf["k3_ms"],
+                     rollouts["threefry"]["launches"]["full_step_threefry"], tf["k3_err"],
+                     tf["k3_ms"],
                      tf["k3_plain_ms"], tf["k3_bound"], tf["rand_ms"]),
         kernel_entry("full_step_philox", csrc + "full_step_philox.cu",
                      "space_gym_tpu/ops/pallas_full.py:518",
-                     hw["launches"]["full_step_philox"], hw["k3_err"], hw["k3_ms"],
+                     rollouts["philox"]["launches"]["full_step_philox"], hw["k3_err"],
+                     hw["k3_ms"],
                      hw["k3_plain_ms"], hw["k3_bound"], hw["rand_ms"]),
         kernel_entry("sac_update", csrc + "sac_update.cu",
                      "space_gym_tpu/models/fused_sac.py:759",
@@ -1876,6 +2215,14 @@ def main():
     ]}
     if any(k["launches"] <= 0 for k in kernels["kernels"]):
         fail(f"a kernel was launched no time on its path: {kernels}")
+    # train_iter_ms: "whole" and "rollout" are the means of the steady
+    # train_iters of the path's own run; "captured" and "eager" the medians
+    # of captured_vs_eager's runs in turns after it, in the same process
+    print(json.dumps({"bench": bench, "train_iter_ms": {
+        ("sac_fold" if f is True else "sac" if f is False else f): dict(
+            whole=r["it_ms"], rollout=r["roll_ms"], captured=r["vs_eager"]["captured"],
+            eager=r["vs_eager"]["eager"])
+        for f, r in {**train, **onpolicy}.items()}}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,13 +10,19 @@ nothing of it (nor of jax).  Public surface of this slice:
                                   through csrc/env_step.cu, csrc/fused_step.cu
                                   or plain PyTorch
   * space_gym_torch.ops         — the env kernels' wrappers and plain twins
-  * space_gym_torch.models      — the SAC learner: replay ring, networks,
-                                  SACTrainer, and the fused K-update whose
-                                  kernels are csrc/sac_update.cu and
-                                  csrc/sac_update_fold.cu (models/fused_sac.py,
-                                  plain version `update_k_reference`);
+  * space_gym_torch.models      — the learners: replay ring, networks,
+                                  SACTrainer and TD3Trainer with their fused
+                                  K-updates (csrc/sac_update.cu,
+                                  csrc/sac_update_fold.cu, csrc/td3_update.cu;
+                                  plain versions `update_k_reference`),
+                                  PPOTrainer and DQNTrainer, all collecting
+                                  through the engine's captured rollout;
                                   models/convert.py carries parameters and
                                   learner state to and from the JAX package
+  * space_gym_torch.utils       — the CUDA graph of a rollout (graphs),
+                                  checkpoints, profiling
+  * python -m space_gym_torch.train / .bench — the training CLI and the
+                                  headline benchmark
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 `device="cpu"`, where every kernel wrapper takes its plain PyTorch twin.

@@ -32,6 +32,15 @@ first and the reset second.  Only the tail tiers can step with
 `auto_reset=False`.  The first state of an episode comes from the batched
 reset in plain PyTorch (`reset`), the twin of the JAX engine's XLA reset.
 
+`rollout` runs T steps of a policy.  Under `fuse="full"` it carries K3's own
+component-major (rows, B) operands from step to step (`RowCarry`): K3's
+outputs are the next step's inputs as they stand, so the per-step
+transposes and `cat`s of `step` leave the rollout, and the state turns into
+an `EnvState` once, at the exit.  `capture_rollout` makes those T steps
+one CUDA graph (utils/graphs.py), replayed on later calls; `PolicyRollout`
+holds one for a trainer's policy, and `rollout` runs them as a loop.  The
+tail tiers keep the loop of `step`.
+
 Randomness comes from an explicit `torch.Generator`; tests may inject the
 uniforms (`u=`) or the key words (`key=`) instead, so that both engines
 consume the same stream.  `obs_features` appends analytic functions of the
@@ -59,6 +68,7 @@ from ..ops.maths import norm2, onehot_take
 from ..ops.physics_step import PhysicsStep
 from ..ops.rng_plain import key_words
 from ..tiling import device as dtiling
+from ..utils import graphs
 from ..utils.device import resolve_device
 from ..utils.randvec import RandSource
 
@@ -74,6 +84,35 @@ class EnvState(NamedTuple):
     ref_orbit: torch.Tensor         # (B, 3) [angle, ecc, a] (zeros unless Kepler)
     tiling: Optional[dtiling.TilingState]  # None unless Goal
     steps: torch.Tensor             # (B,) int32 elapsed steps this episode
+
+
+class RowCarry(NamedTuple):
+    """A rollout's carried state under fuse="full": K3's component-major
+    (rows, B) operands, contiguous, in its order (FullStep.step_rows)."""
+
+    y: torch.Tensor           # (6, B)
+    planets: torch.Tensor     # (2P, B)
+    goal: torch.Tensor        # (2, B)
+    ref_orbit: torch.Tensor   # (3, B)
+    col_shift: torch.Tensor   # (cols or 1, B)
+    tili: torch.Tensor        # (n_int_rows, B) int32: free counts, ship, goal, steps, case,
+                              # flip for Goal; steps and two zero rows otherwise
+
+
+class Trajectory(NamedTuple):
+    """A rollout's steps stacked over time, [T, B, ...].  The per-step fields
+    are None when the caller asked for no trajectory; the sums are always
+    there."""
+
+    obs: Optional[torch.Tensor]         # what the policy saw at each step
+    kept: Optional[dict]                # what the policy kept at each step ("action", ...)
+    reward: Optional[torch.Tensor]
+    terminated: Optional[torch.Tensor]
+    truncated: Optional[torch.Tensor]
+    done: Optional[torch.Tensor]
+    final_obs: Optional[torch.Tensor]   # pre-reset observation after each step
+    reward_sum: torch.Tensor            # () over steps and lanes
+    done_sum: torch.Tensor              # () int64: lane-steps that ended an episode
 
 
 class TimeStep(NamedTuple):
@@ -175,6 +214,7 @@ class EnvEngine:
         self.full = FullStep(*kernel_args, self.in_kernel_rng) if self.tier == "full" else None
         self.env_step = EnvStep(*kernel_args) if self.tier == "env" else None
         self.physics_step = PhysicsStep(*kernel_args) if self.tier == "physics" else None
+        self._action_tables = {}  # device -> the discrete action table there
         self.n_reset_rand = self._count_reset()
         self.n_step_rand = self.full.n_uniform_rows if self.full else self._count_step()
 
@@ -183,8 +223,8 @@ class EnvEngine:
         """A generator on the engine's device, seeded."""
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _uniforms(self, batch: int, n: int, generator) -> torch.Tensor:
-        return torch.rand((batch, n), generator=generator, device=self.device, dtype=self.dtype)
+    def _uniforms(self, rows: int, cols: int, generator) -> torch.Tensor:
+        return torch.rand((rows, cols), generator=generator, device=self.device, dtype=self.dtype)
 
     def draw_key(self, generator) -> torch.Tensor:
         """Two fresh 32-bit key words as the (2,) int32 tensor the kernel
@@ -208,7 +248,9 @@ class EnvEngine:
              u: torch.Tensor | None = None, key=None):
         """One env step for every lane.  Randomness: the `generator`, or the
         injected `(B, n_step_rand)` uniforms `u`, or with an in-kernel source
-        the injected `key` (two 32-bit words, see ops/rng_plain.py::key_words)."""
+        the injected `key` (two 32-bit words, see ops/rng_plain.py::key_words).
+        Under fuse="full" the generator's block is drawn as K3 reads it,
+        (n_step_rand, B): lane b takes column b."""
         if self.in_kernel_rng:
             if u is not None:
                 raise ValueError(f"in_kernel_rng={self.in_kernel_rng!r} takes key=, not u=")
@@ -216,7 +258,13 @@ class EnvEngine:
         else:
             if key is not None:
                 raise ValueError("key= needs an in-kernel random source; inject u= instead")
-            rand = self._uniforms(state.y.shape[0], self.n_step_rand, generator) if u is None else u
+            if u is not None:
+                rand = u
+            elif self.tier == "full":
+                # drawn in K3's (n_u, B) row layout, which the kernel reads as it is
+                rand = self._uniforms(self.n_step_rand, state.y.shape[0], generator).t()
+            else:
+                rand = self._uniforms(state.y.shape[0], self.n_step_rand, generator)
         if self.tier == "full":
             state, ts = self._step_full(state, raw_action, rand)
         else:
@@ -229,47 +277,17 @@ class EnvEngine:
     def _step_full(self, state: EnvState, raw_action: torch.Tensor, u: torch.Tensor):
         """The whole step through the full-step kernel; `u` is the uniforms
         block or the key words."""
-        cfg = self.config
-        batch = state.y.shape[0]
         ins = self.kernel_operands(state, self._translate_action(raw_action), u)
         yo, po, go, ro, cso, obs, fobs, rew, tio, flags = self.full.apply(*ins)
-        if cfg.task == TASK_GOAL:
-            n_tiles = cfg.tiling.n_tiles
-            tiling = dtiling.TilingState(
-                free=tio[:n_tiles].t(),
-                ship_tile=tio[n_tiles],
-                goal_tile=tio[n_tiles + 1],
-                case_b=tio[n_tiles + 3].bool(),
-                flip_xy=tio[n_tiles + 4].bool(),
-                col_shift=cso.t(),
-            )
-            steps = tio[n_tiles + 2]
-        else:
-            tiling = None
-            steps = tio[0]
-        new_state = EnvState(
-            y=yo.t(),
-            planets_pos=po.t().reshape(batch, cfg.n_planets, 2),
-            goal_pos=go.t(),
-            ref_orbit=ro.t(),
-            tiling=tiling,
-            steps=steps,
-        )
-        return new_state, TimeStep(
-            obs=obs.t(),
-            reward=rew[0],
-            terminated=flags[0].bool(),
-            truncated=flags[1].bool(),
-            done=flags[2].bool(),
-            final_obs=fobs.t(),
-        )
+        return self.from_carry(RowCarry(yo, po, go, ro, cso, tio)), _time_step(
+            obs, fobs, rew, flags)
 
-    def kernel_operands(self, state: EnvState, action_b: torch.Tensor, u: torch.Tensor):
-        """The full-step kernel's (B, rows) operands, in `FullStep.apply`
-        order, for translated actions `action_b`; `u` is the uniforms block or
-        the key words.  The integer state is packed
-        as free counts, ship tile, goal tile, steps, case, flip for Goal, and
-        as steps and two zero rows otherwise (pallas_full.py:470, :640)."""
+    def _state_operands(self, state: EnvState):
+        """The state's part of K3's operands, (B, rows) each: y, planets
+        (B, P, 2), goal, ref_orbit, col_shift and the int32 rows.  The integer
+        state is packed as free counts, ship tile, goal tile, steps, case,
+        flip for Goal, and as steps and two zero rows otherwise
+        (pallas_full.py:470, :640)."""
         batch, dev = state.y.shape[0], state.y.device
         i32 = torch.int32
         if self.config.task == TASK_GOAL:
@@ -284,23 +302,127 @@ class EnvEngine:
             z = torch.zeros((batch, 1), dtype=i32, device=dev)
             tili = torch.cat([state.steps[:, None].to(i32), z, z], dim=1)
             col_shift = torch.zeros((batch, 1), dtype=self.dtype, device=dev)
-        return (state.y, action_b, state.planets_pos, state.goal_pos, state.ref_orbit,
-                col_shift, tili, u)
+        return (state.y, state.planets_pos, state.goal_pos, state.ref_orbit, col_shift, tili)
 
-    def rollout(self, state: EnvState, obs: torch.Tensor,
-                policy_fn: Callable[[torch.Generator, torch.Tensor], torch.Tensor],
-                n_steps: int, generator: torch.Generator | None = None):
-        """Python-loop rollout: policy_fn(generator, obs (B, D)) -> raw action.
+    def kernel_operands(self, state: EnvState, action_b: torch.Tensor, u: torch.Tensor):
+        """The full-step kernel's (B, rows) operands, in `FullStep.apply`
+        order, for translated actions `action_b`; `u` is the uniforms block or
+        the key words."""
+        y, planets, goal, ref, col_shift, tili = self._state_operands(state)
+        return (y, action_b, planets, goal, ref, col_shift, tili, u)
 
-        Returns (final_state, final_obs, TimeStep stacked over time [T, B, ...])."""
-        traj = []
-        for _ in range(n_steps):
-            action = policy_fn(generator, obs)
-            state, ts = self.step(state, action, generator)
-            obs = ts.obs
-            traj.append(ts)
-        stacked = TimeStep(*[torch.stack(field) for field in zip(*traj)])
-        return state, obs, stacked
+    def to_carry(self, state: EnvState) -> RowCarry:
+        """The state as K3's contiguous (rows, B) operands."""
+        batch = state.y.shape[0]
+        return RowCarry(*[t.reshape(batch, -1).t().contiguous()
+                          for t in self._state_operands(state)])
+
+    def from_carry(self, carry: RowCarry) -> EnvState:
+        """The EnvState whose fields are (transposed) views of the rows."""
+        cfg = self.config
+        ti = carry.tili
+        if cfg.task == TASK_GOAL:
+            n_tiles = cfg.tiling.n_tiles
+            tiling = dtiling.TilingState(
+                free=ti[:n_tiles].t(),
+                ship_tile=ti[n_tiles],
+                goal_tile=ti[n_tiles + 1],
+                case_b=ti[n_tiles + 3].bool(),
+                flip_xy=ti[n_tiles + 4].bool(),
+                col_shift=carry.col_shift.t(),
+            )
+            steps = ti[n_tiles + 2]
+        else:
+            tiling = None
+            steps = ti[0]
+        return EnvState(
+            y=carry.y.t(),
+            planets_pos=carry.planets.t().reshape(-1, cfg.n_planets, 2),
+            goal_pos=carry.goal.t(),
+            ref_orbit=carry.ref_orbit.t(),
+            tiling=tiling,
+            steps=steps,
+        )
+
+    def step_carry(self, carry: RowCarry, raw_action: torch.Tensor, generator=None):
+        """One fuse="full" step on the carried rows: K3's outputs are the next
+        carry as they stand (`tio` has `tili`'s row order).  Draws what `step`
+        draws, in its order and shapes, so that both give the same bits from
+        one generator.  Returns (carry, TimeStep with (B, ...) views)."""
+        if self.in_kernel_rng:
+            u = self.draw_key(generator)
+        else:
+            u = self._uniforms(self.n_step_rand, carry.y.shape[1], generator)
+        a = self._translate_action(raw_action).t().contiguous()
+        y, p, g, r, cs, ti = carry
+        yo, po, go, ro, cso, obs, fobs, rew, tio, flags = self.full.step_rows(
+            y, a, p, g, r, cs, u, ti)
+        ts = _time_step(obs, fobs, rew, flags)
+        if self.obs_features:
+            ts = ts._replace(obs=self._augment_obs(ts.obs),
+                             final_obs=self._augment_obs(ts.final_obs))
+        return RowCarry(yo, po, go, ro, cso, tio), ts
+
+    def rollout(self, state: EnvState, obs: torch.Tensor, policy_fn: Callable, n_steps: int,
+                generator: torch.Generator | None = None, trajectory: bool = True):
+        """n_steps of `policy_fn(generator, obs (B, obs_dim))`, which returns
+        the raw action, or (raw action, dict of (B, ...) tensors to keep; its
+        "action" is kept instead of the raw action), as a loop.  Returns
+        (state after the last step, its observation, Trajectory).
+
+        Under fuse="full" the steps run on the carried rows (`step_carry`):
+        the policy sees each observation as a transposed view of K3's (D, B)
+        output.  The tail tiers loop over `step`.  `capture_rollout` makes
+        the same steps one CUDA graph."""
+        if self.tier != "full":
+            return _rollout_loop(self.step, state, obs, policy_fn, n_steps, generator, trajectory)
+        body = self._carried_rollout(policy_fn, n_steps, generator, trajectory)
+        carry, obs, traj = body(*self._carried_args(state, obs))
+        return self.from_carry(carry), obs, traj
+
+    def capture_rollout(self, policy_fn: Callable, n_steps: int, generator: torch.Generator,
+                        trajectory: bool = True):
+        """`rollout` of these arguments as one CUDA graph: returns a function
+        of (state, obs) that gives what `rollout` gives, bit for bit.  The
+        graph is captured at its first call, for that call's lane count, and
+        replayed at every later call (utils/graphs.py).  The policy reads
+        what it reads (its parameters) where it lives at each replay: its
+        owner updates it in place, and captures anew when it moves to other
+        tensors.  The generator is the graph's: its uniforms, key words and
+        the policy's draws advance it as the loop does.  Needs the card and
+        fuse="full"; a capture that fails raises."""
+        if self.tier != "full" or self.device.type != "cuda":
+            raise ValueError("a captured rollout needs the card and fuse='full', got "
+                             f"{self.device} and the {self.tier!r} tier")
+        if generator is None:
+            raise ValueError("a captured rollout draws from an explicit generator")
+        body = self._carried_rollout(policy_fn, n_steps, generator, trajectory)
+        captured = None
+
+        def run(state: EnvState, obs: torch.Tensor):
+            nonlocal captured
+            args = self._carried_args(state, obs)
+            if captured is None:
+                captured = graphs.Captured(body, args, generator)
+            carry, obs, traj = captured(*args)
+            return self.from_carry(carry), obs, traj
+
+        return run
+
+    def _carried_args(self, state: EnvState, obs: torch.Tensor):
+        """A carried rollout's arguments: the RowCarry's rows, then the raw
+        observation's (D, B) rows."""
+        return (*self.to_carry(state), obs[:, :self.config.obs_dim].t().contiguous())
+
+    def _carried_rollout(self, policy_fn, n_steps, generator, trajectory):
+        """The steps of a fuse="full" rollout as a function of
+        `_carried_args`; returns (RowCarry, observation, Trajectory)."""
+        def body(*a):
+            carry, obs0 = RowCarry(*a[:6]), a[6]
+            # the first observation, like every later one, as a view of (D, B) rows
+            return _rollout_loop(self.step_carry, carry, self._augment_obs(obs0.t()), policy_fn,
+                                 n_steps, generator, trajectory)
+        return body
 
     def random_policy(self):
         """Uniform random policy over the action space (for benchmarks)."""
@@ -357,8 +479,13 @@ class EnvEngine:
         if self.config.continuous:
             a = torch.clamp(raw_action.to(self.dtype), -1.0, 1.0)
             return torch.stack([(a[:, 0] + 1) / 2, a[:, 1]], dim=1)
-        table = torch.tensor(DISCRETE_ACTIONS, dtype=self.dtype, device=raw_action.device)
-        return onehot_take(table, raw_action.to(torch.int32))
+        # made once per device (a captured rollout's eager warm-up makes it):
+        # a tensor from a list is a host copy, which a CUDA graph cannot hold
+        dev = raw_action.device
+        if dev not in self._action_tables:
+            self._action_tables[dev] = torch.tensor(DISCRETE_ACTIONS, dtype=self.dtype,
+                                                    device=dev)
+        return onehot_take(self._action_tables[dev], raw_action.to(torch.int32))
 
     def _reset_lanes(self, rs: RandSource) -> EnvState:
         cfg = self.config
@@ -589,6 +716,81 @@ class EnvEngine:
         dist = torch.sqrt((v * v).sum(-1))
         scale = (dist - obj_radius) * 2 / self.config.world_size
         return torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1) * scale[..., None]
+
+
+class PolicyRollout:
+    """n_steps of `policy(params, generator, obs)` on `engine`, for a trainer
+    or an evaluator that rolls out the same policy again and again and
+    updates its parameters in place.  Its owner calls it as
+    `rollout(params, state, obs, generator)` and gets what
+    `EnvEngine.rollout` gives.
+
+    With `graph` (set where a graph can be made: on the card under
+    fuse="full") the steps are one CUDA graph (`EnvEngine.capture_rollout`),
+    captured at the first call and again when `params` or the generator are
+    other tensors than those of the graph (a new or a restored state): the
+    graph reads the tensors it was captured with.  It holds one graph at a
+    time.  Without it (the CPU, the tail tiers, or `graph = False` set by the
+    caller) it is the loop of `EnvEngine.rollout`.  `graph = True` where no
+    graph can be made raises."""
+
+    def __init__(self, engine: EnvEngine, policy: Callable, n_steps: int,
+                 trajectory: bool = True):
+        self.engine = engine
+        self.policy = policy
+        self.n_steps = n_steps
+        self.trajectory = trajectory
+        self.graph = engine.device.type == "cuda" and engine.tier == "full"
+        self._key = self._run = None
+
+    def __call__(self, params: dict, state: EnvState, obs: torch.Tensor,
+                 generator: torch.Generator):
+        def bound(g, o):
+            return self.policy(params, g, o)
+
+        if not self.graph:
+            return self.engine.rollout(state, obs, bound, self.n_steps, generator,
+                                       self.trajectory)
+        key = (generator, *[(t.data_ptr(), t.shape, t.stride()) for t in params.values()])
+        if key != self._key:
+            self._key = self._run = None  # frees the old graph's memory first
+            self._run = self.engine.capture_rollout(bound, self.n_steps, generator,
+                                                    self.trajectory)
+            self._key = key
+        return self._run(state, obs)
+
+
+def _time_step(obs, fobs, rew, flags) -> TimeStep:
+    """K3's (D, B) observations, (1, B) reward and (3, B) flags as a
+    TimeStep of (B, ...) views."""
+    return TimeStep(obs=obs.t(), reward=rew[0], terminated=flags[0].bool(),
+                    truncated=flags[1].bool(), done=flags[2].bool(), final_obs=fobs.t())
+
+
+def _rollout_loop(step, carry, obs, policy_fn, n_steps, generator, trajectory):
+    """The steps of a rollout: `step(carry, raw action, generator)` ->
+    (carry, TimeStep).  Returns (carry, observation, Trajectory)."""
+    rewards = dones = 0  # per lane, summed at the end: one reduction, not two a step
+    steps = []
+    for _ in range(n_steps):
+        out = policy_fn(generator, obs)
+        action, kept = out if isinstance(out, tuple) else (out, {})
+        carry, ts = step(carry, action, generator)
+        rewards = rewards + ts.reward
+        dones = dones + ts.done.to(torch.int32)
+        if trajectory:
+            steps.append((obs, {"action": action, **kept}, ts))
+        obs = ts.obs
+    reward_sum, done_sum = rewards.sum(), dones.sum()
+    if not trajectory:
+        return carry, obs, Trajectory(None, None, None, None, None, None, None, reward_sum,
+                                      done_sum)
+    kept = {k: torch.stack([s[1][k] for s in steps]) for k in steps[0][1]}
+    ts = TimeStep(*[torch.stack(f) for f in zip(*[s[2] for s in steps])])
+    return carry, obs, Trajectory(
+        obs=torch.stack([s[0] for s in steps]), kept=kept, reward=ts.reward,
+        terminated=ts.terminated, truncated=ts.truncated, done=ts.done,
+        final_obs=ts.final_obs, reward_sum=reward_sum, done_sum=done_sum)
 
 
 def _select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

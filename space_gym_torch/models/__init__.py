@@ -1,5 +1,9 @@
-"""On-device learners and their building blocks: SAC and TD3, unfused and fused."""
-from .networks import MLP, DeterministicActor, DoubleCritic, TanhGaussianActor  # noqa: F401
+"""On-device learners and their building blocks: SAC and TD3, unfused and
+fused; PPO and DQN."""
+from .dqn import DQNConfig, DQNState, DQNTrainer  # noqa: F401
+from .networks import (MLP, DeterministicActor, DoubleCritic, GaussianActorValue,  # noqa: F401
+                       TanhGaussianActor)
+from .ppo import PPOConfig, PPOState, PPOTrainer  # noqa: F401
 from .replay import (ReplayState, Transition, replay_add, replay_add_slab,  # noqa: F401
                      replay_init, replay_sample)
 from .sac import SACConfig, SACState, SACTrainer  # noqa: F401

@@ -5,7 +5,8 @@ leaves are numpy arrays (`jax.tree.map(np.asarray, tree)`), and gets such
 trees back.
 
   * flax parameter trees of `TanhGaussianActor` ("actor"),
-    `DeterministicActor` ("det_actor") and `DoubleCritic` ("critic")
+    `DeterministicActor` ("det_actor"), `DoubleCritic` ("critic"),
+    `GaussianActorValue` ("ppo") and DQN's Q network, an `MLP` ("dqn")
     (`{"params": {"MLP_0": {"Dense_0": {"kernel", "bias"}, ...}, ...}}`)
     <-> the port's parameter dicts, named like the modules' state dicts
     (`"mlp.layers.0.kernel"`, ...).  Kernels keep their (in, out) layout.
@@ -15,8 +16,11 @@ trees back.
     fused_sac (`algo="sac"`, the default) or fused_td3 (`algo="td3"`, with the
     second count `count_a`), or any object or mapping with their fields <->
     the port's tuples of the same names.  `load_learner_npz` reads a
-    fused-layout SAC learner file (the fields of FusedState and `log_alpha`,
-    as `docs/goal2p_sac_best.npz` holds them).
+    learner file: a fused-layout SAC learner (the fields of FusedState and
+    `log_alpha`, as `docs/goal2p_sac_best.npz` holds them), or flattened
+    flax parameters under "p:<path>" keys (PPO's and DQN's, as
+    `docs/goal2p_ppo_feat_best.npz` and `docs/dqn_goaldiscrete3_best.npz`
+    hold them).
 """
 from __future__ import annotations
 
@@ -40,7 +44,19 @@ _DET_ACTOR_LAYERS = (
 )
 _CRITIC_LAYERS = tuple(
     ((f"MLP_{i}", f"Dense_{j}"), f"q{i + 1}.layers.{j}") for i in range(2) for j in range(3))
-_LAYERS = {"actor": _ACTOR_LAYERS, "det_actor": _DET_ACTOR_LAYERS, "critic": _CRITIC_LAYERS}
+_PPO_LAYERS = (
+    (("MLP_0", "Dense_0"), "torso.layers.0"), (("MLP_0", "Dense_1"), "torso.layers.1"),
+    (("Dense_0",), "mean_head"), (("vf", "Dense_0"), "vf.layers.0"),
+    (("vf", "Dense_1"), "vf.layers.1"), (("vhead",), "vhead"),
+)
+_DQN_LAYERS = tuple(((f"Dense_{j}",), f"layers.{j}") for j in range(3))
+_LAYERS = {"actor": _ACTOR_LAYERS, "det_actor": _DET_ACTOR_LAYERS, "critic": _CRITIC_LAYERS,
+           "ppo": _PPO_LAYERS, "dqn": _DQN_LAYERS}
+# parameters that are not a layer's, by network: (flax name, port name)
+_LEAVES = {"ppo": (("log_std", "log_std"),)}
+# the top-level names of each network's flax tree, to tell a file's kind
+_TOP = {kind: frozenset(path[0] for path, _ in layers) | {f for f, _ in _LEAVES.get(kind, ())}
+        for kind, layers in _LAYERS.items()}
 
 
 def _tensor(a, device):
@@ -62,6 +78,8 @@ def params_from_flax(tree, kind: str, device="cpu") -> dict:
             node = node[p]
         out[name + ".kernel"] = _tensor(node["kernel"], device)
         out[name + ".bias"] = _tensor(node["bias"], device)
+    for flax_name, name in _LEAVES.get(kind, ()):
+        out[name] = _tensor(node0[flax_name], device)
     return out
 
 
@@ -74,7 +92,19 @@ def params_to_flax(params: dict, kind: str) -> dict:
             node = node.setdefault(p, {})
         node["kernel"] = params[name + ".kernel"].detach().cpu().numpy()
         node["bias"] = params[name + ".bias"].detach().cpu().numpy()
+    for flax_name, name in _LEAVES.get(kind, ()):
+        tree[flax_name] = params[name].detach().cpu().numpy()
     return {"params": tree}
+
+
+def flax_kind(tree) -> str:
+    """The network ("actor", "det_actor", "ppo" or "dqn") whose flax tree
+    this is, by its top-level names."""
+    top = frozenset(tree["params"])
+    for kind in ("actor", "det_actor", "ppo", "dqn"):
+        if top == _TOP[kind]:
+            return kind
+    raise ValueError(f"no network has the top-level parameters {sorted(top)}")
 
 
 def adam_from_optax(opt_state, kind: str | None, device="cpu") -> AdamState:
@@ -136,11 +166,36 @@ def fused_to_numpy(f):
     return type(f)(**counts, **arrays)
 
 
+def _unflatten(flat: dict) -> dict:
+    """{"p:['params']['MLP_0']['Dense_0']['bias']": array, ...} (the keys
+    `jax.tree_util.keystr` gives) -> the nested flax tree."""
+    tree: dict = {}
+    for key, value in flat.items():
+        path = [part.strip("'\"") for part in key[2:].strip("[]").split("][")]
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+    return tree
+
+
 def load_learner_npz(path, device="cpu"):
-    """A fused-layout learner file -> (FusedState, log_alpha, meta), where
-    meta holds the file's other entries (obs_dim, env_id, ...)."""
+    """A learner file -> (learner, log_alpha, meta), where meta holds the
+    file's other entries (obs_dim, env_id, ...) and "kind".  A fused-layout
+    file gives its FusedState (kind "sac", or "td3" where it has `count_a`)
+    and log_alpha (None for TD3); a file of flattened flax parameters gives
+    the port's parameter dict of the network it holds, log_alpha None, and
+    its kind ("ppo", "dqn", "actor" or "det_actor")."""
     with np.load(path, allow_pickle=False) as z:
-        fused = fused_from_numpy(z, device)
-        log_alpha = _tensor(z["log_alpha"], device)
-        meta = {k: z[k][()] for k in z.files if k not in _FUSED_ARRAYS + ("count", "log_alpha")}
-    return fused, log_alpha, meta
+        flat = {k: z[k] for k in z.files if k.startswith("p:")}
+        if flat:
+            tree = _unflatten(flat)
+            kind = flax_kind(tree)
+            meta = {k: z[k][()] for k in z.files if not k.startswith("p:")}
+            return params_from_flax(tree, kind, device), None, dict(meta, kind=kind)
+        algo = "td3" if "count_a" in z.files else "sac"
+        fused = fused_from_numpy(z, device, algo)
+        log_alpha = _tensor(z["log_alpha"], device) if "log_alpha" in z.files else None
+        meta = {k: z[k][()] for k in z.files
+                if k not in _FUSED_ARRAYS + ("count", "count_a", "log_alpha")}
+    return fused, log_alpha, dict(meta, kind=algo)

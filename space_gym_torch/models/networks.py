@@ -1,8 +1,9 @@
 """Actor and critic networks of the SAC and TD3 learners.
 
 Port of space_gym_tpu/models/networks.py (MLP, TanhGaussianActor,
-DeterministicActor, DoubleCritic, sample_tanh_gaussian).  The networks are the SB3 defaults, 2x256
-MLPs.  A `Dense` keeps its weight as `kernel` of shape (in, out), the flax
+DeterministicActor, DoubleCritic, sample_tanh_gaussian, GaussianActorValue,
+gaussian_logp).  The networks are the SB3 defaults: 2x256 MLPs, 2x64 for
+PPO.  A `Dense` keeps its weight as `kernel` of shape (in, out), the flax
 layout, so that parameters carry over between the packages without a
 transpose (models/convert.py) and slice straight out of the fused learner's
 weight matrix (fused_sac.unpack_actor, fused_td3.unpack_actor).
@@ -111,3 +112,34 @@ class DoubleCritic(nn.Module):
     def forward(self, obs, action):
         x = torch.cat([obs, action], dim=-1)
         return self.q1(x).squeeze(-1), self.q2(x).squeeze(-1)
+
+
+class GaussianActorValue(nn.Module):
+    """PPO actor-critic: a diagonal Gaussian policy with a state-independent
+    `log_std` (SB3 MlpPolicy's default) and a separate value tower, named as
+    the flax module's parameters are (MLP_0 -> torso, Dense_0 -> mean_head,
+    log_std, vf, vhead).  Returns (mean, log_std broadcast to mean's shape,
+    value)."""
+
+    def __init__(self, obs_dim: int, action_dim: int = 2, hidden: Sequence[int] = (64, 64),
+                 generator=None):
+        super().__init__()
+        self.torso = MLP(obs_dim, hidden, activate_final=True, generator=generator)
+        self.mean_head = Dense(hidden[-1], action_dim, generator)
+        self.log_std = nn.Parameter(torch.zeros(action_dim, dtype=torch.float32))
+        self.vf = MLP(obs_dim, hidden, activate_final=True, generator=generator)
+        self.vhead = Dense(hidden[-1], 1, generator)
+
+    def forward(self, obs):
+        mean = self.mean_head(self.torso(obs))
+        return mean, self.log_std.expand(mean.shape), self.value(obs)
+
+    def value(self, obs):
+        """The value tower alone (the rollout's bootstrap of final_obs)."""
+        return self.vhead(self.vf(obs))[..., 0]
+
+
+def gaussian_logp(action, mean, log_std):
+    """Diagonal Gaussian log-density, no squash (PPO clips at the env)."""
+    z = (action - mean) * torch.exp(-log_std)
+    return (-0.5 * z**2 - log_std - 0.5 * math.log(2 * math.pi)).sum(-1)

@@ -2,6 +2,11 @@
 optax.adam's arithmetic on dicts of tensors, and the train_iter loop: a
 rollout on the engine's device, a replay insert, the warm-up gate, and the
 choice of what the fused kernels sample from.
+
+The rollout is the trainer's `PolicyRollout`: one captured CUDA graph on the
+card, a loop on the CPU.  Its policy reads the actor's parameters where they
+live: views of the fused state, which K4, K5 and K6 update in place, or the
+unfused parameter tensors, which `_update_once` updates in place.
 """
 from __future__ import annotations
 
@@ -9,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..engine.core import EnvEngine
+from ..engine.core import EnvEngine, PolicyRollout
 from .fused_sac import check_kernel_width
 from .replay import (Transition, replay_add_slab, replay_sample, replay_sample_rows)
 
@@ -30,6 +35,11 @@ def _tmap(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: fn(*[t[k] for t in trees]) for k in trees[0]}
     return fn(*trees)
+
+
+def _add_(p, u):
+    """An update written into its parameter tensor in place; returns it."""
+    return p.add_(u)
 
 
 def adam_init(params) -> AdamState:
@@ -87,6 +97,8 @@ class OffPolicyTrainer:
             # only the widths its kernels are built for, said here and not at
             # the first launch
             check_kernel_width(h[0])
+        self.collect = PolicyRollout(engine, lambda params, g, obs: self.act(params, obs, g),
+                                     config.rollout_len)
 
     def generator(self, seed: int) -> torch.Generator:
         """A seeded generator on the trainer's device."""
@@ -100,23 +112,16 @@ class OffPolicyTrainer:
     def _rollout(self, state, generator):
         """Collect cfg.rollout_len steps with the behavior policy `act`; returns
         (env_state, obs, slab with (T, lanes, ...) leaves, rewards, dones)."""
-        env_state, obs = state.env_state, state.obs
-        trs, rewards, dones = [], [], []
-        for _ in range(self.cfg.rollout_len):
-            action = self.act(state.actor_params, obs, generator)
-            env_state, ts = self.engine.step(env_state, action, generator)
-            trs.append(Transition(
-                obs=obs,
-                action=action,
-                reward=self.reward_scale * ts.reward,
-                next_obs=ts.final_obs,
-                discount=1.0 - ts.terminated.to(ts.reward.dtype),
-            ))
-            rewards.append(ts.reward)
-            dones.append(ts.done)
-            obs = ts.obs
-        slab = Transition(*[torch.stack(leaf) for leaf in zip(*trs)])
-        return env_state, obs, slab, torch.stack(rewards), torch.stack(dones)
+        env_state, obs, traj = self.collect(state.actor_params, state.env_state, state.obs,
+                                            generator)
+        slab = Transition(
+            obs=traj.obs,
+            action=traj.kept["action"],
+            reward=self.reward_scale * traj.reward,
+            next_obs=traj.final_obs,
+            discount=1.0 - traj.terminated.to(traj.reward.dtype),
+        )
+        return env_state, obs, slab, traj.reward, traj.done
 
     def _fused_minibatches(self, state, generator, row_idx, batches):
         """What the fused entry points get for the K updates: (row_idx, None)

@@ -28,7 +28,7 @@ from torch.func import functional_call
 
 from ..engine.core import EnvEngine
 from . import fused_sac, networks
-from .offpolicy import AdamState, OffPolicyTrainer, _tmap, adam_init, adam_update
+from .offpolicy import AdamState, OffPolicyTrainer, _add_, _tmap, adam_init, adam_update
 from .replay import ReplayState, Transition, nstep_slab, replay_init, replay_sample
 
 
@@ -173,9 +173,11 @@ class SACTrainer(OffPolicyTrainer):
         return (alpha * logp - torch.minimum(q1, q2)).mean(), logp
 
     def _update_once(self, state: SACState, generator=None, batch=None, noise=None):
-        """One unfused update: torch.autograd and `adam_update`.  `batch`
-        (Transition with (B, ...) leaves) and `noise` ((B, 2, A) normals, [:, 0]
-        for the critic's next action, [:, 1] for the actor's) may be injected."""
+        """One unfused update: torch.autograd and `adam_update`, written into
+        the parameter tensors and log_alpha in place (the rollout's captured
+        graph reads the actor where it lives).  `batch` (Transition with
+        (B, ...) leaves) and `noise` ((B, 2, A) normals, [:, 0] for the
+        critic's next action, [:, 1] for the actor's) may be injected."""
         c = self.cfg
         if batch is None:
             batch = replay_sample(state.replay, generator, c.batch_size)
@@ -190,13 +192,13 @@ class SACTrainer(OffPolicyTrainer):
         critic_loss = self._critic_loss(cp, state, batch, noise[:, 0])
         grads = dict(zip(cp, torch.autograd.grad(critic_loss, list(cp.values()))))
         upd, critic_opt = adam_update(grads, state.critic_opt, c.lr)
-        critic_params = _tmap(lambda p, u: p.detach() + u, state.critic_params, upd)
+        critic_params = _tmap(_add_, state.critic_params, upd)
 
         ap = with_grad(state.actor_params)
         actor_loss, logp = self._actor_loss(ap, state, critic_params, batch, noise[:, 1])
         grads = dict(zip(ap, torch.autograd.grad(actor_loss, list(ap.values()))))
         upd, actor_opt = adam_update(grads, state.actor_opt, c.lr)
-        actor_params = _tmap(lambda p, u: p.detach() + u, state.actor_params, upd)
+        actor_params = _tmap(_add_, state.actor_params, upd)
 
         # temperature toward the target entropy: d/d log_alpha of
         # mean(-log_alpha * (logp + target_entropy))
@@ -205,8 +207,9 @@ class SACTrainer(OffPolicyTrainer):
         log_alpha = state.log_alpha + upd
         if c.alpha_floor > 0:
             log_alpha = torch.clamp(log_alpha, min=math.log(c.alpha_floor))
+        log_alpha = state.log_alpha.copy_(log_alpha)
 
-        target = _tmap(lambda t, p: t * (1 - c.tau) + p * c.tau,
+        target = _tmap(lambda t, p: t.copy_(t * (1 - c.tau) + p * c.tau),
                        state.target_critic_params, critic_params)
         state = state._replace(
             actor_params=actor_params, critic_params=critic_params,

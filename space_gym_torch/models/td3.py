@@ -28,7 +28,7 @@ from torch.func import functional_call
 
 from ..engine.core import EnvEngine
 from . import fused_td3, networks
-from .offpolicy import AdamState, OffPolicyTrainer, _tmap, adam_init, adam_update
+from .offpolicy import AdamState, OffPolicyTrainer, _add_, _tmap, adam_init, adam_update
 from .replay import ReplayState, Transition, replay_init, replay_sample
 
 
@@ -170,9 +170,10 @@ class TD3Trainer(OffPolicyTrainer):
         return -q1.mean()
 
     def _update_once(self, state: TD3State, generator=None, batch=None, noise=None):
-        """One unfused update: torch.autograd and `adam_update`.  `batch`
-        (Transition with (B, ...) leaves) and `noise` ((B, A) smoothing
-        normals) may be injected."""
+        """One unfused update: torch.autograd and `adam_update`, written into
+        the parameter tensors in place (the rollout's captured graph reads
+        the actor where it lives).  `batch` (Transition with (B, ...) leaves)
+        and `noise` ((B, A) smoothing normals) may be injected."""
         c = self.cfg
         if batch is None:
             batch = replay_sample(state.replay, generator, c.batch_size)
@@ -187,7 +188,7 @@ class TD3Trainer(OffPolicyTrainer):
         critic_loss = self._critic_loss(cp, state, batch, noise)
         grads = dict(zip(cp, torch.autograd.grad(critic_loss, list(cp.values()))))
         upd, critic_opt = adam_update(grads, state.critic_opt, c.lr)
-        critic_params = _tmap(lambda p, u: p.detach() + u, state.critic_params, upd)
+        critic_params = _tmap(_add_, state.critic_params, upd)
 
         ap = with_grad(state.actor_params)
         actor_loss = self._actor_loss(ap, critic_params, batch)
@@ -199,10 +200,10 @@ class TD3Trainer(OffPolicyTrainer):
         if state.n_updates % c.policy_delay == 0:
             grads = dict(zip(ap, torch.autograd.grad(actor_loss, list(ap.values()))))
             upd, actor_opt = adam_update(grads, state.actor_opt, c.lr)
-            actor_params = _tmap(lambda p, u: p.detach() + u, state.actor_params, upd)
+            actor_params = _tmap(_add_, state.actor_params, upd)
 
             def polyak(t, p):
-                return _tmap(lambda ti, pi: ti * (1 - c.tau) + pi * c.tau, t, p)
+                return _tmap(lambda ti, pi: ti.copy_(ti * (1 - c.tau) + pi * c.tau), t, p)
 
             target_actor = polyak(target_actor, actor_params)
             target_critic = polyak(target_critic, critic_params)

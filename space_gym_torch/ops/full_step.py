@@ -22,7 +22,7 @@ import functools
 import torch
 
 from ..envs.config import TASK_GOAL
-from ..utils import cuda_build
+from ..utils import cuda_build, graphs
 from . import rng_plain
 from .full_step_plain import count_uniform_rows, cs_rows, int_rows, make_full_step_plain
 from .kernel_params import TABLEAU_IDS, TASK_IDS, full_params
@@ -74,7 +74,9 @@ class FullStep:
     "threefry" (or True) and "philox" compute them in the kernel from two key
     words.  `launches` counts kernel launches (never plain-twin calls) over
     all instances and modes, `launches_by_rng` the same per mode; callers
-    reset them with `reset_launches()` to count one run.
+    reset them with `reset_launches()` to count one run.  A launch made
+    while a CUDA graph is captured is counted by the graph, once a replay
+    (utils/graphs.py), not here.
     """
 
     launches = 0
@@ -224,6 +226,7 @@ class FullStep:
             )
         if err != 0:
             raise RuntimeError(f"full_step kernel launch failed: error {err}")
-        FullStep.launches += 1
-        FullStep.launches_by_rng[self.rng] += 1
+        if graphs.note_launch(RNG_MODES[self.rng][0]):
+            FullStep.launches += 1
+            FullStep.launches_by_rng[self.rng] += 1
         return tuple(outs)

@@ -642,3 +642,172 @@ def test_cuda_td3_trainer_launches_its_kernel_every_live_iteration():
     st2, m2 = tr2.train_iter(tr2.init(0), tr2.generator(2))
     assert fused_td3.LAUNCHES["td3_update"] == before + 4
     assert np.isfinite(float(m2["critic_loss"]))
+
+
+def _same_leaves(a, b):
+    from space_gym_torch.utils import checkpoint
+
+    la, lb = checkpoint._flatten(a, []), checkpoint._flatten(b, [])
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", [False, "threefry", "philox"], ids=["bulk", "threefry", "philox"])
+@pytest.mark.parametrize("env_id", ["GoalContinuous2P-v0", "GoalDiscrete3-v0"])
+def test_cuda_captured_rollout_equals_the_eager_loop_bitwise(env_id, rng):
+    """The rollout captured into one CUDA graph (`capture_rollout`) against
+    the same steps run eagerly (`rollout`) and against the loop of `step`,
+    from one generator state: every observation, reward and flag, the state
+    after, the generator after; a second replay from the same state gives
+    the same; a replay counts K3's launches once each (utils/graphs.py)."""
+    from space_gym_torch.utils import graphs
+
+    _need_card()
+    eng = EnvEngine(get_config(env_id), in_kernel_rng=rng)
+    g = eng.generator(4)
+    policy = eng.random_policy()
+    state, obs = eng.init(1000, g)
+    state = state._replace(steps=state.steps + get_config(env_id).max_episode_steps - 4)
+    g0 = g.get_state()
+    captured = eng.capture_rollout(policy, 8, g)
+    runs = []
+    for how in ("captured", "eager", "captured"):
+        g.set_state(g0)
+        out = (captured(state, obs) if how == "captured"
+               else eng.rollout(state, obs, policy, 8, g))
+        runs.append((*out, g.get_state()))
+    g.set_state(g0)
+    s, o, obs_l, ts_l = state, obs, [], []
+    for _ in range(8):
+        obs_l.append(o)
+        s, ts = eng.step(s, policy(g, o), g)
+        o = ts.obs
+        ts_l.append(ts)
+    for st, ob, traj, gen in runs:
+        assert _same_leaves(st, s) and torch.equal(ob, o) and torch.equal(gen, g.get_state())
+        assert torch.equal(traj.obs, torch.stack(obs_l))
+        for name in ("reward", "terminated", "truncated", "done", "final_obs"):
+            assert torch.equal(getattr(traj, name), torch.stack([getattr(t, name) for t in ts_l]))
+    assert runs[0][2].truncated.any()
+    name = {False: "full_step", "threefry": "full_step_threefry", "philox": "full_step_philox"}
+    graphs.reset_launches()
+    captured(state, obs)
+    assert graphs.REPLAYED == {name[rng]: 8}
+
+
+@pytest.mark.cuda
+def test_cuda_capture_needs_an_explicit_generator():
+    _need_card()
+    eng = EnvEngine(get_config("GoalContinuous2P-v0"))
+    with pytest.raises(ValueError, match="explicit generator"):
+        eng.capture_rollout(eng.random_policy(), 2, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(fuse="env"), dict(fuse="physics"), dict(physics="fixed")],
+                         ids=["env", "physics", "fixed"])
+def test_cuda_tail_tiers_roll_out_and_train_through_step(kw):
+    """On the card the tail tiers loop over `step`: a rollout equals the
+    loop of `step` from one generator state, what a trainer holds takes no
+    graph, and a SAC train_iter and an evaluation on such an engine run."""
+    from space_gym_torch.train import Evaluator
+
+    _need_card()
+    eng = EnvEngine(get_config("GoalContinuous2P-v0"), **kw)
+    g = eng.generator(2)
+    policy = eng.random_policy()
+    state, obs = eng.init(64, g)
+    g0 = g.get_state()
+    s1, o1, traj = eng.rollout(state, obs, policy, 3, g)
+    g.set_state(g0)
+    s2, o2 = state, obs
+    for t in range(3):
+        assert torch.equal(traj.obs[t], o2)
+        s2, ts = eng.step(s2, policy(g, o2), g)
+        o2 = ts.obs
+    assert _same_leaves(s1, s2) and torch.equal(o1, o2)
+    with pytest.raises(ValueError, match="captured rollout"):
+        eng.capture_rollout(policy, 3, g)
+    tr = SACTrainer(eng, SACConfig(lanes=64, rollout_len=4, replay_rows=8, batch_size=128,
+                                   updates_per_iter=1, warmup_rows=4))
+    assert tr.collect.graph is False
+    st, m = tr.train_iter(tr.init(0), tr.generator(1))
+    assert st.step == 1 and all(np.isfinite(float(v)) for v in m.values())
+    total, n = Evaluator(tr, 8, tr.generator(3), lanes=16)(st.actor_params)
+    assert np.isfinite(total) and n >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["sac", "td3"])
+def test_cuda_unfused_updates_reach_the_captured_rollout(algo):
+    """The unfused SAC and TD3 updates write the actor in place, and the
+    rollout's graph reads it there: three train_iters on the captured
+    rollout equal three on the eager loop, every state leaf, bit for bit."""
+    _need_card()
+    shape = dict(lanes=512, rollout_len=4, replay_rows=16, batch_size=1024, updates_per_iter=2,
+                 warmup_rows=4)
+    runs = []
+    for graph in (True, False):
+        eng = EnvEngine(get_config("GoalContinuous2P-v0"))
+        tr = (SACTrainer(eng, SACConfig(**shape)) if algo == "sac"
+              else TD3Trainer(eng, TD3Config(fused_updates=False, **shape)))
+        tr.collect.graph = graph
+        st, g = tr.init(0), tr.generator(1)
+        actor0 = {k: v.clone() for k, v in st.actor_params.items()}
+        for _ in range(3):
+            st, m = tr.train_iter(st, g)
+        assert not _same_leaves(actor0, st.actor_params)
+        runs.append(st)
+    assert _same_leaves(*runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["ppo", "dqn"])
+def test_cuda_onpolicy_and_dqn_train_iters_are_finite(algo):
+    """A PPO and a DQN train_iter on the card over the captured rollout,
+    finite, parameters moved, and one train_iter on the eager loop from the
+    same state and generator state equal bit for bit."""
+    from space_gym_torch.models.dqn import DQNConfig, DQNTrainer
+    from space_gym_torch.models.ppo import PPOConfig, PPOTrainer
+
+    _need_card()
+    if algo == "ppo":
+        tr = PPOTrainer(EnvEngine(get_config("GoalContinuous2P-v0")),
+                        PPOConfig(lanes=512, rollout_len=8, epochs=2, minibatches=4))
+    else:
+        tr = DQNTrainer(EnvEngine(get_config("GoalDiscrete3-v0")),
+                        DQNConfig(lanes=512, rollout_len=4, replay_rows=16, batch_size=1024,
+                                  updates_per_iter=2, warmup_rows=4))
+    st = tr.init(0)
+    g = tr.generator(1)
+    k0 = next(iter(st.params))
+    p0 = st.params[k0].clone()
+    st, m = tr.train_iter(st, g)
+    assert all(np.isfinite(float(v)) for v in m.values()) and not torch.equal(p0, st.params[k0])
+    params = {k: v.clone() for k, v in st.params.items()}
+    g0 = g.get_state()
+    captured, _ = tr.train_iter(st._replace(params={k: v.clone() for k, v in params.items()}), g)
+    g.set_state(g0)
+    tr.collect.graph = False
+    eager, _ = tr.train_iter(st._replace(params={k: v.clone() for k, v in params.items()}), g)
+    assert _same_leaves(captured.params, eager.params) and _same_leaves(captured.env_state,
+                                                                         eager.env_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,physics", [("sac", "fixed"), ("td3", "kernel")])
+def test_cuda_cli_trains_on_the_card(tmp_path, algo, physics):
+    """`python -m space_gym_torch.train` on its default device, the card: two
+    train_iters and an evaluation, on a tail tier (the step loop) and on the
+    captured rollout with the fused TD3 kernel."""
+    from .test_torch_train_cli import TINY, run_module
+
+    _need_card()
+    args = [a for a in TINY if a not in ("--device", "cpu")]
+    lines = run_module("space_gym_torch.train",
+                       args + ["--algo", algo, "--physics", physics], tmp_path)
+    iters = [d for d in lines if "env_steps" in d]
+    assert [d["iter"] for d in iters] == [1, 2]
+    assert all(np.isfinite(d["mean_reward"]) for d in iters)
+    assert any("eval_mean_return" in d for d in lines)

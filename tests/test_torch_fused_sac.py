@@ -298,7 +298,7 @@ def test_update_once_matches_flax_and_optax():
         critic_params=convert.params_from_flax(np_tree(jst.critic_params), "critic"),
         target_critic_params=convert.params_from_flax(np_tree(jst.target_critic_params),
                                                       "critic"),
-        log_alpha=torch.as_tensor(np.asarray(jst.log_alpha)),
+        log_alpha=torch.tensor(np.asarray(jst.log_alpha)),  # owned: updated in place
         actor_opt=convert.adam_from_optax(np_tree(jst.actor_opt), "actor"),
         critic_opt=convert.adam_from_optax(np_tree(jst.critic_opt), "critic"),
         alpha_opt=convert.adam_from_optax(np_tree(jst.alpha_opt), None),
