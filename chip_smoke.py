@@ -30,6 +30,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      set to 0 before: fuse="env" (K2), fuse="physics" (K1) and
      physics="fixed" (no kernel), each held against fuse="full" from the same
      states and uniforms on live lanes that did not reach their goal;
+  5b. physics="adaptive" (float64, no kernel) at B=4096 and 65536 for 8
+     steps on given uniforms, the first 512 lanes of each step held against
+     the CPU engine from the same state (flags equal, states within 1e-10),
+     with ms per step, outer solver steps per lane, lanes through Brent's
+     method and host reads per step, then one float32 step at B=262144;
+     the adapters: make("GoalContinuous2P-v0") on the card over the golden
+     single steps (atol 1e-10), and VectorEnv at 4096 and 262144 envs under
+     physics="kernel" (one K3 launch a step, counted and seen by the
+     profiler) and "fixed", with ms per step and the NumPy boundary's share;
   6. the learner kernels K4 (csrc/sac_update.cu) and K5
      (csrc/sac_update_fold.cu) against their plain version
      `update_k_reference` on the card at K=4, B=8192, H=256, from gathered
@@ -147,10 +156,23 @@ TOL_TIER_REWARD = (1e-3, TOL_REWARD)  # rtol, atol
 TIER_STEPS = 8
 # Steps run before a timed window, so that clocks and caches settle.
 WARMUP_STEPS = 32
+# physics="adaptive" on the card against the same engine on the CPU (both
+# float64, plain PyTorch): the card's libm differs from glibc's by ulps
+ADAPTIVE_STEPS = 8
+ADAPTIVE_BATCHES = (4096, 65536)
+ADAPTIVE_CHECK_LANES = 512
+TOL_ADAPTIVE = 1e-10
+# make(...) on the card against the golden single-step tier
+# (tests/test_golden_parity.py::test_single_step_device_physics)
+TOL_GOLDEN = 1e-10
+VEC_STEPS = 8
+VEC_BATCHES = (4096, MAIN_B)
 
 
 def fail(msg: str):
+    # on both streams: a caller that keeps only the end of one still sees why
     print(f"FAILED: {msg}", flush=True)
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -817,6 +839,226 @@ def tier_path(dev, card, B, tier, n_steps=TIER_STEPS):
     return dict(launches=launches, ms_step=tier_ms / n_steps)
 
 
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def adaptive_path(dev, card, batches=ADAPTIVE_BATCHES, n_steps=ADAPTIVE_STEPS,
+                  check_lanes=ADAPTIVE_CHECK_LANES, wide=MAIN_B):
+    """physics="adaptive" (ops/rk45.py::solve_step under the tail; no kernel)
+    on the card in float64 at each batch size for `n_steps` steps of a random
+    policy on given uniforms, the launch counts set to 0 before and read
+    after (no kernel may launch); one lane in 16 starts on a crash course, so
+    that Brent's method runs.  At each step the first `check_lanes`
+    lanes are held against the same engine on the CPU from the card's
+    pre-step state with the same actions and uniforms: flags equal, state
+    and observations within TOL_ADAPTIVE.  Then one float32 step at the main
+    path's width.  Prints ms per step (host clock: the solver reads its loop
+    conditions on the host), the outer steps per lane, the lanes that ran
+    Brent's method and the host reads per step."""
+    from space_gym_torch import get_config
+    from space_gym_torch.engine import EnvEngine
+
+    cfg = get_config(MAIN_ENV)
+    out = {}
+    for B in batches:
+        eng = EnvEngine(cfg, physics="adaptive", dtype=torch.float64, device=dev)
+        cpu = EnvEngine(cfg, physics="adaptive", dtype=torch.float64, device="cpu")
+        rng = np.random.default_rng(B)
+        state, _ = eng.reset(B, u=torch.as_tensor(rng.random((B, eng.n_reset_rand)), device=dev))
+        state = state._replace(y=crash_course(cfg, state, every=16))
+        reset_launches()
+        ms, outer_mean, outer_max, brent, syncs = [], [], [], 0, 0
+        worst = 0.0
+        for _ in range(n_steps):
+            act = torch.as_tensor(rng.uniform(-1, 1, (B, 2)), device=dev)
+            u = torch.as_tensor(rng.random((B, eng.n_step_rand)), device=dev)
+            pre = state
+            sync(dev)
+            t0 = time.perf_counter()
+            state, ts = eng.step(state, act, u=u)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            st = eng.solve_stats
+            n = st["n_steps"].double()
+            outer_mean.append(n.mean().item())
+            outer_max.append(int(n.max().item()))
+            brent += st["brent_lanes"]
+            syncs += st["syncs"]
+            # the CPU from the card's pre-step state, on the first lanes
+            k = check_lanes
+            pre_c = first_lanes(pre, k)
+            sc, tc = cpu.step(pre_c, act[:k].cpu(), u=u[:k].cpu())
+            for f in ("terminated", "truncated", "done"):
+                if not torch.equal(getattr(ts, f)[:k].cpu(), getattr(tc, f)):
+                    fail(f"adaptive B={B}: {f} flags differ between the card and the CPU")
+            for got, want in ((state.y[:k], sc.y), (ts.obs[:k], tc.obs),
+                              (ts.final_obs[:k], tc.final_obs)):
+                worst = max(worst, (got.cpu() - want).abs().max().item())
+            if not worst <= TOL_ADAPTIVE:
+                fail(f"adaptive B={B}: the card and the CPU differ by {worst:.3g}")
+            if not torch.isfinite(state.y).all():
+                fail(f"adaptive B={B}: a state is not finite (a failed solve)")
+        launches = read_launches()
+        if any(launches.values()):
+            fail(f"adaptive B={B}: a kernel was launched: {launches}")
+        if brent < B // 16:
+            fail(f"adaptive B={B}: only {brent} lanes ran Brent's method; the {B // 16} on a "
+                 f"crash course should have")
+        ms_med = float(np.median(ms))
+        print(f"adaptive {MAIN_ENV} float64 B={B} on {card}: {ms_med:.3f} ms/step (median of "
+              f"{n_steps}; {', '.join(f'{m:.3f}' for m in ms)}), outer steps per lane mean "
+              f"{np.mean(outer_mean):.4f} max {max(outer_max)}, lanes through Brent "
+              f"{brent / n_steps:.1f}/step, host reads {syncs / n_steps:.1f}/step; first "
+              f"{check_lanes} lanes against the CPU: flags equal, max|err| {worst:.3g}; "
+              f"launches {launches}", flush=True)
+        out[B] = dict(ms_step=ms_med, outer_mean=float(np.mean(outer_mean)),
+                      outer_max=max(outer_max), brent_per_step=brent / n_steps,
+                      syncs_per_step=syncs / n_steps, max_abs_err=worst)
+    eng = EnvEngine(cfg, physics="adaptive", dtype=torch.float32, device=dev)
+    g = eng.generator(3)
+    policy = eng.random_policy()
+    state, obs = eng.init(wide, g)
+    times = []
+    for _ in range(2):  # the first step also settles the allocator
+        sync(dev)
+        t0 = time.perf_counter()
+        state, ts = eng.step(state, policy(g, obs), g)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        obs = ts.obs
+    if not (torch.isfinite(state.y).all() and torch.isfinite(ts.obs).all()):
+        fail("adaptive float32: a state or observation is not finite")
+    st = eng.solve_stats
+    print(f"adaptive {MAIN_ENV} float32 B={wide} on {card}: {times[1]:.3f} ms/step (first step "
+          f"{times[0]:.3f}), outer steps per lane max {int(st['n_steps'].max())}, host reads "
+          f"{st['syncs']}", flush=True)
+    out["float32"] = dict(B=wide, ms_step=times[1], syncs=st["syncs"])
+    return out
+
+
+def crash_course(cfg, state, every):
+    """The state's y with every `every`-th lane (from lane 1) just outside
+    planet 0 and flying into it, so that its first step ends at an event."""
+    y = state.y.clone()
+    crash = torch.arange(y.shape[0], device=y.device) % every == 1
+    p0 = state.planets_pos[crash, 0]
+    y[crash, 0] = p0[:, 0] + cfg.planet_radii[0] + 0.02
+    y[crash, 1] = p0[:, 1]
+    y[crash, 3] = -2.0
+    y[crash, 4] = 0.0
+    return y
+
+
+def first_lanes(state, k):
+    """The first k lanes of a state (NamedTuples of tensors), on the CPU."""
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return type(state)(*[first_lanes(v, k) for v in state])
+    return state[:k].cpu()
+
+
+def golden_steps(env, env_id):
+    """ep0 of the recorded episode of `env_id` (tests/goldens/, seed 42),
+    each step from its recorded pre-step state through `env`: returns the
+    largest state error and the ms per step on the host clock."""
+    g = np.load(os.path.join(HERE, "tests", "goldens", f"{env_id}.npz"))
+    p = "ep0_"
+    np.random.seed(int(g["seed"]))
+    env.seed(int(g["seed"]))
+    env.reset()
+    env.planets_pos = g[p + "reset_planets"]
+    worst, n = 0.0, len(g[p + "actions"])
+    t0 = time.perf_counter()
+    for t in range(n):
+        env._state_vec = g[p + "pre_states"][t].copy()
+        env.goal_pos = (g[p + "reset_goal"] if t == 0 else g[p + "goals"][t - 1]).copy()
+        env._elapsed_steps = 0
+        _, _, done, _ = env.step(g[p + "actions"][t])
+        if done != (bool(g[p + "dones"][t]) and not bool(g[p + "truncated"][t])):
+            fail(f"make({env_id!r}): done differs from the golden at step {t}")
+        worst = max(worst, float(np.abs(env._state_vec - g[p + "post_states"][t]).max()))
+    return worst, (time.perf_counter() - t0) * 1e3 / n, n
+
+
+def adapter_path(dev, card, batches=VEC_BATCHES, n_steps=VEC_STEPS, profile=True):
+    """The adapters on the card.  make("GoalContinuous2P-v0") (physics=
+    "device": solve_step on one float64 lane) over the recorded golden steps
+    at TOL_GOLDEN; then VectorEnv at each width under physics="kernel" (K3,
+    one launch a step: the counts set to 0 before and read after, and seen
+    by the profiler) and "fixed" (no kernel), with ms per `step` and the
+    share of it spent at the NumPy boundary (the copies and the `infos`
+    list, timed apart from the engine's step in a second run of the steps)."""
+    import space_gym_torch
+
+    env = space_gym_torch.make(MAIN_ENV, device=dev)
+    if env.device != torch.device(dev):
+        fail(f"make ran on {env.device}, not {dev}")
+    reset_launches()
+    worst, ms_golden, n_golden = golden_steps(env, MAIN_ENV)
+    launches = read_launches()
+    if not worst <= TOL_GOLDEN or any(launches.values()):
+        fail(f"make({MAIN_ENV!r}) on the card: golden steps max|err| {worst:.3g}, launches "
+             f"{launches}")
+    print(f"make {MAIN_ENV} physics='device' on {card}: {n_golden} golden steps, max|err| "
+          f"{worst:.3g} (tolerance {TOL_GOLDEN}), {ms_golden:.3f} ms/step", flush=True)
+    out = {"make": dict(ms_step=ms_golden, max_abs_err=worst, steps=n_golden)}
+    for physics in ("kernel", "fixed"):
+        for B in batches:
+            venv = space_gym_torch.VectorEnv(MAIN_ENV, num_envs=B, physics=physics, device=dev)
+            rng = np.random.default_rng(B)
+            acts = [rng.uniform(-1, 1, (B, 2)).astype(np.float32) for _ in range(n_steps)]
+            venv.reset()
+            venv.step(acts[0])  # builds and loads the kernel
+            sync(dev)
+            reset_launches()
+            t0 = time.perf_counter()
+            for a in acts:
+                obs, rewards, dones, infos = venv.step(a)
+            total = (time.perf_counter() - t0) * 1e3 / n_steps
+            launches = read_launches()
+            want = n_steps if physics == "kernel" else 0
+            if launches["full_step"] != want or sum(launches.values()) != want:
+                fail(f"VectorEnv physics={physics!r} B={B}: launches {launches} in {n_steps} "
+                     f"steps")
+            if not (np.isfinite(obs).all() and len(infos) == B
+                    and all(("terminal_observation" in i) == d for i, d in zip(infos, dones))):
+                fail(f"VectorEnv physics={physics!r} B={B}: outputs or infos are wrong")
+            # the same steps in their parts: the actions' upload, the
+            # engine's step, the copies back and the infos list
+            eng, state, g = venv.engine, venv._state, venv._generator
+            parts = np.zeros(3)
+            for a in acts:
+                sync(dev)
+                t0 = time.perf_counter()
+                at = torch.as_tensor(a, device=dev)
+                sync(dev)
+                t1 = time.perf_counter()
+                state, ts = eng.step(state, at, g)
+                sync(dev)
+                t2 = time.perf_counter()
+                venv._to_host(ts)
+                parts += (t1 - t0, t2 - t1, time.perf_counter() - t2)
+            engine_ms = float(parts[1] * 1e3 / n_steps)
+            share = float((parts[0] + parts[2]) / parts.sum())
+            hits = None
+            if physics == "kernel" and profile:
+                _, _, hits, counted = counted_window(lambda: [venv.step(a) for a in acts],
+                                                     "full_step_kernel", n_steps, top=3)
+                if hits != n_steps or counted["full_step"] != hits:
+                    fail(f"VectorEnv physics='kernel' B={B}: the profiler saw {hits} K3 launches "
+                         f"in {n_steps} steps, the counts say {counted}")
+            print(f"VectorEnv physics={physics!r} {MAIN_ENV} B={B} on {card}: {total:.4f} "
+                  f"ms/step, engine alone {engine_ms:.4f} ms/step, NumPy boundary "
+                  f"{100 * share:.1f}% of a step; launches {launches}"
+                  + (f", profiler: {hits} K3 launches" if hits is not None else ""), flush=True)
+            out[f"{physics}_{B}"] = dict(ms_step=total, engine_ms=engine_ms, boundary=share,
+                                         launches=launches["full_step"])
+    return out
+
+
 def profile_main_path(dev, B, tab, sub, ref, rng=False, n_steps=8, top=10):
     """Device time by kernel over a short window of the main path with K3's
     uniforms from `rng` (torch.profiler, CUDA activity); prints the largest
@@ -917,6 +1159,24 @@ def device_window(fn, kernel, n_steps, top=8):
     return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3, hits
 
 
+def counted_window(fn, kernel, n_steps, tries=3, top=8):
+    """device_window of fn(), which should launch the kernel whose name
+    contains `kernel` n_steps times, with the launch counts set to 0 just
+    before and read just after.  The profiler's buffer may drop events
+    (kernel_device_ms): a window in which it saw fewer launches is taken
+    again, up to `tries` windows.  Returns (busy, window, hits, launches) of
+    the last window."""
+    for attempt in range(tries):
+        reset_launches()
+        busy, window, hits = device_window(fn, kernel, n_steps, top)
+        launches = read_launches()
+        if hits >= n_steps:
+            break
+        print(f"  the profiler saw {hits} of {n_steps} launches of {kernel} (window "
+              f"{attempt + 1} of {tries})", flush=True)
+    return busy, window, hits, launches
+
+
 def rollout_path(dev, card, rng, B=MAIN_B, n_steps=256):
     """The main path as the bench runs it: EnvEngine.capture_rollout of the
     random policy at B lanes, BS3 x 1 / refine 8, K3's uniforms from `rng`,
@@ -989,9 +1249,7 @@ def rollout_path(dev, card, rng, B=MAIN_B, n_steps=256):
     print(f"profile of a captured rollout, {MAIN_ENV} B={B} uniforms by {RNG_NAMES[rng]}, "
           f"{n_steps} steps (profiler on), device time by kernel:", flush=True)
     name = K3_NAMES[rng]
-    reset_launches()
-    busy, window, hits = device_window(lambda: run(True), "full_step_kernel", n_steps)
-    launches = read_launches()
+    busy, window, hits, launches = counted_window(lambda: run(True), "full_step_kernel", n_steps)
     if hits != n_steps or launches[name] != hits or sum(launches.values()) != hits:
         fail(f"captured rollout of {n_steps} steps: the profiler saw {hits} {name} launches on "
              f"the device, the counts say {launches}")
@@ -2136,6 +2394,10 @@ def main():
     # ----------------------------------------- 5. the other tiers' paths --
     tiers = {tier: tier_path(dev, card, MAIN_B, tier) for tier in ("env", "physics", "fixed")}
 
+    # --------------------- 5b. the adaptive tier and the adapters on the card --
+    adaptive = adaptive_path(dev, card)
+    adapters = adapter_path(dev, card)
+
     # ------------------------------- 6. the learner kernels vs plain version --
     k4_errs, k4_results = check_k4(dev)
     k5_errs = check_k5(dev, k4_results)
@@ -2223,6 +2485,7 @@ def main():
             whole=r["it_ms"], rollout=r["roll_ms"], captured=r["vs_eager"]["captured"],
             eager=r["vs_eager"]["eager"])
         for f, r in {**train, **onpolicy}.items()}}), flush=True)
+    print(json.dumps({"adaptive": adaptive, "adapters": adapters}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

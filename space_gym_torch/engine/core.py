@@ -23,7 +23,11 @@ same step, from most to least of it in one CUDA kernel:
     (`pallas_fuse="physics"`).
   * `physics="fixed"`: no kernel; the fixed-substep Dormand-Prince integrator
     in plain PyTorch (ops/fixed_rk.py) and the tail (`physics="fixed"`).
-    `physics="adaptive"` (the scipy-faithful RK45) is not ported yet.
+  * `physics="adaptive"`: no kernel (the JAX tier has none either); scipy's
+    adaptive RK45 with Brent's event roots (ops/rk45.py::solve_step) and the
+    tail, in float32 or float64.  It exists for parity with the reference,
+    not for speed: its loops read a condition on the host at every
+    iteration.  A lane whose solve fails is poisoned with NaN.
 
 The tail (`_step_tail`) is the batched counterpart of the JAX engine's
 `_step_lane`: plain PyTorch on the engine's device, consuming one `(B, n)`
@@ -60,7 +64,7 @@ from ..envs import dnc_math, goal_math, kepler_math
 from ..envs.config import (DISCRETE_ACTIONS, TASK_DO_NOT_CRASH, TASK_GOAL, TASK_KEPLER,
                            EnvConfig)
 from ..ops import events as events_mod
-from ..ops import field, fixed_rk
+from ..ops import field, fixed_rk, rk45
 from ..ops.constants import G
 from ..ops.env_step import EnvStep
 from ..ops.full_step import FullStep, normalize_rng_mode
@@ -133,15 +137,18 @@ class EnvEngine:
     >>> state, ts = eng.step(state, actions, g)
 
     Options (see the module docstring for the tiers):
-      physics        "kernel" (default) or "fixed"; "adaptive" is not ported.
+      physics        "kernel" (default), "fixed" or "adaptive".
       fuse           "full" (default), "env" or "physics": how much of the
                      step the kernel covers when physics="kernel".
       in_kernel_rng  False (default), "threefry" (True is an alias) or
                      "philox", for fuse="full": where K3's uniforms come from.
                      "philox" is the counterpart of the JAX engine's "hw".
-      tableau        "dp5" or "bs3" for the kernels; "fixed" is DP5 only.
+      tableau        "dp5" or "bs3" for the kernels; "fixed" and "adaptive"
+                     are DP5 only.  substeps and refine_iters apply to the
+                     kernels and "fixed".
       auto_reset     False leaves done lanes as they are (tail tiers only).
-      f32_actions    "fixed" only: the reference's float32 action arithmetic.
+      f32_actions    "fixed" and "adaptive": the reference's float32 action
+                     arithmetic.
       obs_features   None, "kepler", "goal" or "dnc": appended observation
                      features; `obs_dim` includes them, `config.obs_dim` not.
 
@@ -165,24 +172,22 @@ class EnvEngine:
         f32_actions: bool = False,
         obs_features: str | None = None,
     ):
-        if physics == "adaptive":
-            raise NotImplementedError("physics='adaptive' (ops.rk45.solve_step) is not ported yet")
-        if physics not in ("kernel", "fixed"):
-            raise ValueError(f"physics must be 'kernel' or 'fixed', got {physics!r}")
+        if physics not in ("kernel", "fixed", "adaptive"):
+            raise ValueError(f"physics must be 'kernel', 'fixed' or 'adaptive', got {physics!r}")
         if fuse not in ("full", "env", "physics"):
             raise ValueError(f"fuse must be 'full', 'env' or 'physics', got {fuse!r}")
-        self.tier = "fixed" if physics == "fixed" else fuse
+        self.tier = fuse if physics == "kernel" else physics
         self.device = resolve_device(device)
         if self.device.type == "cuda" and physics == "kernel" and dtype != torch.float32:
             raise TypeError(f"the CUDA kernels take float32, got {dtype}")
-        if physics == "fixed" and tableau != "dp5":
-            raise ValueError("physics='fixed' integrates with DP5 only")
+        if physics != "kernel" and tableau != "dp5":
+            raise ValueError(f"physics={physics!r} integrates with DP5 only")
         self.in_kernel_rng = normalize_rng_mode(in_kernel_rng)
         if self.in_kernel_rng and (self.tier != "full" or dtype != torch.float32):
             raise ValueError("in_kernel_rng needs physics='kernel', fuse='full' and float32")
         if not auto_reset and self.tier == "full":
-            raise ValueError("auto_reset=False needs a tail tier: physics='fixed', or "
-                             "fuse='env' or 'physics'")
+            raise ValueError("auto_reset=False needs a tail tier: physics='fixed' or "
+                             "'adaptive', or fuse='env' or 'physics'")
         self.config = config
         self.physics = physics
         self.fuse = fuse
@@ -192,8 +197,12 @@ class EnvEngine:
         self.tableau = tableau
         self.auto_reset = auto_reset
         self.f32_actions = f32_actions
-        self._event_comp_fns = events_mod.make_event_component_fns(
-            config.planet_radii, config.world_size, config.max_abs_vel_angle)
+        ev_args = (config.planet_radii, config.world_size, config.max_abs_vel_angle)
+        self._event_comp_fns = events_mod.make_event_component_fns(*ev_args)
+        self._event_fn = events_mod.make_event_fn(*ev_args)
+        # physics="adaptive": the last step's solver counts (accepted steps
+        # per lane, host reads of loop conditions, lanes that ran Brent)
+        self.solve_stats = {}
         k = config.kepler
         self._alpha_gm = G * k.planet_mass if k is not None else 0.0
 
@@ -566,8 +575,8 @@ class EnvEngine:
 
     # ------------------------------------------------------------ the tail --
     def _physics(self, y0, action, planets_pos):
-        """physics="fixed": one control interval of every lane in plain
-        PyTorch; returns (y (B, 6), terminated (B,))."""
+        """physics="fixed" or "adaptive": one control interval of every lane
+        in plain PyTorch; returns (y (B, 6), terminated (B,))."""
         cfg = self.config
         f32a = self.f32_actions and cfg.continuous
 
@@ -576,10 +585,20 @@ class EnvEngine:
                                            f32_action=f32a)
 
         y0 = field.apply_steering_override(cfg.ship, y0, action, f32_action=f32a)
-        ev_fns = tuple((lambda y, f=f: f(planets_pos, y)) for f in self._event_comp_fns)
-        out = fixed_rk.fixed_solve_step(rhs, ev_fns, y0, cfg.step_size,
-                                        n_substeps=self.substeps, refine_iters=self.refine_iters)
-        return field.wrap_ship_angle(out.y), out.terminated
+        if self.tier == "fixed":
+            ev_fns = tuple((lambda y, f=f: f(planets_pos, y)) for f in self._event_comp_fns)
+            out = fixed_rk.fixed_solve_step(rhs, ev_fns, y0, cfg.step_size,
+                                            n_substeps=self.substeps,
+                                            refine_iters=self.refine_iters)
+            return field.wrap_ship_angle(out.y), out.terminated
+        stats = {}
+        out = rk45.solve_step(rhs, lambda y, p: self._event_fn(p, y), y0, cfg.step_size,
+                              event_args=(planets_pos,), stats=stats)
+        self.solve_stats = dict(stats, n_steps=out.n_steps)
+        # the reference asserts the solver's success (dynamic_model.py:120);
+        # a batch has no per-lane assert, so a failed lane is poisoned
+        y = torch.where(out.failed[:, None], torch.full_like(out.y, float("nan")), out.y)
+        return field.wrap_ship_angle(y), out.terminated
 
     def _step_tail(self, state: EnvState, raw_action, rs: RandSource):
         """The step of the tail tiers: what the tier's kernel (if any) leaves

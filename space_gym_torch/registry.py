@@ -2,8 +2,10 @@
 the extra discrete variants the reference registers inside
 keyboard_agent.py:10-74.
 
-`get_config(env_id)` returns the static EnvConfig; the batched engine is
-built from the config via space_gym_torch.engine.
+`get_config(env_id)` returns the static EnvConfig; `make(env_id)` returns
+the old-Gym-API adapter (space_gym_torch.compat.gym_api) for drop-in
+single-env use; the batched engine is built from the config via
+space_gym_torch.engine.
 """
 from __future__ import annotations
 
@@ -32,6 +34,15 @@ def get_config(env_id: str) -> EnvConfig:
             f"Unknown env id {env_id!r}; known ids: {', '.join(env_ids())}"
         ) from None
     return factory()
+
+
+def make(env_id: str, **kwargs):
+    """Old-Gym-API single-env adapter (reset->obs, 4-tuple step, seed()).
+    kwargs: physics="device" (default, on `device`: the card unless
+    device="cpu") or "host", time_limit, renderer_kwargs, device."""
+    from .compat.gym_api import SpaceGymEnv
+
+    return SpaceGymEnv(get_config(env_id), **kwargs)
 
 
 # --- DoNotCrash (gym_space/__init__.py:5-15; rebuilt per quirk Q12) ---

@@ -3,12 +3,16 @@ checkpoints, deterministic evaluation and a steps/s meter.
 
 The port's counterpart of tools/train.py, with the same flags and meanings
 where they apply.  Differences: `--physics` is the engine's ("kernel", the
-default, or "fixed"); `--device` picks the device (the card by default,
-`--device cpu` for the plain PyTorch twins); `--scan-chunk` is the number of
-train_iters between host reads of the metrics; `--ckpt` names a file
-(utils/checkpoint.py), which also holds the generators' states, so that a
-resumed run continues as the uninterrupted one would.  A checkpoint resumes
-only a run of the same algorithm, configuration and `--fused` setting.
+default, "fixed" or "adaptive"); `--device` picks the device (the card by
+default, `--device cpu` for the plain PyTorch twins); `--scan-chunk` is the
+number of train_iters between host reads of the metrics; `--ckpt` names a
+file (utils/checkpoint.py), which also holds the generators' states, so that
+a resumed run continues as the uninterrupted one would.  A checkpoint resumes
+a run of the same algorithm and configuration; SAC and TD3 also read the
+other `--fused` setting's checkpoints, as tools/train.py does: a fused run
+migrates an unfused checkpoint to the kernel layout ("migrated"), an unfused
+run re-hydrates the parameters and Adam moments of a fused one
+("re-hydrated").
 
     python -m space_gym_torch.train --env GoalContinuous2P-v0 --algo sac --iters 500
     python -m space_gym_torch.train --algo td3 --lanes 8192 --ckpt run1.pt
@@ -129,9 +133,9 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--scan-chunk", type=int, default=25,
                     help="train_iters between host reads of the metrics")
-    ap.add_argument("--physics", default="kernel", choices=["kernel", "fixed"],
-                    help="engine physics: the kernels (default) or the fixed-substep "
-                         "integrator in plain PyTorch")
+    ap.add_argument("--physics", default="kernel", choices=["kernel", "fixed", "adaptive"],
+                    help="engine physics: the kernels (default), or in plain PyTorch the "
+                         "fixed-substep integrator or scipy's adaptive RK45")
     ap.add_argument("--obs-features", default=None, choices=["kepler", "goal", "dnc"],
                     help="append analytic obs features at the engine boundary; changes "
                          "obs_dim")
@@ -169,6 +173,47 @@ def make_trainer(args):
     return DQNTrainer(eng, DQNConfig(**kw))
 
 
+def resume(args, trainer, template: dict, gen, eval_gen):
+    """The state of the checkpoint `args.ckpt`, its generators' states set
+    into `gen` and `eval_gen`.  The run's own format is tried first; for SAC
+    and TD3 then the other `--fused` setting's, which is bridged to this
+    run's (tools/train.py:173-227)."""
+    from .utils import checkpoint as ckpt
+
+    state = template["state"]
+    templates = [template]
+    if args.algo in ("sac", "td3"):
+        try:
+            other = (state._replace(fused=None) if state.fused is not None
+                     else trainer.migrate_to_fused(state))
+            templates.append(dict(template, state=other))
+        except ValueError:  # a width the fused layout does not take: no fused format
+            pass
+    errors = []
+    for tpl in templates:
+        try:
+            restored = ckpt.restore(args.ckpt, tpl)
+            break
+        except ValueError as e:
+            errors.append(str(e))
+    else:
+        raise SystemExit(f"checkpoint {args.ckpt} does not match this run's algorithm and "
+                         f"configuration: {'; '.join(errors)}")
+    state = restored["state"]
+    gen.set_state(restored["generator"])
+    eval_gen.set_state(restored["eval_generator"])
+    if args.algo in ("sac", "td3"):
+        if args.fused and state.fused is None:
+            state = trainer.migrate_to_fused(state)
+            print("migrated the unfused checkpoint's parameters and Adam moments to the fused "
+                  "kernel layout", flush=True)
+        elif not args.fused and state.fused is not None:
+            state = trainer.rehydrate_from_fused(state)
+            print("re-hydrated the parameters and Adam moments from the fused checkpoint",
+                  flush=True)
+    return state
+
+
 def main(argv=None):
     from .utils import checkpoint as ckpt
     from .utils.profiling import ThroughputMeter
@@ -183,14 +228,7 @@ def main(argv=None):
         return {"state": state, "generator": gen.get_state(), "eval_generator": eval_gen.get_state()}
 
     if args.resume and args.ckpt and os.path.exists(args.ckpt):
-        try:
-            restored = ckpt.restore(args.ckpt, saved())
-        except ValueError as e:
-            raise SystemExit(f"checkpoint {args.ckpt} does not match this run's algorithm, "
-                             f"configuration and --fused setting: {e}") from e
-        state = restored["state"]
-        gen.set_state(restored["generator"])
-        eval_gen.set_state(restored["eval_generator"])
+        state = resume(args, trainer, saved(), gen, eval_gen)
         if getattr(state, "fused", None) is not None:
             state = trainer._refresh_from_fused(state)  # the actor as views of the fused state
         print(f"resumed from {args.ckpt} at step {state.step}", flush=True)

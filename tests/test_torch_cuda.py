@@ -811,3 +811,77 @@ def test_cuda_cli_trains_on_the_card(tmp_path, algo, physics):
     assert [d["iter"] for d in iters] == [1, 2]
     assert all(np.isfinite(d["mean_reward"]) for d in iters)
     assert any("eval_mean_return" in d for d in lines)
+
+
+@pytest.mark.cuda
+def test_cuda_adaptive_tier_matches_cpu():
+    """physics="adaptive" on the card (no kernel of its own: plain PyTorch in
+    float64) against the same engine on the CPU, fed the same uniforms:
+    flags equal, states within 1e-10 over three steps."""
+    _need_card()
+    cfg = get_config("GoalContinuous2P-v0")
+    eg = EnvEngine(cfg, physics="adaptive", dtype=torch.float64)
+    ec = EnvEngine(cfg, physics="adaptive", dtype=torch.float64, device="cpu")
+    assert eg.device.type == "cuda"
+    rng = np.random.default_rng(5)
+    B = 256
+    sc, _ = ec.reset(B, u=torch.as_tensor(rng.random((B, ec.n_reset_rand))))
+    y = sc.y.clone()  # one lane in 8 on a crash course into planet 0: Brent's method runs
+    y[1::8, 0] = sc.planets_pos[1::8, 0, 0] + cfg.planet_radii[0] + 0.02
+    y[1::8, 1] = sc.planets_pos[1::8, 0, 1]
+    y[1::8, 3:5] = torch.tensor([-2.0, 0.0], dtype=torch.float64)
+    sc = sc._replace(y=y)
+    sg = state_from_numpy(state_to_numpy(sc), device="cuda", dtype=torch.float64)
+    for _ in range(3):
+        act = torch.as_tensor(rng.uniform(-1, 1, (B, 2)))
+        u = torch.as_tensor(rng.random((B, ec.n_step_rand)))
+        sg, tg = eg.step(sg, act.cuda(), u=u.cuda())
+        sc, tc = ec.step(sc, act, u=u)
+        if _ == 0:
+            assert eg.solve_stats["brent_lanes"] >= B // 8 and tc.terminated[1::8].all()
+        for k in ("terminated", "truncated", "done"):
+            assert torch.equal(getattr(tg, k).cpu(), getattr(tc, k)), k
+        assert torch.allclose(sg.y.cpu(), sc.y, rtol=0, atol=1e-10)
+        assert torch.allclose(tg.obs.cpu(), tc.obs, rtol=0, atol=1e-10)
+    assert eg.solve_stats["n_steps"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_cuda_make_runs_golden_steps():
+    """make(...) on its default device, the card: three recorded steps from
+    their pre-step states at the golden tier's atol 1e-10."""
+    import os
+
+    import space_gym_torch
+
+    _need_card()
+    g = np.load(os.path.join(os.path.dirname(__file__), "goldens", "GoalContinuous2P-v0.npz"))
+    env = space_gym_torch.make("GoalContinuous2P-v0")
+    assert env.device.type == "cuda"
+    env.seed(int(g["seed"]))
+    env.reset()
+    env.planets_pos = g["ep0_reset_planets"]
+    for t in range(3):
+        env._state_vec = g["ep0_pre_states"][t].copy()
+        env.goal_pos = (g["ep0_reset_goal"] if t == 0 else g["ep0_goals"][t - 1]).copy()
+        env._elapsed_steps = 0
+        env.step(g["ep0_actions"][t])
+        np.testing.assert_allclose(env._state_vec, g["ep0_post_states"][t], rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_cuda_vector_env_launches_k3_once_a_step():
+    import space_gym_torch
+
+    _need_card()
+    venv = space_gym_torch.VectorEnv("GoalContinuous2P-v0", num_envs=4096, physics="kernel")
+    assert venv.engine.device.type == "cuda" and venv.engine.tier == "full"
+    venv.reset()
+    FullStep.reset_launches()
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        obs, rewards, dones, infos = venv.step(rng.uniform(-1, 1, (4096, 2)).astype(np.float32))
+    assert FullStep.launches_by_rng[False] == 4
+    assert obs.shape == (4096, venv.config.obs_dim) and np.isfinite(obs).all()
+    assert len(infos) == 4096 and all(("terminal_observation" in i) == d
+                                      for i, d in zip(infos, dones))

@@ -166,8 +166,9 @@ def test_entry_point_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             EnvEngine(cfg)
-    with pytest.raises(NotImplementedError):  # the adaptive integrator is not ported yet
-        EnvEngine(cfg, physics="adaptive", device="cpu")
+    adaptive = EnvEngine(cfg, physics="adaptive", device="cpu")  # plain PyTorch, no kernel
+    assert adaptive.tier == "adaptive" and adaptive.device.type == "cpu"
+    assert adaptive.full is adaptive.env_step is adaptive.physics_step is None
     assert EnvEngine(cfg, physics="fixed", device="cpu").device.type == "cpu"
 
 

@@ -293,12 +293,15 @@ def test_fixed_engine_f32_actions_and_default_dtype():
 
 def test_engine_options_are_validated():
     cfg = get_config("GoalContinuous2P-v0")
-    with pytest.raises(NotImplementedError):
-        EnvEngine(cfg, physics="adaptive", device="cpu")
+    eng = EnvEngine(cfg, physics="adaptive", device="cpu", auto_reset=False)
+    assert eng.tier == "adaptive" and eng.n_step_rand < EnvEngine(
+        cfg, physics="adaptive", device="cpu").n_step_rand
     for bad in (dict(physics="pallas"), dict(fuse="all"), dict(in_kernel_rng="hw"),
                 dict(physics="fixed", tableau="bs3"), dict(physics="fixed", in_kernel_rng=True),
                 dict(fuse="env", in_kernel_rng="philox"), dict(auto_reset=False),
-                dict(obs_features="kepler"), dict(obs_features="all")):
+                dict(obs_features="kepler"), dict(obs_features="all"),
+                dict(physics="adaptive", tableau="bs3"),
+                dict(physics="adaptive", in_kernel_rng="philox")):
         with pytest.raises(ValueError):
             EnvEngine(cfg, device="cpu", **bad)
     eng = EnvEngine(cfg, device="cpu", in_kernel_rng=True)

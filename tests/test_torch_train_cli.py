@@ -135,9 +135,36 @@ def test_cli_resume_is_the_uninterrupted_run(tmp_path, monkeypatch):
     train.main(base + ["--iters", "2", "--ckpt", "part.pt"])
     resumed = train.main(base + ["--iters", "4", "--ckpt", "part.pt", "--resume"])
     assert_same_bits(resumed, whole)
-    with pytest.raises(SystemExit, match="does not match"):
-        train.main(TINY + ["--algo", "sac", "--no-fused", "--iters", "4", "--ckpt", "part.pt",
-                           "--resume", "--eval-every", "0"])
+    with pytest.raises(SystemExit, match="does not match"):  # another configuration's
+        train.main(base + ["--iters", "4", "--ckpt", "part.pt", "--resume", "--lanes", "64"])
+
+
+@pytest.mark.parametrize("algo", ["sac", "td3"])
+def test_cli_cross_format_resume(tmp_path, monkeypatch, capsys, algo):
+    """tests/test_aux.py::test_train_cli_cross_format_resume in process: a
+    fused save resumed without --fused re-hydrates the parameters and Adam
+    moments (the trained actor comes back, not the frozen init snapshot);
+    that unfused save resumed with --fused migrates; a resume in the
+    checkpoint's own format prints neither."""
+    from space_gym_torch import train
+
+    base = TINY + ["--algo", algo, "--eval-every", "0", "--ckpt", "ck.pt"]
+    monkeypatch.chdir(tmp_path)
+
+    def run(*extra):
+        state = train.main(base + list(extra))
+        return state, capsys.readouterr().out
+
+    fused, _ = run("--fused", "--iters", "2")
+    back, out = run("--no-fused", "--iters", "2", "--resume")  # no iteration left to run
+    assert "re-hydrated" in out and "migrated" not in out and "resumed from" in out
+    assert back.fused is None and back.step == fused.step == 2
+    assert_same_bits(back.actor_params, fused.actor_params)
+    st, out = run("--fused", "--iters", "3", "--resume")
+    assert "migrated" in out and "re-hydrated" not in out
+    assert st.fused is not None and st.step == 3
+    _, out = run("--fused", "--iters", "4", "--resume")
+    assert "resumed from" in out and "migrated" not in out and "re-hydrated" not in out
 
 
 def test_bench_smoke_prints_one_line(tmp_path):
