@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      are not 16-byte aligned and whose last tile is ragged); the two in-kernel generators
      (csrc/rng.cuh) bit for bit against ops/rng_plain.py, and K3-tf
      (csrc/full_step_threefry.cu) and K3-hw (csrc/full_step_philox.cu) given
-     key words bit for bit against K3 fed the generator's block;
+     key words bit for bit against K3 fed the generator's block; both also
+     at a lane offset (a rank's block of lanes), bit for bit the same lanes
+     of an offset-0 launch of twice the width;
   4. the main path at full width: EnvEngine("GoalContinuous2P-v0") on the
      card, B=262144 lanes, random policy, BS3 x 1 substep / refine 8 for 256
      steps, once per source of uniforms (bulk draw: three repeats, the median
@@ -73,7 +75,27 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      rollout against one on the eager loop from one state and generator
      state, every leaf equal, and ms per train_iter both ways;
   7b. one `python -m space_gym_torch.bench` run, its line printed;
-  8. a JSON line of the bench line and the train_iter times, a `kernels`
+  7c. the sharded fused trainers (`scale_path`): SAC with K4 and with K5
+     and TD3 with K6 at the training path's shape (warm-up of one rollout,
+     so that all 3 train_iters update) under `init_distributed` at world 1
+     over NCCL, `make_mesh` and `place(..., trainer_state_shardings(...))`,
+     every leaf bit for bit the unsharded trainer's, the launch counts set
+     to 0 before and read after; then two processes on the one card over
+     gloo (`--scale-worker`), 1024 lanes each: the ranks' learner states
+     bit for bit equal, each rank's lanes within 1e-5 of the one-process
+     run; ms per train_iter of every run and of the gathers;
+  7d. physics="native" (the C++ runtime, g++) on every golden step of five
+     envs bit for bit physics="host" (sgt_has_blas() printed), and make()
+     over the golden steps in the native, host and device modes, ms per step;
+  7e. `python -m space_gym_torch.run_agent` on docs/goal2p_sac_best.npz with
+     the actor on the card: two episodes without GIFs, one with GIFs into
+     build/replays/;
+  7f. adversarial states (tests/test_fuzz.py) through K3 and physics="fixed"
+     on the card, flags against the CPU on >= 99.9% of lanes, every output
+     finite, and a bang-bang rollout at 512 lanes (2000 steps through K3,
+     64 through "fixed", whose plain tail takes about 0.1 s a step);
+  8. a JSON line of the bench line and the train_iter times, one of phases
+     7c-7f, a `kernels`
      JSON line (K1, K2, K3, K3-tf, K3-hw, K4, K5, K6), the card line again,
      and the final {"ok": true, "device": ...} line.
 
@@ -95,6 +117,10 @@ three steps from a seeded state, for every env family and both tableaux, and
 each kernel's ms per launch at the main path's shapes: a copy of this script
 run from two checkouts on one card prints equal digests where the two
 compute the same bits.
+
+    python3 chip_smoke.py --scale-worker RANK N PORT
+
+is one rank of phase 7c's two-process run (the phase starts both).
 
     python3 chip_smoke.py --phase-clock
 
@@ -511,6 +537,33 @@ def check_rng(dev, B):
                   f"done lanes {int(want[-1][2].sum())}", flush=True)
             if not (same and in_range) or bad or int(want[-1][2].sum()) == 0:
                 fail(f"in-kernel {mode} disagrees with its plain version or with K3")
+            check_lane_offset(cfg, mem, keyed, key, B, seed=6, device=dev)
+
+
+def check_lane_offset(cfg, mem, keyed, key, B, seed, device):
+    """K3-tf or K3-hw at lane0 = B (a rank's second block of lanes): its block
+    of uniforms bit for bit the plain version's and the same lanes of an
+    offset-0 block of 2B; the step bit for bit K3 fed that block, and the
+    same lanes of an offset-0 launch of 2B lanes."""
+    u_off = keyed.kernel_uniforms(key, B, lane0=B)
+    plain = keyed.plain_uniforms(key, B, B)
+    same_u = (torch.equal(u_off.view(torch.int32), plain.view(torch.int32))
+              and torch.equal(u_off, keyed.kernel_uniforms(key, 2 * B)[:, B:]))
+    wide_rows = mem.to_rows(*scenario(cfg, 2 * B, seed=seed + 1, device=device))
+    wide = keyed.step_rows(*wide_rows[:6], key, wide_rows[7])
+    block = [t[:, B:].contiguous() for t in wide_rows]
+    got = keyed.step_rows(*block[:6], key, block[7], lane0=B)
+    fed = mem.step_rows(*block[:6], u_off, block[7])
+    bad = [n for n, g, w, f in zip(OUT_NAMES + ("int_rows", "flags"), got, wide, fed)
+           if not (torch.equal(g.view(torch.int32), w[:, B:].view(torch.int32))
+                   and torch.equal(g.view(torch.int32), f.view(torch.int32)))]
+    print(f"  {keyed.rng} at lane0={B}: block bitwise equal to the plain version and to lanes "
+          f"{B}.. of a {2 * B}-lane block: {same_u}; the step against lanes {B}.. of the "
+          f"{2 * B}-lane launch and against K3 fed the block: "
+          f"{'all outputs bit-identical' if not bad else 'differ in ' + str(bad)}; done lanes "
+          f"{int(got[-1][2].sum())}", flush=True)
+    if not same_u or bad or int(got[-1][2].sum()) == 0:
+        fail(f"in-kernel {keyed.rng} at a lane offset disagrees")
 
 
 def check_engine(dev, small=512, steps=8):
@@ -2285,6 +2338,393 @@ def phase_clock(dev, card):
               flush=True)
 
 
+# ------------------------------------------------------------------ scale path --
+# The sharded fused trainers: the training path's shape (train_path), with
+# warmup_rows = rollout_len so that all three train_iters update.
+SCALE_ITERS = 3
+SCALE_RUNS = (("sac", False), ("sac", True), ("td3", None))
+SCALE_TOL = 1e-5  # a rank's lanes against the one-process run's (the CPU test's)
+SCALE_DIR = os.path.join(HERE, "build", "scale")  # the workers' lanes; gitignored
+
+
+def scale_label(algo, fold):
+    return "TD3" if algo == "td3" else f"SAC fused_fold={fold}"
+
+
+def scale_run(dev, algo, fold, mesh, lanes=None):
+    """SACTrainer (K4, or K5 with `fold`) or TD3Trainer (K6) at the training
+    path's shape, under `mesh` (None: unsharded), SCALE_ITERS train_iters
+    from seed 0 and generator seed 1; the global state is made alike on
+    every rank and placed.  Returns (trainer, state, ms of each train_iter,
+    ms of each gather of the sampled ring rows)."""
+    from space_gym_torch import get_config
+    from space_gym_torch.engine import EnvEngine
+    from space_gym_torch.models import SACConfig, SACTrainer, TD3Config, TD3Trainer
+    from space_gym_torch.parallel import place, trainer_state_shardings
+
+    shape = dict(lanes=lanes or SAC_LANES, rollout_len=SAC_ROLLOUT, updates_per_iter=SAC_K,
+                 batch_size=SAC_B, replay_rows=SAC_ROWS, hidden=(SAC_H, SAC_H),
+                 fused_updates=True, fused_block=2048, warmup_rows=SAC_ROLLOUT)
+    eng = EnvEngine(get_config(MAIN_ENV), device=dev, mesh=mesh)
+    tr = (SACTrainer(eng, SACConfig(fused_fold=fold, **shape)) if algo == "sac"
+          else TD3Trainer(eng, TD3Config(**shape)))
+    st = tr.init(0)
+    if mesh is not None:
+        st = place(st, trainer_state_shardings(st, mesh, mesh.model_size), mesh)
+    g = tr.generator(1)
+    gathers = []
+    ring_rows = tr._ring_rows
+
+    def timed_rows(*a):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = ring_rows(*a)
+        e.record()
+        gathers.append((s, e))
+        return out
+
+    tr._ring_rows = timed_rows
+    its = []
+    for _ in range(SCALE_ITERS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        st, m = tr.train_iter(st, g)
+        e.record()
+        its.append((s, e))
+    torch.cuda.synchronize()
+    if not all(np.isfinite(float(v)) for v in m.values()):
+        fail(f"scale path {scale_label(algo, fold)}: metrics {m}")
+    return tr, st, [s.elapsed_time(e) for s, e in its], [s.elapsed_time(e) for s, e in gathers]
+
+
+def scale_worker(rank: int, nproc: int, port: int):
+    """One rank of the two-process run (`chip_smoke.py --scale-worker RANK N
+    PORT`): gloo on the one card, the global lanes split along "data".  Per
+    run it prints a SCALE_WORKER line of JSON (digest of the replicated
+    learner state, ms per train_iter and per gather, launches) and saves its
+    lanes and learner state for the parent to hold to the one-process run."""
+    from space_gym_torch.parallel import init_distributed, make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(f"127.0.0.1:{port}", num_processes=nproc, process_id=rank, backend="gloo")
+    mesh = make_mesh()
+    os.makedirs(SCALE_DIR, exist_ok=True)
+    for algo, fold in SCALE_RUNS:
+        reset_launches()
+        tr, st, its, gathers = scale_run(dev, algo, fold, mesh)
+        launches = read_launches()
+        label = scale_label(algo, fold)
+        torch.save({"y": st.env_state.y.cpu(), "obs": st.obs.cpu(),
+                    "fused": [t.cpu() for t in st.fused[:6]]},
+                   os.path.join(SCALE_DIR, f"{algo}_{fold}_rank{rank}.pt"))
+        print("SCALE_WORKER " + json.dumps(dict(
+            rank=rank, run=label, learner=digest(*st.fused[:6]), counts=list(st.fused[6:]),
+            lanes=list(st.obs.shape), it_ms=its, gather_ms=gathers,
+            launches={k: v for k, v in launches.items() if v})), flush=True)
+        del tr, st
+    torch.distributed.destroy_process_group()
+    print("SCALE_WORKER_OK", flush=True)
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def scale_path(dev, card):
+    """The sharded fused trainers.  World 1: `init_distributed` over NCCL,
+    `make_mesh`, `place(..., trainer_state_shardings(...))`, then SCALE_ITERS
+    train_iters of SAC (K4, then K5) and TD3 (K6) at the training path's
+    shape, each against the unsharded trainer from the same seeds: every leaf
+    equal bit for bit, the launch counts set to 0 before the sharded run and
+    read after it.  Then two processes on the one card over gloo (NCCL takes
+    one rank per card), 1024 lanes each: their replicated learner states
+    equal bit for bit, each rank's lanes within SCALE_TOL of the one-process
+    run's.  ms per train_iter of every run and of the gathers.  Returns its
+    measurements."""
+    from space_gym_torch.parallel import init_distributed, make_mesh
+
+    init_distributed(f"127.0.0.1:{free_port()}", num_processes=1, process_id=0)
+    if torch.distributed.get_backend() != "nccl":
+        fail(f"world 1 on the card runs over {torch.distributed.get_backend()}, not nccl")
+    mesh = make_mesh()
+    out, one = {}, {}
+    for algo, fold in SCALE_RUNS:
+        label = scale_label(algo, fold)
+        _, st0, its0, _ = scale_run(dev, algo, fold, None)
+        reset_launches()
+        _, st1, its1, gathers = scale_run(dev, algo, fold, mesh)
+        launches = read_launches()
+        kernel = "td3_update" if algo == "td3" else (
+            "sac_update_fold" if fold else "sac_update")
+        a, b = leaves(st0), leaves(st1)
+        same = len(a) == len(b) and all(
+            torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(a, b))
+        print(f"scale path {label} world 1 (nccl) on {card}: {SCALE_ITERS} train_iters, state "
+              f"SHA-256 unsharded {state_digest(st0)}, sharded {state_digest(st1)}, every leaf "
+              f"equal: {same}; ms per train_iter unsharded {', '.join(f'{t:.3f}' for t in its0)},"
+              f" sharded {', '.join(f'{t:.3f}' for t in its1)}; gather of the sampled rows "
+              f"{', '.join(f'{t:.3f}' for t in gathers)} ms; launches {launches}", flush=True)
+        if not same:
+            fail(f"scale path {label}: the world-1 sharded trainer differs from the unsharded")
+        if launches.get(kernel, 0) != SCALE_ITERS or launches.get("full_step", 0) <= 0:
+            fail(f"scale path {label}: launches {launches}")
+        one[algo, fold] = {"y": st0.env_state.y.cpu(), "obs": st0.obs.cpu(),
+                           "fused": [t.cpu() for t in st0.fused[:6]]}
+        out[label] = dict(world1_it_ms=its1, unsharded_it_ms=its0, world1_gather_ms=gathers,
+                          launches=launches)
+        del st0, st1
+    torch.distributed.destroy_process_group()
+
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--scale-worker",
+                               str(r), "2", str(port)], cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=400)
+            results.append((p.returncode, so, se))
+    except subprocess.TimeoutExpired:
+        fail("the two-process scale run did not end within 400 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (rc, so, se) in enumerate(results):
+        if rc != 0 or "SCALE_WORKER_OK" not in so:
+            fail(f"scale worker {r}: rc {rc}\n{so[-3000:]}\n{se[-3000:]}")
+    lines = [[json.loads(ln.split(" ", 1)[1]) for ln in so.splitlines()
+              if ln.startswith("SCALE_WORKER ")] for _, so, _ in results]
+    wall = time.perf_counter() - t0
+    for k, (algo, fold) in enumerate(SCALE_RUNS):
+        label = scale_label(algo, fold)
+        r0, r1 = lines[0][k], lines[1][k]
+        ref = one[algo, fold]
+        lane_err, learner_err = 0.0, 0.0
+        for rank in range(2):
+            got = torch.load(os.path.join(SCALE_DIR, f"{algo}_{fold}_rank{rank}.pt"))
+            blk = slice(rank * SAC_LANES // 2, (rank + 1) * SAC_LANES // 2)
+            lane_err = max(lane_err, float((got["y"] - ref["y"][blk]).abs().max()),
+                           float((got["obs"] - ref["obs"][blk]).abs().max()))
+            learner_err = max(learner_err, max(float((a - b).abs().max())
+                                               for a, b in zip(got["fused"], ref["fused"])))
+        print(f"scale path {label} 2 processes x {SAC_LANES // 2} lanes (gloo, one card) on "
+              f"{card}: learner SHA-256 rank 0 {r0['learner']}, rank 1 {r1['learner']}; counts "
+              f"{r0['counts']} {r1['counts']}; ms per train_iter rank 0 "
+              f"{', '.join(f'{t:.3f}' for t in r0['it_ms'])}, rank 1 "
+              f"{', '.join(f'{t:.3f}' for t in r1['it_ms'])}; gather ms rank 0 "
+              f"{', '.join(f'{t:.3f}' for t in r0['gather_ms'])}; max|lanes - one-process| "
+              f"{lane_err:.3g} (tolerance {SCALE_TOL}), max|learner - one-process| "
+              f"{learner_err:.3g}; launches {r0['launches']}", flush=True)
+        if r0["learner"] != r1["learner"] or r0["counts"] != r1["counts"]:
+            fail(f"scale path {label}: the ranks' replicated learner states differ")
+        if not lane_err <= SCALE_TOL:
+            fail(f"scale path {label}: a rank's lanes are {lane_err:.3g} from the one-process run")
+        out[label].update(two_it_ms=[r0["it_ms"], r1["it_ms"]], two_gather_ms=r0["gather_ms"],
+                          lane_err=lane_err, learner_err=learner_err)
+    print(f"scale path: the two-process run took {wall:.1f} s with its process starts",
+          flush=True)
+    return out
+
+
+# ----------------------------------------------------------------- native path --
+NATIVE_IDS = ("GoalContinuous2P-v0", "GoalContinuous3P-v0", "GoalContinuous4P-v0",
+              "KeplerCircleOrbit-v0", "KeplerEllipseEasy-v0")
+
+
+def native_steps(env_id):
+    """Every recorded step of the goldens of `env_id` (tests/goldens/):
+    (pre-step state, translated action, planets)."""
+    import space_gym_torch
+
+    g = np.load(os.path.join(HERE, "tests", "goldens", f"{env_id}.npz"))
+    env = space_gym_torch.make(env_id, physics="host")
+    for ep in range(int(g["episodes"])):
+        p = f"ep{ep}_"
+        states = np.concatenate([g[p + "reset_state"][None], g[p + "post_states"]])
+        for t, a in enumerate(g[p + "actions"]):
+            yield states[t].copy(), np.array(env._translate_raw_action(a.astype(np.float32))), \
+                g[p + "reset_planets"]
+
+
+def native_path(dev, card):
+    """physics="native" (the C++ runtime, built with g++ on first use) on
+    every golden step of the five recorded envs against physics="host",
+    bit for bit (numpy's OpenBLAS found: sgt_has_blas() 1; without it the
+    bits would be the fallback kernels' and the check fails), then
+    make(MAIN_ENV) over its golden steps in each mode, ms per step on the
+    host clock."""
+    import space_gym_torch
+    from space_gym_torch.compat.gym_api import _host_physics_step
+    from space_gym_torch.parity import native
+
+    t0 = time.perf_counter()
+    if not native.is_available():
+        fail(f"the native runtime did not build: {native.build_error()}")
+    blas = native.has_blas()
+    print(f"native: built in {time.perf_counter() - t0:.1f} s; sgt_has_blas() "
+          f"{int(blas)} ({native.openblas_path()})", flush=True)
+    n = equal = 0
+    solve_s = {"native": 0.0, "host": 0.0}
+    for env_id in NATIVE_IDS:
+        cfg = space_gym_torch.get_config(env_id)
+        for y0, a, planets in native_steps(env_id):
+            t0 = time.perf_counter()
+            yh, dh = _host_physics_step(cfg, y0.copy(), a, planets)
+            t1 = time.perf_counter()
+            yn, dn = native.solve_step_native(cfg, y0, a, planets)
+            solve_s["host"] += t1 - t0
+            solve_s["native"] += time.perf_counter() - t1
+            n += 1
+            equal += int(dh == dn and np.array_equal(yh, yn))
+    solve_ms = {k: v * 1e3 / n for k, v in solve_s.items()}
+    print(f"native vs host: {equal} of {n} golden steps of {len(NATIVE_IDS)} envs bit for bit; "
+          f"the solver alone, ms per step: native {solve_ms['native']:.4f}, host "
+          f"{solve_ms['host']:.4f}", flush=True)
+    if equal != n:
+        fail(f"physics='native' differs from 'host' on {n - equal} of {n} golden steps"
+             + ("" if blas else " (numpy's OpenBLAS was not found: the fallback kernels ran)"))
+    ms = {}
+    for mode in ("native", "host", "device"):
+        env = space_gym_torch.make(MAIN_ENV, physics=mode, device=dev)
+        worst, ms[mode], steps = golden_steps(env, MAIN_ENV)
+        if not worst <= (TOL_GOLDEN if mode == "device" else 0.0):
+            fail(f"make({MAIN_ENV!r}, physics={mode!r}): golden max|err| {worst:.3g}")
+    print(f"make {MAIN_ENV} over {steps} golden steps on {card}, ms per step: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+    return dict(steps=n, bitwise=equal, has_blas=blas, ms_step=ms, solve_ms=solve_ms)
+
+
+# ---------------------------------------------------------- replay agent path --
+REPLAY_CKPT = "docs/goal2p_sac_best.npz"
+REPLAY_OUT = os.path.join("build", "replays")  # gitignored
+
+
+def replay_agent_path(card):
+    """`python -m space_gym_torch.run_agent` as a user runs it, the actor on
+    the card: two episodes scored without GIFs, then one with GIFs into
+    build/replays/."""
+    out = {}
+    for label, extra in (("no_gif", ["--no-gif", "--episodes", "2"]),
+                         ("gif", ["--episodes", "1", "--every", "10", "--out", REPLAY_OUT])):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "space_gym_torch.run_agent", "--ckpt",
+                              REPLAY_CKPT, *extra], cwd=HERE, capture_output=True, text=True,
+                             timeout=600)
+        text = run.stdout
+        mean = re.search(r"^mean return: (\S+)", text, re.M)
+        per = re.search(r"^ms per step: (\S+) .* on (\S+)\)", text, re.M)
+        if run.returncode != 0 or not mean or not per or not np.isfinite(float(mean.group(1))):
+            fail(f"run_agent {label}: rc {run.returncode}\n{text[-2000:]}\n{run.stderr[-2000:]}")
+        if not per.group(2).startswith("cuda"):
+            fail(f"run_agent {label}: the actor ran on {per.group(2)}")
+        gif = os.path.join(HERE, REPLAY_OUT, f"{MAIN_ENV}_ep0.gif")
+        if label == "gif" and not (os.path.exists(gif) and os.path.getsize(gif) > 0):
+            fail(f"run_agent wrote no GIF at {gif}")
+        print(f"run_agent {REPLAY_CKPT} ({label}) on {card}: "
+              + "; ".join(ln for ln in text.splitlines() if ln.startswith(("episode", "mean",
+                                                                          "ms per")))
+              + f"; {time.perf_counter() - t0:.1f} s with the process start", flush=True)
+        out[label] = dict(mean_return=float(mean.group(1)), ms_step=float(per.group(1)))
+    return out
+
+
+# ------------------------------------------------------------------ fuzz path --
+FUZZ_B = 65536
+FUZZ_ROLLOUT = ((False, 2000), (True, 64))  # (tail tier "fixed"?, steps) at 512 lanes
+
+
+def adversarial_states(cfg, n, rng):
+    """tests/test_fuzz.py's grazing states from a numpy generator: near the
+    first planet's surface, random heading, speeds up to about 5, spin within
+    the limit."""
+    pr = cfg.planet_radii[0]
+    ang = rng.uniform(0, 2 * np.pi, n)
+    r = pr + rng.uniform(1e-4, 0.05, n)
+    pos = np.stack([np.cos(ang), np.sin(ang)], -1) * r[:, None]
+    vel = rng.normal(0, 1, (n, 2)) * 2.5
+    w = rng.uniform(-cfg.max_abs_vel_angle * 0.999, cfg.max_abs_vel_angle * 0.999, n)
+    return np.concatenate([pos, ang[:, None], vel, w[:, None]], -1).astype(np.float32)
+
+
+def fuzz_path(dev, card):
+    """Adversarial states (tests/test_fuzz.py) on the card: FUZZ_B grazing
+    DoNotCrash lanes through K3 and through physics="fixed", each against the
+    same on the CPU (the plain twin; the fixed tier), flags agreeing on
+    >= MIN_FLAG_AGREEMENT of lanes and every output finite; then the
+    bang-bang rollout at 512 lanes through K3 (FUZZ_ROLLOUT steps) and
+    "fixed", finite and inside the world, episodes ending."""
+    from space_gym_torch import get_config
+    from space_gym_torch.engine import EnvEngine
+
+    cfg = get_config("DoNotCrashContinuous-v0")
+    rng = np.random.default_rng(17)
+    ys = adversarial_states(cfg, FUZZ_B, rng)
+    acts = rng.uniform(-1, 1, (FUZZ_B, 2)).astype(np.float32)
+    u = rng.random((FUZZ_B, 64), dtype=np.float32)
+    out = {}
+    for physics in ("kernel", "fixed"):
+        res = {}
+        for d in (dev, "cpu"):
+            eng = EnvEngine(cfg, physics=physics, device=d)
+            y, a = torch.as_tensor(ys, device=d), torch.as_tensor(acts, device=d)
+            planets = torch.tensor(cfg.fixed_planet_pos, dtype=torch.float32,
+                                   device=d)[None].expand(FUZZ_B, -1, -1).contiguous()
+            if physics == "kernel":
+                full = eng.full
+                z = lambda k: torch.zeros((FUZZ_B, k), device=d)  # noqa: E731
+                outs = full.apply(y, eng._translate_action(a), planets, z(2), z(3),
+                                  z(full.cs_rows),
+                                  torch.zeros((FUZZ_B, full.n_int_rows), dtype=torch.int32,
+                                              device=d),
+                                  torch.as_tensor(u[:, :full.n_uniform_rows], device=d))
+                res[str(d)] = (outs[9][0].cpu(), torch.cat([o.reshape(-1) for o in outs[:8]]))
+            else:
+                yo, term = eng._physics(y, eng._translate_action(a), planets)
+                res[str(d)] = (term.cpu(), yo.reshape(-1))
+        term_card, vals = res[str(dev)]
+        agree = float((term_card == res["cpu"][0]).float().mean())
+        finite = bool(torch.isfinite(vals).all())
+        print(f"fuzz {physics} {FUZZ_B} grazing DoNotCrash lanes on {card}: terminated "
+              f"{int(term_card.sum())}, flags agree with the CPU on {agree:.6f}, every output "
+              f"finite: {finite}", flush=True)
+        if agree < MIN_FLAG_AGREEMENT or not finite or term_card.float().mean() < 0.2:
+            fail(f"fuzz {physics}: agreement {agree}, finite {finite}")
+        out[physics] = dict(agree=agree, terminated=int(term_card.sum()))
+    goal = get_config(MAIN_ENV)
+    for tail, steps in FUZZ_ROLLOUT:
+        physics = "fixed" if tail else "kernel"
+        eng = EnvEngine(goal, physics=physics, device=dev)
+        state, obs = eng.init(512, eng.generator(0))
+
+        def bang_bang(g, o):
+            return (torch.randint(0, 2, (o.shape[0], 2), generator=g, device=o.device) * 2
+                    - 1).to(torch.float32)
+
+        t0 = time.perf_counter()
+        state, obs, traj = eng.rollout(state, obs, bang_bang, steps, eng.generator(1))
+        ok = bool(torch.isfinite(traj.reward).all() and torch.isfinite(traj.obs).all()
+                  and (obs[:, 0:2].abs() <= goal.world_size / 2 + 1e-3).all())
+        n_term = int(traj.terminated.sum())
+        print(f"fuzz bang-bang {physics} {MAIN_ENV} 512 lanes x {steps} steps on {card}: finite "
+              f"and inside the world: {ok}, terminations {n_term}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not ok or n_term == 0:
+            fail(f"fuzz bang-bang {physics}: finite/inside {ok}, terminations {n_term}")
+        out[f"bang_bang_{physics}"] = n_term
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain, bnd, library=None, **extra):
     by = max(bnd, key=bnd.get)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2332,6 +2772,9 @@ def main():
         return
     if sys.argv[1:] == ["--phase-clock"]:
         phase_clock(dev, card)
+        return
+    if sys.argv[1:2] == ["--scale-worker"]:
+        scale_worker(*[int(x) for x in sys.argv[2:5]])
         return
     if sys.argv[1:] == ["--env-bits"]:
         t0 = time.perf_counter()
@@ -2417,6 +2860,12 @@ def main():
     # ------------------------------------------------ 7b. the bench entry --
     bench = bench_run(card)
 
+    # ------------------------- 7c-7f. scale-out, native, replay and fuzzing --
+    scale = scale_path(dev, card)
+    natives = native_path(dev, card)
+    replay = replay_agent_path(card)
+    fuzz = fuzz_path(dev, card)
+
     # ------------------------------------------------------ 8. the lines --
     # launches: K3, K3-tf and K3-hw from their captured main-path runs (a
     # graph's launches times its replays), K2 from the
@@ -2445,7 +2894,8 @@ def main():
                      k2_err, main["k2_ms"], main["k2_plain_ms"], main["k2_bound"]),
         kernel_entry("full_step", csrc + "full_step.cu", "space_gym_tpu/ops/pallas_full.py:500",
                      rollouts[False]["launches"]["full_step"],
-                     k3_err, main["k3_ms"], main["k3_plain_ms"], main["k3_bound"]),
+                     k3_err, main["k3_ms"], main["k3_plain_ms"], main["k3_bound"],
+                     scale_launches=sum(r["launches"]["full_step"] for r in scale.values())),
         kernel_entry("full_step_threefry", csrc + "full_step_threefry.cu",
                      "space_gym_tpu/ops/pallas_full.py:529",
                      rollouts["threefry"]["launches"]["full_step_threefry"], tf["k3_err"],
@@ -2461,19 +2911,22 @@ def main():
                      train[False]["launches"]["sac_update"], max(k4_errs.values()),
                      train[False]["ms"], train[False]["plain_ms"], train[False]["bound"],
                      train[False]["library_ms"], library16_ms=train[False]["library16_ms"],
-                     hmma=hmma["sac_update"]),
+                     hmma=hmma["sac_update"],
+                     scale_launches=scale["SAC fused_fold=False"]["launches"]["sac_update"]),
         kernel_entry("sac_update_fold", csrc + "sac_update_fold.cu",
                      "space_gym_tpu/models/fused_sac.py:866",
                      train[True]["launches"]["sac_update_fold"], max(k5_errs.values()),
                      train[True]["ms"], train[True]["plain_ms"], train[True]["bound"],
                      train[True]["library_ms"], library16_ms=train[True]["library16_ms"],
-                     hmma=hmma["sac_update_fold"]),
+                     hmma=hmma["sac_update_fold"],
+                     scale_launches=scale["SAC fused_fold=True"]["launches"]["sac_update_fold"]),
         kernel_entry("td3_update", csrc + "td3_update.cu",
                      "space_gym_tpu/models/fused_td3.py:421",
                      train["td3"]["launches"]["td3_update"], max(k6_errs.values()),
                      train["td3"]["ms"], train["td3"]["plain_ms"], train["td3"]["bound"],
                      train["td3"]["library_ms"], library16_ms=train["td3"]["library16_ms"],
-                     hmma=hmma["td3_update"]),
+                     hmma=hmma["td3_update"],
+                     scale_launches=scale["TD3"]["launches"]["td3_update"]),
     ]}
     if any(k["launches"] <= 0 for k in kernels["kernels"]):
         fail(f"a kernel was launched no time on its path: {kernels}")
@@ -2486,6 +2939,8 @@ def main():
             eager=r["vs_eager"]["eager"])
         for f, r in {**train, **onpolicy}.items()}}), flush=True)
     print(json.dumps({"adaptive": adaptive, "adapters": adapters}), flush=True)
+    print(json.dumps({"scale": scale, "native": natives, "replay_agent": replay, "fuzz": fuzz}),
+          flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -23,14 +23,22 @@ nothing of it (nor of jax).  Public surface of this slice:
                                   through the engine's captured rollout;
                                   models/convert.py carries parameters and
                                   learner state to and from the JAX package
+  * space_gym_torch.parallel    — scale-out on torch.distributed:
+                                  init_distributed, make_mesh, the split
+                                  tables, place
   * space_gym_torch.utils       — the CUDA graph of a rollout (graphs),
                                   checkpoints, profiling, Gym seeding
   * space_gym_torch.compat      — the adapters, the scipy-exact numpy
                                   integrator (physics="host") and the JAX
                                   package's option names (compat/options.py)
+  * space_gym_torch.parity      — the native C++ host runtime
+                                  (physics="native", built with g++)
   * space_gym_torch.render      — the adapter's renderer (PIL, lazily)
   * python -m space_gym_torch.train / .bench — the training CLI and the
                                   headline benchmark
+  * python -m space_gym_torch.run_agent / .restore_learner — replaying a
+                                  trained learner; a learner file as a
+                                  resumable checkpoint
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 `device="cpu"`, where every kernel wrapper takes its plain PyTorch twin.

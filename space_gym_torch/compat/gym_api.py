@@ -7,10 +7,13 @@ RNG streams) runs on the host in f64 numpy with the reference's exact
 operation and RNG-call order, so given the same seed the adapter reproduces
 the reference bitwise wherever the integrator does.  The physics step runs
 on `device` (ops/rk45.py::solve_step on one lane in float64, a few ulp from
-scipy; the card unless the caller passes `device="cpu"`) or on the host
-(compat/host_rk45.py, bit-identical to scipy): `physics="device" | "host"`
-(`"jax"` is the JAX package's name for "device", compat/options.py).  The
-JAX package's third mode, "native" (its C++ runtime), is not ported.
+scipy; the card unless the caller passes `device="cpu"`), on the host
+(compat/host_rk45.py, bit-identical to scipy) or in the native C++ runtime
+(parity/native.py, bit-identical to "host" where it finds numpy's OpenBLAS,
+at C speed): `physics="device" | "host" | "native"` (`"jax"` is the JAX
+package's name for "device", compat/options.py).  "native" builds its
+library with g++ on first use; a failed build raises, it never falls back
+to another mode.
 
 For batched training rollouts use space_gym_torch.engine instead; this class
 exists for parity validation and SB3-style single-env use.
@@ -52,12 +55,13 @@ class SpaceGymEnv:
         device=None,
     ):
         physics = adapter_physics(physics)
+        if physics not in ("device", "host", "native"):
+            raise ValueError(f"physics must be 'device', 'host' or 'native', got {physics!r}")
         if physics == "native":
-            raise NotImplementedError(
-                "physics='native' (the JAX package's C++ runtime) is not ported: ROADMAP "
-                "queue 1 item 7; use physics='host' for the scipy-exact numpy integrator")
-        if physics not in ("device", "host"):
-            raise ValueError(f"physics must be 'device' or 'host', got {physics!r}")
+            from ..parity import native
+
+            if not native.is_available():
+                raise RuntimeError(f"native solver unavailable: {native.build_error()}")
         self.config = config
         self._physics_mode = physics
         self._time_limit = time_limit
@@ -204,6 +208,12 @@ class SpaceGymEnv:
             y, done = self._device_step(self._state_vec, action.astype(np.float64),
                                         self.planets_pos)
             self._state_vec = np.array(y)  # writable host copy
+        elif self._physics_mode == "native":
+            from ..parity import native
+
+            y, done = native.solve_step_native(self.config, self._state_vec, action,
+                                               self.planets_pos)
+            self._state_vec = y
         else:
             y, done = _host_physics_step(self.config, self._state_vec, action, self.planets_pos)
             self._state_vec = y

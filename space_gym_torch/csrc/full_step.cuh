@@ -352,6 +352,7 @@ struct FullStepArgs {
   int *tio, *flags;
   int B;
   cudaStream_t stream;
+  int lane0;  // global index of lane 0 for the in-kernel generators (rng.cuh)
 };
 
 // The kernel's one parameter.
@@ -468,7 +469,7 @@ __device__ void sg_step_reset(const FullParams& P, const FullStepArgs& A, int la
   bool case_b = false, flip = false;
 #pragma unroll
   for (int i = 0; i < 3; ++i) ref[i] = A.r[i * n + lane];
-  ROWS U(A.u, n, lane, A.n_u);
+  ROWS U(A.u, n, lane, A.n_u, A.lane0);
   if constexpr (S::GOAL) {
     U.i = S::GP_ROWS;
     sg_goal_reset<NP, S::NTA, S::CSR>(P, U, y_out, pl, gx, gy, fr, ship, goal, case_b, flip, cs);
@@ -523,7 +524,7 @@ __device__ void sg_step_resample(const FullParams& P, const FullStepArgs& A, int
     const bool flip = A.ti[(S::IR - 1) * n + lane] > 0;
 #pragma unroll
     for (int i = 0; i < S::CSR; ++i) cs[i] = A.cs[i * n + lane];
-    ROWS U(A.u, n, lane, A.n_u);
+    ROWS U(A.u, n, lane, A.n_u, A.lane0);
     sg_goal_place<NT, S::CSR>(P, U, fr, ship, goal, case_b, flip, cs, gx, gy);
     __stcs(A.go + lane, gx);
     __stcs(A.go + n + lane, gy);
@@ -655,7 +656,7 @@ static int launch_tab(int tableau, const FullParams& P, const FullStepArgs& A, i
 template <class ROWS>
 static int sg_full_step_impl(const FullParams& P, int task, int n_planets, int n_tiles, int cols,
                              int tableau, const FullStepArgs& A, int* info = nullptr) {
-  if (A.B <= 0 || A.n_u <= 0) return SG_ERR_UNSUPPORTED;
+  if (A.B <= 0 || A.n_u <= 0 || A.lane0 < 0) return SG_ERR_UNSUPPORTED;
   if (task == SG_TASK_GOAL) {
     if (n_planets == 2 && n_tiles == 4 && cols == 2)
       return launch_tab<ROWS, SG_TASK_GOAL, 2, 4, 2>(tableau, P, A, info);
@@ -673,20 +674,32 @@ static int sg_full_step_impl(const FullParams& P, int task, int n_planets, int n
 
 // The C interface of one translation unit: `NAME` launches the step with the
 // row source ROWS.  Arguments: params, task, planets, tiles, cols, tableau,
-// the 8 inputs with n_u after u, the 10 outputs, B, stream.  `NAME_info`
+// the 8 inputs with n_u after u, the 10 outputs, B, stream.  `NAME_at` takes
+// lane0, the global index of lane 0 (rng.cuh), before the stream; `NAME` is
+// lane0 = 0.  `NAME_info`
 // writes sg_kernel_info's eight numbers of the instantiation a launch of B
 // lanes would use; with -DSG_PHASE_CLOCK the library also has the clock's
 // entry points (step_clock.cuh).
 #define SG_DEFINE_FULL_STEP(NAME, ROWS)                                                         \
+  extern "C" int NAME##_at(const FullParams* P, int task, int n_planets, int n_tiles, int cols,  \
+                           int tableau, const float* y, const float* a, const float* p,          \
+                           const float* g, const float* r, const float* cs, const void* u,       \
+                           int n_u, const int* ti, float* yo, float* po, float* go, float* ro,   \
+                           float* cso, float* obs, float* fobs, float* rew, int* tio,            \
+                           int* flags, int B, int lane0, void* stream) {                         \
+    const FullStepArgs A{y,  a,  p,  g,  r,   cs,   u,   n_u, ti,    yo, po,                     \
+                         go, ro, cso, obs, fobs, rew, tio, flags, B, (cudaStream_t)stream,       \
+                         lane0};                                                                 \
+    return sg_full_step_impl<ROWS>(*P, task, n_planets, n_tiles, cols, tableau, A);              \
+  }                                                                                              \
   extern "C" int NAME(const FullParams* P, int task, int n_planets, int n_tiles, int cols,       \
                       int tableau, const float* y, const float* a, const float* p,               \
                       const float* g, const float* r, const float* cs, const void* u, int n_u,   \
                       const int* ti, float* yo, float* po, float* go, float* ro, float* cso,     \
                       float* obs, float* fobs, float* rew, int* tio, int* flags, int B,          \
                       void* stream) {                                                            \
-    const FullStepArgs A{y,  a,  p,  g,  r,   cs,   u,   n_u, ti,    yo, po,                     \
-                         go, ro, cso, obs, fobs, rew, tio, flags, B, (cudaStream_t)stream};      \
-    return sg_full_step_impl<ROWS>(*P, task, n_planets, n_tiles, cols, tableau, A);              \
+    return NAME##_at(P, task, n_planets, n_tiles, cols, tableau, y, a, p, g, r, cs, u, n_u, ti,  \
+                     yo, po, go, ro, cso, obs, fobs, rew, tio, flags, B, 0, stream);             \
   }                                                                                              \
   extern "C" int NAME##_info(int task, int n_planets, int n_tiles, int cols, int tableau, int B, \
                              int* out) {                                                         \
@@ -697,8 +710,13 @@ static int sg_full_step_impl(const FullParams& P, int task, int n_planets, int n
   }                                                                                              \
   SG_K3_CLOCK_ENTRIES()
 
-// `NAME` writes the (n_u, B) block that ROWS draws from the key words at `key`.
-#define SG_DEFINE_FILL_UNIFORMS(NAME, ROWS)                                        \
-  extern "C" int NAME(const void* key, float* out, int n_u, int B, void* stream) { \
-    return sg_fill_uniforms<ROWS>(key, out, n_u, B, stream);                       \
+// `NAME` writes the (n_u, B) block that ROWS draws from the key words at `key`;
+// `NAME_at` that of the lanes from global lane lane0 on.
+#define SG_DEFINE_FILL_UNIFORMS(NAME, ROWS)                                                   \
+  extern "C" int NAME##_at(const void* key, float* out, int n_u, int B, int lane0,            \
+                           void* stream) {                                                    \
+    return sg_fill_uniforms<ROWS>(key, out, n_u, B, lane0, stream);                           \
+  }                                                                                           \
+  extern "C" int NAME(const void* key, float* out, int n_u, int B, void* stream) {            \
+    return sg_fill_uniforms<ROWS>(key, out, n_u, B, 0, stream);                               \
   }

@@ -1,6 +1,10 @@
 // The full-step kernel's sources of uniforms in [0, 1), one struct each with
-// the same interface: built per lane from (operand pointer, B, lane, n_u), a
-// public row cursor `i`, and take(), the uniform of row i++ of this lane.
+// the same interface: built per lane from (operand pointer, B, lane, n_u,
+// lane0), a public row cursor `i`, and take(), the uniform of row i++ of this
+// lane.  `lane0` is the global index of the launch's lane 0 when the lanes
+// are split over ranks (parallel/mesh.py): the generators draw for the global
+// lane lane0 + lane, so a lane's uniforms do not depend on the split; the
+// block read from memory is the rank's own and ignores it.
 //
 //   MemRows       the (n_u, B) float block drawn outside the kernel;
 //   ThreefryRows  threefry2x32 in the kernel, the bits of
@@ -81,32 +85,35 @@ struct MemRows {
   size_t n;
   int lane;
   int i;
-  __device__ __forceinline__ MemRows(const void* operand, size_t B, int lane_, int /*n_u*/)
+  __device__ __forceinline__ MemRows(const void* operand, size_t B, int lane_, int /*n_u*/,
+                                     int /*lane0*/)
       : u((const float*)operand), n(B), lane(lane_), i(0) {}
   __device__ __forceinline__ float take() { return u[(size_t)(i++) * n + lane]; }
 };
 
 struct ThreefryRows {
-  unsigned k0, k1, base;  // base: flat index of this lane's row 0, lane * n_u
+  unsigned k0, k1, base;  // base: flat index of this lane's row 0, global lane * n_u
   int i;
-  __device__ __forceinline__ ThreefryRows(const void* operand, size_t /*B*/, int lane, int n_u)
+  __device__ __forceinline__ ThreefryRows(const void* operand, size_t /*B*/, int lane, int n_u,
+                                          int lane0)
       : k0(((const unsigned*)operand)[0]), k1(((const unsigned*)operand)[1]),
-        base((unsigned)lane * (unsigned)n_u), i(0) {}
+        base(((unsigned)lane + (unsigned)lane0) * (unsigned)n_u), i(0) {}
   __device__ __forceinline__ float take() {
     return sg_bits_to_uniform(sg_threefry_bits(k0, k1, base + (unsigned)(i++)));
   }
 };
 
-// Row r is word r % 4 of the block at counter (lane, r / 4, 0, 0); the lane
-// keeps its current block's four words and recomputes when r / 4 changes.
+// Row r is word r % 4 of the block at counter (global lane, r / 4, 0, 0); the
+// lane keeps its current block's four words and recomputes when r / 4 changes.
 struct PhiloxRows {
   unsigned k0, k1, lane;
   int i;
   int block;
   unsigned w0, w1, w2, w3;
-  __device__ __forceinline__ PhiloxRows(const void* operand, size_t /*B*/, int lane_, int /*n_u*/)
+  __device__ __forceinline__ PhiloxRows(const void* operand, size_t /*B*/, int lane_, int /*n_u*/,
+                                        int lane0)
       : k0(((const unsigned*)operand)[0]), k1(((const unsigned*)operand)[1]),
-        lane((unsigned)lane_), i(0), block(-1), w0(0), w1(0), w2(0), w3(0) {}
+        lane((unsigned)lane_ + (unsigned)lane0), i(0), block(-1), w0(0), w1(0), w2(0), w3(0) {}
   __device__ __forceinline__ float take() {
     const int b = i >> 2, k = i & 3;
     ++i;
@@ -124,20 +131,21 @@ struct PhiloxRows {
 // by row through take(): what the full-step kernel sees, made visible.
 template <class ROWS>
 __global__ void fill_uniforms_kernel(const void* __restrict__ operand, float* __restrict__ out,
-                                     int n_u, int B) {
+                                     int n_u, int B, int lane0) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
-  ROWS U(operand, (size_t)B, lane, n_u);
+  ROWS U(operand, (size_t)B, lane, n_u, lane0);
   for (int r = 0; r < n_u; ++r) out[(size_t)r * B + lane] = U.take();
 }
 
 #ifdef __CUDACC__
 template <class ROWS>
-static int sg_fill_uniforms(const void* operand, float* out, int n_u, int B, void* stream) {
-  if (B <= 0 || n_u <= 0) return -1;
+static int sg_fill_uniforms(const void* operand, float* out, int n_u, int B, int lane0,
+                            void* stream) {
+  if (B <= 0 || n_u <= 0 || lane0 < 0) return -1;
   const int threads = 128;
   fill_uniforms_kernel<ROWS><<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      operand, out, n_u, B);
+      operand, out, n_u, B, lane0);
   return (int)cudaGetLastError();
 }
 #endif

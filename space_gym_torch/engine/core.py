@@ -47,7 +47,16 @@ tail tiers keep the loop of `step`.
 
 Randomness comes from an explicit `torch.Generator`; tests may inject the
 uniforms (`u=`) or the key words (`key=`) instead, so that both engines
-consume the same stream.  `obs_features` appends analytic functions of the
+consume the same stream.
+
+Under a mesh (`mesh=`, parallel/mesh.py) a rank steps only its lanes, a
+block of the global batch along "data".  Every draw with a lanes axis (the
+step's uniforms, a policy's noise through `draw_lanes`) is made for the
+global lanes from the generator, which every rank seeds alike, and sliced to
+the rank's block; the in-kernel generators take the block's first global
+lane.  So a lane's randomness is the one-process run's whatever the split.
+`reset` makes the lanes it is asked for from one draw: make the global state
+and `place` it.  `obs_features` appends analytic functions of the
 raw observation (envs/*_math.py) after the step, for trainers.
 
 Auto-reset follows the lockstep-RL convention: when a lane terminates or
@@ -151,6 +160,8 @@ class EnvEngine:
                      arithmetic.
       obs_features   None, "kepler", "goal" or "dnc": appended observation
                      features; `obs_dim` includes them, `config.obs_dim` not.
+      mesh           None, or a parallel.mesh.Mesh whose "data" axis splits
+                     the lanes that `step` and `rollout` are given.
 
     `n_reset_rand` and `n_step_rand` are the uniforms one lane's reset and
     step consume: K3's row count for fuse="full", the tail's counted
@@ -171,6 +182,7 @@ class EnvEngine:
         auto_reset: bool = True,
         f32_actions: bool = False,
         obs_features: str | None = None,
+        mesh=None,
     ):
         if physics not in ("kernel", "fixed", "adaptive"):
             raise ValueError(f"physics must be 'kernel', 'fixed' or 'adaptive', got {physics!r}")
@@ -197,6 +209,7 @@ class EnvEngine:
         self.tableau = tableau
         self.auto_reset = auto_reset
         self.f32_actions = f32_actions
+        self.mesh = mesh
         ev_args = (config.planet_radii, config.world_size, config.max_abs_vel_angle)
         self._event_comp_fns = events_mod.make_event_component_fns(*ev_args)
         self._event_fn = events_mod.make_event_fn(*ev_args)
@@ -235,6 +248,27 @@ class EnvEngine:
     def _uniforms(self, rows: int, cols: int, generator) -> torch.Tensor:
         return torch.rand((rows, cols), generator=generator, device=self.device, dtype=self.dtype)
 
+    def lane0(self, batch: int) -> int:
+        """The global index of this rank's first lane when it steps `batch`
+        lanes: 0 without a mesh."""
+        return 0 if self.mesh is None else self.mesh.data_index * batch
+
+    def draw_lanes(self, draw: Callable, shape, dim: int = 0) -> torch.Tensor:
+        """`draw(shape)` for this rank's lanes along `dim`: under a mesh the
+        draw of the global lanes (every rank's block, in order), sliced to
+        this rank's; `draw(shape)` itself without one."""
+        if self.mesh is None or self.mesh.data_size == 1:
+            return draw(tuple(shape))
+        full = list(shape)
+        full[dim] *= self.mesh.data_size
+        return draw(tuple(full)).narrow(dim, self.lane0(shape[dim]), shape[dim])
+
+    def _lane_uniforms(self, rows: int, cols: int, generator, dim: int) -> torch.Tensor:
+        """`_uniforms` with the lanes along `dim`, drawn for the global lanes
+        under a mesh; contiguous."""
+        return self.draw_lanes(lambda s: self._uniforms(*s, generator), (rows, cols),
+                               dim).contiguous()
+
     def draw_key(self, generator) -> torch.Tensor:
         """Two fresh 32-bit key words as the (2,) int32 tensor the kernel
         reads, drawn and kept on the engine's device: no host round trip."""
@@ -271,9 +305,9 @@ class EnvEngine:
                 rand = u
             elif self.tier == "full":
                 # drawn in K3's (n_u, B) row layout, which the kernel reads as it is
-                rand = self._uniforms(self.n_step_rand, state.y.shape[0], generator).t()
+                rand = self._lane_uniforms(self.n_step_rand, state.y.shape[0], generator, 1).t()
             else:
-                rand = self._uniforms(state.y.shape[0], self.n_step_rand, generator)
+                rand = self._lane_uniforms(state.y.shape[0], self.n_step_rand, generator, 0)
         if self.tier == "full":
             state, ts = self._step_full(state, raw_action, rand)
         else:
@@ -287,7 +321,8 @@ class EnvEngine:
         """The whole step through the full-step kernel; `u` is the uniforms
         block or the key words."""
         ins = self.kernel_operands(state, self._translate_action(raw_action), u)
-        yo, po, go, ro, cso, obs, fobs, rew, tio, flags = self.full.apply(*ins)
+        yo, po, go, ro, cso, obs, fobs, rew, tio, flags = self.full.apply(
+            *ins, lane0=self.lane0(state.y.shape[0]) if self.in_kernel_rng else 0)
         return self.from_carry(RowCarry(yo, po, go, ro, cso, tio)), _time_step(
             obs, fobs, rew, flags)
 
@@ -358,14 +393,15 @@ class EnvEngine:
         carry as they stand (`tio` has `tili`'s row order).  Draws what `step`
         draws, in its order and shapes, so that both give the same bits from
         one generator.  Returns (carry, TimeStep with (B, ...) views)."""
+        batch = carry.y.shape[1]
         if self.in_kernel_rng:
             u = self.draw_key(generator)
         else:
-            u = self._uniforms(self.n_step_rand, carry.y.shape[1], generator)
+            u = self._lane_uniforms(self.n_step_rand, batch, generator, 1)
         a = self._translate_action(raw_action).t().contiguous()
         y, p, g, r, cs, ti = carry
         yo, po, go, ro, cso, obs, fobs, rew, tio, flags = self.full.step_rows(
-            y, a, p, g, r, cs, u, ti)
+            y, a, p, g, r, cs, u, ti, lane0=self.lane0(batch) if self.in_kernel_rng else 0)
         ts = _time_step(obs, fobs, rew, flags)
         if self.obs_features:
             ts = ts._replace(obs=self._augment_obs(ts.obs),
@@ -437,13 +473,14 @@ class EnvEngine:
         """Uniform random policy over the action space (for benchmarks)."""
         if self.config.continuous:
             def pol(generator, obs):
-                u = torch.rand((obs.shape[0], 2), generator=generator, device=obs.device,
-                               dtype=self.dtype)
+                u = self.draw_lanes(lambda s: torch.rand(s, generator=generator, device=obs.device,
+                                                         dtype=self.dtype), (obs.shape[0], 2))
                 return u * 2.0 - 1.0
         else:
             def pol(generator, obs):
-                return torch.randint(0, self.config.n_actions, (obs.shape[0],),
-                                     generator=generator, device=obs.device, dtype=torch.int32)
+                return self.draw_lanes(lambda s: torch.randint(
+                    0, self.config.n_actions, s, generator=generator, device=obs.device,
+                    dtype=torch.int32), (obs.shape[0],))
         return pol
 
     # ------------------------------------------------------------ internals --

@@ -1,4 +1,6 @@
-"""Kepler reference-orbit maths on tensors (gym_space/envs/kepler.py:43-150).
+"""Kepler reference-orbit maths on tensors (gym_space/envs/kepler.py:43-150),
+and the orbit's invariants (specific energy, angular momentum, the
+Laplace-Runge-Lenz vector) that the property tests hold the integrators to.
 
 The port's own copy of space_gym_tpu/envs/kepler_math.py, in the reference's
 operation order; every function broadcasts over leading lane axes.
@@ -119,3 +121,28 @@ def error_features(alpha_gm, pos_xy, vel_xy, ref_angle, ecc, a):
 
     errs = torch.stack([rad_err, ev_x, ev_y], dim=-1)
     return torch.cat([torch.tanh(g * errs) for g in FEATURE_GAINS], dim=-1)
+
+
+def specific_energy(alpha_gm, pos_xy, vel_xy):
+    """Specific orbital energy v^2/2 - GM/r (the reference's unused _H helper,
+    kepler.py:20-29): conserved along thrust-free trajectories, so it doubles
+    as an integrator invariant."""
+    r = torch.linalg.norm(pos_xy, dim=-1)
+    v2 = torch.sum(vel_xy * vel_xy, dim=-1)
+    return v2 / 2 - alpha_gm / r
+
+
+def angular_momentum(pos_xy, vel_xy):
+    """Specific angular momentum x*vy - y*vx (z component); conserved in any
+    central-force field."""
+    return pos_xy[..., 0] * vel_xy[..., 1] - pos_xy[..., 1] * vel_xy[..., 0]
+
+
+def lrl_vector(alpha_gm, pos_xy, vel_xy):
+    """Laplace-Runge-Lenz vector A = v x L - GM * r_hat (the reference's unused
+    _A helper, kepler.py:31-41): conserved on Kepler orbits, along the major
+    axis."""
+    L = angular_momentum(pos_xy, vel_xy)
+    r = torch.linalg.norm(pos_xy, dim=-1, keepdim=True)
+    vxL = torch.stack([vel_xy[..., 1] * L, -vel_xy[..., 0] * L], dim=-1)
+    return vxL - alpha_gm * pos_xy / r

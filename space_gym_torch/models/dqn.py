@@ -17,6 +17,10 @@ discards them to keep one compiled program) and the loss reads NaN.
 Randomness comes from an explicit `torch.Generator` on the trainer's device;
 `_update_once` also takes an injected batch, so that a test can feed this
 package and the JAX package the same draws.
+
+Under a mesh (the engine's, parallel/mesh.py) it works as the unfused SAC
+does (models/offpolicy.py): a rank rolls out its lanes, every rank samples
+the same global minibatch and runs the same update.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from torch.func import functional_call
 
 from ..engine.core import EnvEngine, PolicyRollout
 from . import networks
-from .offpolicy import AdamState, adam_init, adam_update
+from .offpolicy import (AdamState, adam_init, adam_update, lane_mean, lane_sum, note_layout,
+                        with_whole_params)
 from .replay import ReplayState, Transition, replay_add_slab, replay_init, replay_sample
 
 
@@ -73,6 +78,8 @@ class DQNTrainer:
         self.engine = engine
         self.device = engine.device
         self.cfg = config
+        self.mesh = engine.mesh
+        self.shardings = None
         self.obs_dim = engine.obs_dim
         self.n_actions = engine.config.n_actions
         self.qnet = networks.MLP(self.obs_dim, (*config.hidden, self.n_actions))
@@ -91,12 +98,12 @@ class DQNTrainer:
         net = networks.MLP(self.obs_dim, (*c.hidden, self.n_actions), generator=g)
         params = {k: v.detach().to(self.device) for k, v in net.state_dict().items()}
         env_state, obs = self.engine.reset(c.lanes, self.engine.generator(seed))
-        return DQNState(
+        return note_layout(self, DQNState(
             params=params, target_params={k: v.clone() for k, v in params.items()},
             opt=adam_init(params), env_state=env_state, obs=obs,
             replay=replay_init(c.replay_rows, c.lanes, self.obs_dim, 1, self.engine.dtype,
                                self.device),
-            n_updates=0, step=0)
+            n_updates=0, step=0))
 
     # -------------------------------------------------------------- acting --
     def _epsilon(self, step: int) -> torch.Tensor:
@@ -115,9 +122,12 @@ class DQNTrainer:
         """Epsilon-greedy: a uniform action where a uniform draw is below
         epsilon, the greedy one elsewhere."""
         greedy = functional_call(self.qnet, params, (obs,)).argmax(-1).to(torch.int32)
-        u = torch.rand(greedy.shape, generator=generator, device=greedy.device)
-        rand = torch.randint(0, self.n_actions, greedy.shape, generator=generator,
-                             device=greedy.device, dtype=torch.int32)
+        draw = self.engine.draw_lanes
+        u = draw(lambda s: torch.rand(s, generator=generator, device=greedy.device),
+                 greedy.shape)
+        rand = draw(lambda s: torch.randint(0, self.n_actions, s, generator=generator,
+                                            device=greedy.device, dtype=torch.int32),
+                    greedy.shape)
         return torch.where(u < self._eps, rand, greedy)
 
     # ------------------------------------------------------------- training --
@@ -141,7 +151,7 @@ class DQNTrainer:
         target_sync_every updates."""
         c = self.cfg
         if batch is None:
-            batch = replay_sample(state.replay, generator, c.batch_size)
+            batch = replay_sample(state.replay, generator, c.batch_size, mesh=self.mesh)
         p = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
         loss = self._loss(p, state.target_params, batch)
         grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
@@ -164,6 +174,9 @@ class DQNTrainer:
     def train_iter(self, state: DQNState, generator):
         """One rollout, one replay insert, `updates_per_iter` updates once the
         ring is past the warm-up."""
+        return with_whole_params(self, state, lambda s: self._train_iter(s, generator))
+
+    def _train_iter(self, state: DQNState, generator):
         c = self.cfg
         with torch.no_grad():
             env_state, obs, traj = self._rollout(state, generator)
@@ -177,7 +190,8 @@ class DQNTrainer:
         if replay.filled >= min(c.warmup_rows, c.replay_rows):
             for _ in range(c.updates_per_iter):
                 state, metrics = self._update_once(state, generator)
-        metrics = dict(metrics, mean_reward=traj.reward.mean(), episodes_done=traj.done.sum(),
+        metrics = dict(metrics, mean_reward=lane_mean(self.mesh, traj.reward),
+                       episodes_done=lane_sum(self.mesh, traj.done),
                        epsilon=self._epsilon(state.step))
         return state._replace(step=state.step + 1), metrics
 

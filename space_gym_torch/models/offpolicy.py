@@ -7,6 +7,13 @@ The rollout is the trainer's `PolicyRollout`: one captured CUDA graph on the
 card, a loop on the CPU.  Its policy reads the actor's parameters where they
 live: views of the fused state, which K4, K5 and K6 update in place, or the
 unfused parameter tensors, which `_update_once` updates in place.
+
+Under a mesh (the engine's, parallel/mesh.py) a rank rolls out its lanes,
+every rank samples the same global minibatch (models/replay.py) and runs the
+same update on it, so the learner state stays equal on every rank; the
+metrics that average over lanes are reduced over the data axis.  Parameter
+leaves that a model axis splits are gathered whole for the iteration
+(`with_whole_params`).
 """
 from __future__ import annotations
 
@@ -15,8 +22,10 @@ from typing import NamedTuple
 import torch
 
 from ..engine.core import EnvEngine, PolicyRollout
+from ..parallel.mesh import gather_model, split_model, trainer_state_shardings
 from .fused_sac import check_kernel_width
-from .replay import (Transition, replay_add_slab, replay_sample, replay_sample_rows)
+from .replay import (Transition, global_lanes, replay_add_slab, replay_rows, replay_sample,
+                     replay_sample_rows)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -57,6 +66,50 @@ def adam_update(grads, st: AdamState, lr: float):
     return upd, AdamState(count, mu, nu)
 
 
+def note_layout(trainer, state):
+    """`state`, fresh from `trainer.init`; under the trainer's mesh its
+    leaves' specs (parallel/mesh.py::trainer_state_shardings, on the whole
+    shapes) are kept in `trainer.shardings` for `with_whole_params`."""
+    if trainer.mesh is not None:
+        trainer.shardings = trainer_state_shardings(state, trainer.mesh, trainer.mesh.model_size)
+    return state
+
+
+def with_whole_params(trainer, state, step, refresh=None):
+    """`step(state)` -> (state, metrics) on whole parameters: under a model
+    axis the split leaves are gathered from the model sub-group first
+    (`refresh` then rebuilds what views them) and cut back to this rank's
+    columns after, so the math is the one-process math."""
+    mesh = trainer.mesh
+    if mesh is None or mesh.model_size == 1:
+        return step(state)
+    if trainer.shardings is None:
+        raise ValueError("a model-split state comes from this trainer's init(), then place()")
+    state = gather_model(state, trainer.shardings, mesh)
+    if refresh is not None:
+        state = refresh(state)
+    state, metrics = step(state)
+    return split_model(state, trainer.shardings, mesh), metrics
+
+
+def lane_randn(engine: EnvEngine, like: torch.Tensor, generator) -> torch.Tensor:
+    """Standard normals shaped like `like` (lanes first), drawn for the
+    global lanes under the engine's mesh (EnvEngine.draw_lanes)."""
+    return engine.draw_lanes(lambda s: torch.randn(
+        s, generator=generator, device=like.device, dtype=like.dtype), like.shape)
+
+
+def lane_mean(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The mean of a (T, lanes) tensor over every rank's lanes: the
+    gathered tensor's, in the one-process order."""
+    return x.mean() if mesh is None else mesh.all_gather(x, "data", dim=1).mean()
+
+
+def lane_sum(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of a (T, lanes) tensor over every rank's lanes."""
+    return x.sum() if mesh is None else mesh.all_gather(x, "data", dim=1).sum()
+
+
 class OffPolicyTrainer:
     """The loop around an off-policy learner on one EnvEngine, on the engine's
     device: the card unless the engine was made with `device="cpu"`.  A
@@ -75,6 +128,8 @@ class OffPolicyTrainer:
         self.engine = engine
         self.device = engine.device
         self.cfg = config
+        self.mesh = engine.mesh
+        self.shardings = None
         self.obs_dim = engine.obs_dim
         self.action_dim = engine.config.action_dim
         if config.fused_updates and self.action_dim != 2:
@@ -123,15 +178,22 @@ class OffPolicyTrainer:
         )
         return env_state, obs, slab, traj.reward, traj.done
 
+    def _ring_rows(self, state, row_idx):
+        """Under a mesh, the sampled rows of every rank's ring gathered into a
+        ring of the global lanes, and the indices of its rows."""
+        rows = replay_rows(state.replay, row_idx, self.mesh)
+        return rows, torch.arange(rows.shape[0], device=self.device)
+
     def _fused_minibatches(self, state, generator, row_idx, batches):
-        """What the fused entry points get for the K updates: (row_idx, None)
-        when minibatches are whole replay rows, so that the ring itself goes
-        to the kernel with the sampled rows ((K * batch // lanes,), may be
-        injected); else, or when `batches` (Transition, (K, B, ...) leaves) is
-        injected, (None, batches) with gathered minibatches."""
+        """What the fused entry points get for the K updates: (ring, row_idx,
+        None) when minibatches are whole replay rows, so that the ring itself
+        goes to the kernel with the sampled rows ((K * batch // lanes,), may
+        be injected; under a mesh the ring of those rows gathered over the
+        ranks); else, or when `batches` (Transition, (K, B, ...) leaves) is
+        injected, (None, None, batches) with gathered minibatches."""
         c = self.cfg
         K = c.updates_per_iter
-        lanes_r = state.replay.data.shape[2]
+        lanes_r = global_lanes(state.replay, self.mesh)
         bt = min(c.fused_block, lanes_r)
         from_ring = batches is None and (row_idx is not None or (
             c.batch_size % lanes_r == 0 and lanes_r % bt == 0))
@@ -140,15 +202,17 @@ class OffPolicyTrainer:
                 row_idx = torch.randint(0, max(state.replay.filled, 1),
                                         (K * (c.batch_size // lanes_r),), generator=generator,
                                         device=self.device)
-            return row_idx, None
+            if self.mesh is not None:
+                return (*self._ring_rows(state, row_idx), None)
+            return state.replay.data, row_idx, None
         if batches is None:
             total = K * c.batch_size
             if total % c.lanes == 0 and c.batch_size >= c.lanes:
-                big = replay_sample_rows(state.replay, generator, total)
+                big = replay_sample_rows(state.replay, generator, total, mesh=self.mesh)
             else:
-                big = replay_sample(state.replay, generator, total)
+                big = replay_sample(state.replay, generator, total, mesh=self.mesh)
             batches = Transition(*[x.reshape(K, c.batch_size, *x.shape[1:]) for x in big])
-        return None, batches
+        return None, None, batches
 
     def _slab_for_replay(self, slab, dones):
         """The rollout slab as it enters the ring."""
@@ -160,6 +224,10 @@ class OffPolicyTrainer:
 
     def train_iter(self, state, generator):
         """One rollout, one replay insert, `updates_per_iter` updates."""
+        refresh = self._refresh_from_fused if self.cfg.fused_updates else None
+        return with_whole_params(self, state, lambda s: self._train_iter(s, generator), refresh)
+
+    def _train_iter(self, state, generator):
         c = self.cfg
         with torch.no_grad():
             env_state, obs, slab, rewards, dones = self._rollout(state, generator)
@@ -179,7 +247,8 @@ class OffPolicyTrainer:
             else:
                 for _ in range(c.updates_per_iter):
                     state, metrics = self._update_once(state, generator)
-        metrics = dict(metrics, mean_reward=rewards.mean(), episodes_done=dones.sum(),
+        metrics = dict(metrics, mean_reward=lane_mean(self.mesh, rewards),
+                       episodes_done=lane_sum(self.mesh, dones),
                        **self._iter_metrics(state))
         return state._replace(step=state.step + 1), metrics
 

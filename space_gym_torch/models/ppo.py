@@ -20,6 +20,11 @@ Randomness comes from an explicit `torch.Generator` on the trainer's device
 (`PPOTrainer.generator(seed)`); `_update_epoch` also takes an injected
 permutation, so that a test can feed this package and the JAX package the
 same draws.
+
+Under a mesh (the engine's, parallel/mesh.py) a rank rolls out its lanes and
+the rollout batch is gathered over the data axis before GAE, so every rank
+shuffles and steps the same minibatches of the global batch and the
+parameters stay equal on every rank.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ from torch.func import functional_call
 
 from ..engine.core import EnvEngine, PolicyRollout
 from . import networks
-from .offpolicy import AdamState, adam_init, adam_update
+from .offpolicy import (AdamState, adam_init, adam_update, lane_randn, note_layout,
+                        with_whole_params)
 
 LANE_TILE = 128  # minibatch granularity, as in the JAX trainer
 
@@ -88,6 +94,8 @@ class PPOTrainer:
         self.engine = engine
         self.device = engine.device
         self.cfg = config
+        self.mesh = engine.mesh
+        self.shardings = None
         self.obs_dim = engine.obs_dim
         self.action_dim = engine.config.action_dim
         self.net = networks.GaussianActorValue(self.obs_dim, self.action_dim, config.hidden)
@@ -105,16 +113,15 @@ class PPOTrainer:
                                           generator=g)
         params = {k: v.detach().to(self.device) for k, v in net.state_dict().items()}
         env_state, obs = self.engine.reset(self.cfg.lanes, self.engine.generator(seed))
-        return PPOState(params=params, opt=adam_init(params), env_state=env_state, obs=obs,
-                        step=0)
+        return note_layout(self, PPOState(params=params, opt=adam_init(params),
+                                          env_state=env_state, obs=obs, step=0))
 
     # -------------------------------------------------------------- acting --
     def act(self, params, obs, generator=None):
         """A sampled action, clipped to [-1, 1]."""
         with torch.no_grad():
             mean, log_std, _ = functional_call(self.net, params, (obs,))
-            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                              dtype=mean.dtype)
+            eps = lane_randn(self.engine, mean, generator)
             return torch.clamp(mean + torch.exp(log_std) * eps, -1.0, 1.0)
 
     def eval_act(self, params, obs):
@@ -126,8 +133,7 @@ class PPOTrainer:
         """The rollout's policy: the clipped sample for the env; the unclipped
         sample, its log-probability and the value kept."""
         mean, log_std, value = functional_call(self.net, params, (obs,))
-        a = mean + torch.exp(log_std) * torch.randn(mean.shape, generator=generator,
-                                                    device=mean.device, dtype=mean.dtype)
+        a = mean + torch.exp(log_std) * lane_randn(self.engine, mean, generator)
         logp = networks.gaussian_logp(a, mean, log_std)
         return torch.clamp(a, -1.0, 1.0), {"action": a, "logp": logp, "value": value}
 
@@ -142,7 +148,8 @@ class PPOTrainer:
     def _rollout(self, state: PPOState, generator):
         """cfg.rollout_len on-policy steps; returns (env_state, obs, data)
         with (T, lanes, ...) leaves obs, action, logp, value, reward, nonterm,
-        nondone, final_value, and the dones."""
+        nondone, final_value, and the dones; under a mesh `data` and the
+        dones are the global lanes', gathered over the data axis."""
         env_state, obs, traj = self.collect(state.params, state.env_state, state.obs, generator)
         t_len, lanes = traj.reward.shape
         fv = self._value(state.params, traj.final_obs.reshape(t_len * lanes, -1))
@@ -153,7 +160,11 @@ class PPOTrainer:
                     nonterm=one - traj.terminated.to(one.dtype),
                     nondone=one - traj.done.to(one.dtype),
                     final_value=fv.reshape(t_len, lanes))
-        return env_state, obs, data, traj.done
+        done = traj.done
+        if self.mesh is not None:
+            data = {k: self.mesh.all_gather(v, "data", dim=1) for k, v in data.items()}
+            done = self.mesh.all_gather(done, "data", dim=1)
+        return env_state, obs, data, done
 
     def _gae(self, tr: dict):
         """Reverse GAE: the trace stops at every done (the next state is a new
@@ -208,6 +219,9 @@ class PPOTrainer:
 
     def train_iter(self, state: PPOState, generator):
         """One rollout, GAE, `epochs` epochs of minibatch updates."""
+        return with_whole_params(self, state, lambda s: self._train_iter(s, generator))
+
+    def _train_iter(self, state: PPOState, generator):
         c = self.cfg
         with torch.no_grad():
             env_state, obs, tr, dones = self._rollout(state, generator)

@@ -12,6 +12,12 @@ The ring is written IN PLACE (`replay_add_slab` copies a (T, W, lanes) slab
 into `data` and returns a state that shares it); `cursor` and `filled` are
 Python ints, since nothing here is traced.  Sampling takes an explicit
 `torch.Generator` or injected indices.
+
+Under a mesh (parallel/mesh.py) a rank's ring holds its block of the lanes.
+The samplers then draw the indices over the global lanes, alike on every
+rank, each rank takes the rows of the lanes it owns, and an `all_gather`
+over "data" picked by owner (never a sum with zeros, which would turn -0.0
+into +0.0) gives every rank the one-process minibatch, bit for bit.
 """
 from __future__ import annotations
 
@@ -163,28 +169,49 @@ def _randint(high: int, n: int, generator, device) -> torch.Tensor:
     return torch.randint(0, max(high, 1), (n,), generator=generator, device=device)
 
 
+def global_lanes(state: ReplayState, mesh=None) -> int:
+    """The lanes of the whole ring: the rank's times the data axis."""
+    return state.data.shape[2] * (1 if mesh is None else mesh.data_size)
+
+
 def replay_sample(state: ReplayState, generator, batch: int, row_idx=None,
-                  lane_idx=None) -> Transition:
+                  lane_idx=None, mesh=None) -> Transition:
     """Uniform sample of `batch` transitions from the filled region; the
-    (batch,) `row_idx` and `lane_idx` may be injected."""
+    (batch,) `row_idx` and `lane_idx` (global lanes) may be injected."""
     lanes = state.data.shape[2]
     dev = state.data.device
     if row_idx is None:
         row_idx = _randint(state.filled, batch, generator, dev)
     if lane_idx is None:
-        lane_idx = _randint(lanes, batch, generator, dev)
-    flat = state.data[row_idx, :, lane_idx]          # (batch, W)
+        lane_idx = _randint(global_lanes(state, mesh), batch, generator, dev)
+    if mesh is None:
+        flat = state.data[row_idx, :, lane_idx]          # (batch, W)
+    else:
+        # this rank's rows where it owns the lane (a clamped stand-in where
+        # not, never picked), every rank's gathered, then each by its owner
+        first = mesh.data_index * lanes
+        mine = state.data[row_idx, :, (lane_idx - first).clamp(0, lanes - 1)]
+        every = mesh.all_gather(mine, "data", dim=0).reshape(mesh.data_size, batch, -1)
+        flat = every[lane_idx // lanes, torch.arange(batch, device=dev)]
     return unpack_flat(flat, state.obs_dim, state.action_dim)
 
 
-def replay_sample_rows(state: ReplayState, generator, batch: int, row_idx=None) -> Transition:
+def replay_rows(state: ReplayState, row_idx: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The (n, W, lanes) rows `row_idx` of the ring, every lane of each:
+    under a mesh the ranks' blocks gathered along lanes, the global rows."""
+    rows = state.data[row_idx]
+    return rows if mesh is None else mesh.all_gather(rows, "data", dim=2)
+
+
+def replay_sample_rows(state: ReplayState, generator, batch: int, row_idx=None,
+                       mesh=None) -> Transition:
     """Row-granular uniform sample: batch // lanes random TIME ROWS (or the
     injected `row_idx`), every lane of each.  Lanes are independent episodes
     in lockstep, so a row is `lanes` iid transitions sharing the time index."""
-    _, w, lanes = state.data.shape
+    w, lanes = state.data.shape[1], global_lanes(state, mesh)
     if batch % lanes:
         raise ValueError(f"batch {batch} not divisible by lanes {lanes}")
     if row_idx is None:
         row_idx = _randint(state.filled, batch // lanes, generator, state.data.device)
-    flat = state.data[row_idx].transpose(1, 2).reshape(batch, w)
+    flat = replay_rows(state, row_idx, mesh).transpose(1, 2).reshape(batch, w)
     return unpack_flat(flat, state.obs_dim, state.action_dim)

@@ -28,7 +28,8 @@ from torch.func import functional_call
 
 from ..engine.core import EnvEngine
 from . import fused_sac, networks
-from .offpolicy import AdamState, OffPolicyTrainer, _add_, _tmap, adam_init, adam_update
+from .offpolicy import (AdamState, OffPolicyTrainer, _add_, _tmap, adam_init, adam_update,
+                        lane_randn, note_layout)
 from .replay import ReplayState, Transition, nstep_slab, replay_init, replay_sample
 
 
@@ -137,14 +138,16 @@ class SACTrainer(OffPolicyTrainer):
                                self.engine.dtype, dev),
             step=0,
         )
-        return self._refresh_from_fused(state) if c.fused_updates else state
+        return note_layout(self, self._refresh_from_fused(state) if c.fused_updates else state)
 
     # -------------------------------------------------------------- acting --
     def act(self, actor_params, obs, generator=None, eps=None):
         """A sampled action for every row of obs."""
         with torch.no_grad():
             mean, log_std = functional_call(self.actor, actor_params, (obs,))
-            return networks.sample_tanh_gaussian(mean, log_std, eps, generator)[0]
+            if eps is None:
+                eps = lane_randn(self.engine, mean, generator)
+            return networks.sample_tanh_gaussian(mean, log_std, eps)[0]
 
     def eval_act(self, actor_params, obs):
         """The deterministic action tanh(mean)."""
@@ -180,7 +183,7 @@ class SACTrainer(OffPolicyTrainer):
         critic's next action, [:, 1] for the actor's) may be injected."""
         c = self.cfg
         if batch is None:
-            batch = replay_sample(state.replay, generator, c.batch_size)
+            batch = replay_sample(state.replay, generator, c.batch_size, mesh=self.mesh)
         if noise is None:
             noise = torch.randn((batch.reward.shape[0], 2, self.action_dim), generator=generator,
                                 device=self.device)
@@ -236,10 +239,10 @@ class SACTrainer(OffPolicyTrainer):
                     # bfloat16-rounded products on the card, as the JAX trainer
                     # on a TPU; float32 on the CPU, as the JAX trainer off it
                     mm_bf16=self.device.type == "cuda")
-        row_idx, batches = self._fused_minibatches(state, generator, row_idx, batches)
+        ring, row_idx, batches = self._fused_minibatches(state, generator, row_idx, batches)
         if batches is None:
             fstate, closs, aloss = fs.fused_update_k_wmat(
-                state.fused, state.replay.data, row_idx, noises, **args)
+                state.fused, ring, row_idx, noises, **args)
         else:
             fstate, closs, aloss = fs.fused_update_k_wmat_batches(
                 state.fused, batches, noises, **args)

@@ -28,7 +28,8 @@ from torch.func import functional_call
 
 from ..engine.core import EnvEngine
 from . import fused_td3, networks
-from .offpolicy import AdamState, OffPolicyTrainer, _add_, _tmap, adam_init, adam_update
+from .offpolicy import (AdamState, OffPolicyTrainer, _add_, _tmap, adam_init, adam_update,
+                        lane_randn, note_layout)
 from .replay import ReplayState, Transition, replay_init, replay_sample
 
 
@@ -132,7 +133,7 @@ class TD3Trainer(OffPolicyTrainer):
             n_updates=0,
             step=0,
         )
-        return self._refresh_from_fused(state) if c.fused_updates else state
+        return note_layout(self, self._refresh_from_fused(state) if c.fused_updates else state)
 
     # -------------------------------------------------------------- acting --
     def act(self, actor_params, obs, generator=None, eps=None):
@@ -141,7 +142,7 @@ class TD3Trainer(OffPolicyTrainer):
         with torch.no_grad():
             a = functional_call(self.actor, actor_params, (obs,))
             if eps is None:
-                eps = torch.randn(a.shape, generator=generator, device=a.device, dtype=a.dtype)
+                eps = lane_randn(self.engine, a, generator)
             return torch.clamp(a + self.cfg.explore_std * eps, -1.0, 1.0)
 
     def eval_act(self, actor_params, obs):
@@ -176,7 +177,7 @@ class TD3Trainer(OffPolicyTrainer):
         and `noise` ((B, A) smoothing normals) may be injected."""
         c = self.cfg
         if batch is None:
-            batch = replay_sample(state.replay, generator, c.batch_size)
+            batch = replay_sample(state.replay, generator, c.batch_size, mesh=self.mesh)
         if noise is None:
             noise = torch.randn((batch.reward.shape[0], self.action_dim), generator=generator,
                                 device=self.device)
@@ -233,10 +234,10 @@ class TD3Trainer(OffPolicyTrainer):
                     # bfloat16-rounded products on the card, as the JAX trainer
                     # on a TPU; float32 on the CPU, as the JAX trainer off it
                     mm_bf16=self.device.type == "cuda")
-        row_idx, batches = self._fused_minibatches(state, generator, row_idx, batches)
+        ring, row_idx, batches = self._fused_minibatches(state, generator, row_idx, batches)
         if batches is None:
             fstate, closs, aloss = ft.fused_update_k_wmat(
-                state.fused, state.replay.data, row_idx, noises, **args)
+                state.fused, ring, row_idx, noises, **args)
         else:
             fstate, closs, aloss = ft.fused_update_k_wmat_batches(
                 state.fused, batches, noises, **args)

@@ -8,7 +8,10 @@ at pallas_full.py:500, pallas_call at :663) with `in_kernel_rng` False,
 "threefry" and "hw".  `FullStep.apply` takes the same (B, rows) operands as the
 JAX `apply` and returns the same ten component-major (rows, B) outputs; with
 an in-kernel source the `u` operand is the (2,) int32 tensor of the two key
-words' bits (ops/rng_plain.py::key_words), on the operands' device.  On CUDA
+words' bits (ops/rng_plain.py::key_words), on the operands' device, and
+`lane0` is the global index of lane 0 where the lanes are split over ranks
+(parallel/mesh.py): the generators draw for lanes lane0 .. lane0 + B - 1, so
+a rank's block is its columns of the one-process block.  On CUDA
 tensors it launches the kernel (float32 only) or raises; on CPU tensors it
 runs the plain twin (ops/full_step_plain.py), on the block of uniforms that
 ops/rng_plain.py makes from the key in the in-kernel modes.  There is no
@@ -57,6 +60,9 @@ def _lib(mode):
     fn = getattr(lib, entry)
     fn.argtypes = [p] + [i] * 5 + [p] * 7 + [i] + [p] * 11 + [i, p]
     fn.restype = i
+    at = getattr(lib, entry + "_at")  # the same with lane0 before the stream
+    at.argtypes = [p] + [i] * 5 + [p] * 7 + [i] + [p] * 11 + [i, i, p]
+    at.restype = i
     info = getattr(lib, entry + "_info")
     info.argtypes = [i] * 6 + [p]  # task, planets, tiles, cols, tableau, B, out
     info.restype = i
@@ -64,6 +70,9 @@ def _lib(mode):
         fl = getattr(lib, fill)
         fl.argtypes = [p, p, i, i, p]  # key, out, n_u, B, stream
         fl.restype = i
+        fa = getattr(lib, fill + "_at")
+        fa.argtypes = [p, p, i, i, i, p]  # key, out, n_u, B, lane0, stream
+        fa.restype = i
     return lib
 
 
@@ -120,12 +129,12 @@ class FullStep:
         row read once, each output row written once, 4 bytes each."""
         return 4 * (sum(self.in_rows()) + sum(self.out_rows()))
 
-    def apply(self, y, action, planets, goal, ref_orbit, col_shift, tili, u):
+    def apply(self, y, action, planets, goal, ref_orbit, col_shift, tili, u, lane0: int = 0):
         """(B, rows) operands (planets (B, P, 2); tili int32; u (B, n_u)
         uniforms in [0, 1), or the (2,) key words in an in-kernel mode) ->
         the ten component-major outputs."""
         return self.step_rows(*self.to_rows(y, action, planets, goal, ref_orbit, col_shift,
-                                            tili, u))
+                                            tili, u), lane0=lane0)
 
     @staticmethod
     def to_rows(y, action, planets, goal, ref_orbit, col_shift, tili, u):
@@ -136,10 +145,14 @@ class FullStep:
         ins = [y, action, planets.reshape(B, -1), goal, ref_orbit, col_shift, u, tili]
         return [t if t.dim() == 1 else t.t().contiguous() for t in ins]
 
-    def step_rows(self, y, a, p, g, r, cs, u, ti):
-        """Component-major (rows, B) operands -> outputs; the kernel's own API."""
+    def step_rows(self, y, a, p, g, r, cs, u, ti, lane0: int = 0):
+        """Component-major (rows, B) operands -> outputs; the kernel's own
+        API.  `lane0` (in-kernel modes only) is the global index of lane 0."""
         ins = (y, a, p, g, r, cs, u, ti)
         B = y.shape[1]
+        if lane0 < 0 or (lane0 and not self.rng):
+            raise ValueError(f"lane0={lane0}: a lane offset needs an in-kernel generator "
+                             "(a bulk draw is the rank's own block)")
         for t, rows, name in zip(ins, self.in_rows(), ("y", "a", "p", "g", "ref", "cs", "u", "ti")):
             if name == "u" and self.rng:
                 if tuple(t.shape) != (2,) or t.dtype != torch.int32:
@@ -157,23 +170,24 @@ class FullStep:
         if self.rng:
             if y.dtype != torch.float32:
                 raise TypeError(f"in_kernel_rng={self.rng!r} draws float32, got {y.dtype} operands")
-            if B * self.n_uniform_rows >= 1 << 32:
-                raise ValueError(f"B * n_u = {B * self.n_uniform_rows} does not fit the "
-                                 "generators' 32-bit counter")
+            if (lane0 + B) * self.n_uniform_rows >= 1 << 32:
+                raise ValueError(f"(lane0 + B) * n_u = {(lane0 + B) * self.n_uniform_rows} "
+                                 "does not fit the generators' 32-bit counter")
         if y.device.type == "cpu":
             if self.rng:
-                ins = ins[:6] + (self.plain_uniforms(u, B), ti)
+                ins = ins[:6] + (self.plain_uniforms(u, B, lane0), ti)
             return self.plain(*ins)
         if y.device.type != "cuda":
             raise ValueError(f"unsupported device {y.device}")
-        return self._launch(ins, B)
+        return self._launch(ins, B, lane0)
 
-    def plain_uniforms(self, key, B):
-        """The (n_u, B) block the kernel draws from `key` in this mode, from
-        the plain generator (ops/rng_plain.py)."""
-        return RNG_MODES[self.rng][3](key, B, self.n_uniform_rows)
+    def plain_uniforms(self, key, B, lane0: int = 0):
+        """The (n_u, B) block the kernel draws from `key` in this mode for
+        the lanes from global lane `lane0` on, from the plain generator
+        (ops/rng_plain.py)."""
+        return RNG_MODES[self.rng][3](key, B, self.n_uniform_rows, lane0)
 
-    def kernel_uniforms(self, key, B):
+    def kernel_uniforms(self, key, B, lane0: int = 0):
         """The same block written by a kernel through the device function the
         full-step kernel draws with; `key` (2,) int32 on a CUDA device."""
         if not self.rng:
@@ -183,8 +197,8 @@ class FullStep:
         out = torch.empty((self.n_uniform_rows, B), dtype=torch.float32, device=key.device)
         with torch.cuda.device(key.device):
             stream = torch.cuda.current_stream(key.device).cuda_stream
-            fill = getattr(_lib(self.rng), RNG_MODES[self.rng][2])
-            err = fill(key.data_ptr(), out.data_ptr(), self.n_uniform_rows, B, stream)
+            fill = getattr(_lib(self.rng), RNG_MODES[self.rng][2] + "_at")
+            err = fill(key.data_ptr(), out.data_ptr(), self.n_uniform_rows, B, lane0, stream)
         if err != 0:
             raise RuntimeError(f"fill_uniforms kernel launch failed: error {err}")
         return out
@@ -205,7 +219,7 @@ class FullStep:
             raise RuntimeError(f"full_step kernel info failed: error {err}")
         return dict(zip(self.INFO_KEYS, out))
 
-    def _launch(self, ins, B):
+    def _launch(self, ins, B, lane0=0):
         if ins[0].dtype != torch.float32:
             raise TypeError(f"the CUDA kernel takes float32, got {ins[0].dtype}")
         for t in ins:
@@ -217,12 +231,16 @@ class FullStep:
         outs += [torch.empty((rows, B), dtype=torch.int32, device=dev)
                  for rows in self.out_rows()[8:]]
         ptrs = [t.data_ptr() for t in ins]
+        # lane0 = 0 keeps the entry point without the offset, whose C interface
+        # builds of earlier checkouts share (k3_variants.py)
+        entry = RNG_MODES[self.rng][1] + ("_at" if lane0 else "")
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = getattr(_lib(self.rng), RNG_MODES[self.rng][1])(
+            err = getattr(_lib(self.rng), entry)(
                 ctypes.addressof(self.params), TASK_IDS[self.cfg.task], self.cfg.n_planets,
                 self.n_tiles, self.cols, TABLEAU_IDS[self.tableau],
-                *ptrs[:7], self.n_uniform_rows, ptrs[7], *[t.data_ptr() for t in outs], B, stream,
+                *ptrs[:7], self.n_uniform_rows, ptrs[7], *[t.data_ptr() for t in outs], B,
+                *((lane0,) if lane0 else ()), stream,
             )
         if err != 0:
             raise RuntimeError(f"full_step kernel launch failed: error {err}")

@@ -2,7 +2,8 @@
 
 Each maps two 32-bit key words to the `(n_rows, B)` float32 block of uniforms
 in [0, 1) that the full-step kernel draws for itself in that mode, row r of
-lane l being a function of (key, l, r) only:
+lane l being a function of (key, l, r) only; `lane0` shifts l to the global
+lane lane0 + l where the lanes are split over ranks (parallel/mesh.py):
 
 * threefry: threefry2x32 of counter (0, l * n_rows + r), the two output words
   XORed: the bits of `jax.random.uniform(key, (B, n_rows), float32).T`
@@ -53,9 +54,9 @@ def _mantissa_fill(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
-def _lane_row(B: int, n_rows: int, device):
+def _lane_row(B: int, n_rows: int, device, lane0: int = 0):
     row = torch.arange(n_rows, dtype=torch.int64, device=device)[:, None]
-    lane = torch.arange(B, dtype=torch.int64, device=device)[None, :]
+    lane = torch.arange(lane0, lane0 + B, dtype=torch.int64, device=device)[None, :]
     return lane, row
 
 
@@ -74,13 +75,16 @@ def threefry_bits(k0, k1, x1: torch.Tensor) -> torch.Tensor:
     return x0 ^ x1
 
 
-def threefry_uniform_matrix(key: torch.Tensor, B: int, n_rows: int) -> torch.Tensor:
+def threefry_uniform_matrix(key: torch.Tensor, B: int, n_rows: int,
+                            lane0: int = 0) -> torch.Tensor:
     """(n_rows, B) float32 uniforms, bit for bit `jax.random.uniform(key,
-    (B, n_rows), float32).T` for the key whose words `key` (2,) holds."""
-    if B * n_rows >= 1 << 32:
-        raise ValueError(f"B * n_rows = {B * n_rows} does not fit the 32-bit counter")
+    (lane0 + B, n_rows), float32).T[:, lane0:]` for the key whose words `key`
+    (2,) holds."""
+    if (lane0 + B) * n_rows >= 1 << 32:
+        raise ValueError(f"(lane0 + B) * n_rows = {(lane0 + B) * n_rows} does not fit the "
+                         "32-bit counter")
     k = _u64(key)
-    lane, row = _lane_row(B, n_rows, key.device)
+    lane, row = _lane_row(B, n_rows, key.device, lane0)
     return _mantissa_fill(threefry_bits(k[0], k[1], lane * n_rows + row))
 
 
@@ -106,12 +110,16 @@ def philox4x32(k0, k1, c0, c1, c2, c3, rounds: int = 10):
     return c0, c1, c2, c3
 
 
-def philox_uniform_matrix(key: torch.Tensor, B: int, n_rows: int) -> torch.Tensor:
+def philox_uniform_matrix(key: torch.Tensor, B: int, n_rows: int,
+                          lane0: int = 0) -> torch.Tensor:
     """(n_rows, B) float32 uniforms: row r of lane l is word r % 4 of
-    Philox4x32-10 at counter (l, r // 4, 0, 0) under the key's two words."""
+    Philox4x32-10 at counter (lane0 + l, r // 4, 0, 0) under the key's two
+    words."""
+    if lane0 + B > 1 << 32:
+        raise ValueError(f"lane0 + B = {lane0 + B} does not fit the 32-bit counter")
     k = _u64(key)
     n_blocks = (n_rows + 3) // 4
-    lane, blk = _lane_row(B, n_blocks, key.device)
+    lane, blk = _lane_row(B, n_blocks, key.device, lane0)
     zero = torch.zeros_like(lane + blk)
     words = philox4x32(k[0], k[1], lane + zero, blk + zero, zero, zero)
     bits = torch.stack(words, dim=1).reshape(4 * n_blocks, B)[:n_rows]

@@ -216,7 +216,8 @@ def test_vector_env_truncation_infos_and_option_names():
 
 def test_vector_field_and_physics_modes():
     """tests/test_aux.py::test_gym_adapter_spaces_and_vector_field; the
-    native C++ mode is not ported and says so."""
+    native C++ mode builds, or raises its build error (tests/test_torch_native.py
+    holds its bits)."""
     env = make("KeplerEllipseHard-v0", physics="host")
     assert env.observation_space.shape == (10,) and env.action_space.shape == (2,)
     env.seed(0)
@@ -224,8 +225,13 @@ def test_vector_field_and_physics_modes():
     deriv = env.vector_field(np.array([0.0, 0.0], np.float32))
     assert deriv.shape == (6,)
     np.testing.assert_allclose(deriv[:2], env._state_vec[3:5])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make("GoalContinuous2P-v0", physics="native")
+    from space_gym_torch.parity import native
+
+    if native.is_available():
+        assert make("GoalContinuous2P-v0", physics="native")._physics_mode == "native"
+    else:
+        with pytest.raises(RuntimeError, match="native solver unavailable"):
+            make("GoalContinuous2P-v0", physics="native")
     with pytest.raises(ValueError):
         make("GoalContinuous2P-v0", physics="pallas")
 

@@ -885,3 +885,63 @@ def test_cuda_vector_env_launches_k3_once_a_step():
     assert obs.shape == (4096, venv.config.obs_dim) and np.isfinite(obs).all()
     assert len(infos) == 4096 and all(("terminal_observation" in i) == d
                                       for i, d in zip(infos, dones))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["threefry", "philox"])
+def test_cuda_keyed_full_step_at_a_lane_offset(mode):
+    """K3-tf and K3-hw at lane0 (a rank's block of lanes split over ranks):
+    every output bit for bit the same lanes of an offset-0 launch of the
+    whole width, and within the usual tolerances of the plain twin at the
+    same offset; the generator's block at the offset bit for bit its plain
+    version's."""
+    _need_card()
+    cfg = get_config("GoalContinuous2P-v0")
+    full = FullStep(cfg, 1, 8, "bs3", in_kernel_rng=mode)
+    B, lane0 = 4099, 4097
+    rows = [t.cuda() for t in pattern_operands(cfg, lane0 + B, seed=9)]
+    key = key_words([0x5EED0003, 0x0000C0DE], "cuda")
+    rows[6] = key
+    wide = full.step_rows(*rows)
+    block = [t[:, lane0:].contiguous() if t.dim() == 2 else t for t in rows]
+    got = full.step_rows(*block, lane0=lane0)
+    for w, g in zip(wide, got):
+        assert torch.equal(w[:, lane0:], g)
+    assert torch.equal(full.kernel_uniforms(key, B, lane0).cpu(),
+                       full.plain_uniforms(key.cpu(), B, lane0))
+    want = full.step_rows(*[t.cpu() for t in block], lane0=lane0)
+    assert torch.equal(got[-1].cpu(), want[-1]) and torch.equal(got[-2].cpu(), want[-2])
+    for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
+        tol = TOL_REWARD if i == 7 else TOL_STATE
+        assert torch.allclose(g.cpu(), w, rtol=0, atol=tol, equal_nan=True), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", [False, True], ids=["k4", "k5"])
+def test_cuda_world_one_mesh_equals_the_unsharded_trainer(fold):
+    """A fused SAC trainer under a one-rank mesh (no process group) on the
+    card, its state made and placed as a sharded run does, equals the
+    unsharded trainer after three train_iters, every leaf bit for bit: the
+    gathered ring of the sampled rows gives the kernel what the ring and
+    the row indices give it."""
+    _need_card()
+    from space_gym_torch.parallel import make_mesh, place, trainer_state_shardings
+    from space_gym_torch.parallel.mesh import tree_map
+
+    cfg = SACConfig(lanes=256, rollout_len=4, replay_rows=64, batch_size=1024,
+                    updates_per_iter=2, warmup_rows=4, fused_updates=True, fused_fold=fold)
+    states = []
+    for mesh in (None, make_mesh()):
+        tr = SACTrainer(EnvEngine(get_config("GoalContinuous2P-v0"), mesh=mesh), cfg)
+        st = tr.init(0)
+        if mesh is not None:
+            st = place(st, trainer_state_shardings(st, mesh), mesh)
+        g = tr.generator(1)
+        for _ in range(3):
+            st, _ = tr.train_iter(st, g)
+        out = []
+        tree_map(lambda x: out.append(x.cpu() if isinstance(x, torch.Tensor) else x), st)
+        states.append(out)
+    assert states[0][-1] == states[1][-1] and len(states[0]) == len(states[1])
+    for a, b in zip(*states):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b

@@ -61,6 +61,8 @@ def _build(out_dir: str):
         getattr(lib, fn).restype = i
         getattr(lib, fn + "_info").argtypes = [i] * 6 + [p]
         getattr(lib, fn + "_info").restype = i
+        getattr(lib, fn + "_at").argtypes = [p] + [i] * 5 + [p] * 7 + [i] + [p] * 11 + [i, i, p]
+        getattr(lib, fn + "_at").restype = i
     lib.host_set_sms.argtypes = [i]
     return lib
 
@@ -70,7 +72,7 @@ def host_lib(tmp_path_factory):
     return _build(str(tmp_path_factory.getbasetemp()))
 
 
-def host_step(lib, full, rows, sms):
+def host_step(lib, full, rows, sms, lane0=0):
     """What FullStep._launch does on the card, through the host build: the
     outputs poisoned first (NaN, and -777 for the integer rows)."""
     B = rows[0].shape[1]
@@ -78,10 +80,12 @@ def host_step(lib, full, rows, sms):
     outs = [torch.full((r, B), float("nan")) for r in full.out_rows()[:8]]
     outs += [torch.full((r, B), -777, dtype=torch.int32) for r in full.out_rows()[8:]]
     lib.host_set_sms(sms)
-    err = getattr(lib, ENTRY[full.rng])(
+    entry = ENTRY[full.rng] + ("_at" if lane0 else "")
+    err = getattr(lib, entry)(
         ctypes.addressof(full.params), TASK_IDS[full.cfg.task], full.cfg.n_planets, full.n_tiles,
         full.cols, TABLEAU_IDS[full.tableau], *[t.data_ptr() for t in rows[:7]],
-        full.n_uniform_rows, rows[7].data_ptr(), *[t.data_ptr() for t in outs], B, None)
+        full.n_uniform_rows, rows[7].data_ptr(), *[t.data_ptr() for t in outs], B,
+        *((lane0,) if lane0 else ()), None)
     assert err == 0
     return outs
 
@@ -149,3 +153,26 @@ def test_host_built_full_step_when_the_lists_fill(host_lib, env_id):
     for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
         tol = TOL_REWARD if i == 7 else TOL_STATE
         assert torch.allclose(g, w, rtol=0, atol=tol, equal_nan=True), i
+
+
+@pytest.mark.parametrize("rng", ["threefry", "philox"])
+def test_host_built_full_step_at_a_lane_offset(host_lib, rng):
+    """K3-tf and K3-hw at lane0 (the `_at` entry points: a rank's block of
+    lanes split over ranks) hold to the plain twin at the same offset, and
+    the twin to the same lanes of an offset-0 step of the whole width."""
+    cfg = get_config("GoalContinuous2P-v0")
+    full = FullStep(cfg, 1, 8, "bs3", in_kernel_rng=rng)
+    B, lane0 = 676, 677
+    rows = pattern_operands(cfg, lane0 + B, seed=5)
+    rows[6] = key_words([0x5EED0002, 0x0000C0DE])
+    wide = full.step_rows(*rows)
+    block = [t[:, lane0:].contiguous() if t.dim() == 2 else t for t in rows]
+    want = full.step_rows(*block, lane0=lane0)
+    for w, g in zip(wide, want):
+        assert torch.equal(w[:, lane0:], g)
+    got = host_step(host_lib, full, block, 2, lane0=lane0)
+    assert torch.equal(got[-1], want[-1]) and torch.equal(got[-2], want[-2])
+    for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
+        tol = TOL_REWARD if i == 7 else TOL_STATE
+        assert torch.allclose(g, w, rtol=0, atol=tol, equal_nan=True), i
+    assert want[-1][2].sum() > 20  # resets drew from the offset stream
