@@ -94,8 +94,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      on the card, flags against the CPU on >= 99.9% of lanes, every output
      finite, and a bang-bang rollout at 512 lanes (2000 steps through K3,
      64 through "fixed", whose plain tail takes about 0.1 s a step);
+  7g. the device parity tier (`parity_path`, no kernel): the numpy-exact
+     library (ops/exact.py) built with g++, the tiling twin's sampler oracle
+     on the card (3 Goal configs x 4 seeds x 20 resamples, bitwise against
+     HostTiling), all 14 golden files replayed through the parity engine on
+     the card (flags equal on every step and errors <= 1e-10; the bitwise
+     counts, ms per step and host round trips per step printed), then the
+     same 14 files on the CPU, every step bitwise;
   8. a JSON line of the bench line and the train_iter times, one of phases
-     7c-7f, a `kernels`
+     7c-7f, one of phase 7g, a `kernels`
      JSON line (K1, K2, K3, K3-tf, K3-hw, K4, K5, K6), the card line again,
      and the final {"ok": true, "device": ...} line.
 
@@ -121,6 +128,10 @@ compute the same bits.
     python3 chip_smoke.py --scale-worker RANK N PORT
 
 is one rank of phase 7c's two-process run (the phase starts both).
+
+    python3 chip_smoke.py --parity
+
+runs phase 7g alone (no kernel is built).
 
     python3 chip_smoke.py --phase-clock
 
@@ -2605,6 +2616,69 @@ def native_path(dev, card):
     return dict(steps=n, bitwise=equal, has_blas=blas, ms_step=ms, solve_ms=solve_ms)
 
 
+# ----------------------------------------------------------- parity path --
+def parity_path(dev, card):
+    """The device parity tier (parity/device_replay.py): the parity engine's
+    tensors on `dev`, its numpy-exact ops through the host library (a round
+    trip per op on the card).  The library's build, the tiling twin's
+    sampler oracle on `dev` (bitwise), the 14 golden files replayed on `dev`
+    (flags on every step, errors <= TOL_GOLDEN; bitwise is the aim and the
+    counts say how far it got), then on the CPU, where every step must be
+    bitwise: the tier's contract on this machine."""
+    from space_gym_torch.ops import exact
+    from space_gym_torch.parity import device_replay
+    from space_gym_torch.utils.native_build import openblas_path
+
+    t0 = time.perf_counter()
+    exact.load()
+    print(f"parity: sgt_exactmath built and loaded in {time.perf_counter() - t0:.1f} s; "
+          f"OpenBLAS {openblas_path()}", flush=True)
+    t0 = time.perf_counter()
+    oracle = device_replay.sampler_oracle(device=dev)
+    print(f"parity: sampler oracle on {dev}: {json.dumps(oracle)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not oracle["ok"]:
+        fail(f"the tiling twin differs from HostTiling on {dev}: {oracle}")
+    out = {"sampler_oracle": oracle["sampler_oracle"]}
+    for where in (dev, "cpu"):
+        files, t0 = [], time.perf_counter()
+        for env_id in device_replay.GOLDEN_IDS:
+            for subset in device_replay.GOLDEN_SETS:
+                st = device_replay.replay(env_id, subset, device=where)
+                st["round_trips_per_step"] = st["host_round_trips"] / st["steps"]
+                files.append(st)
+                print(f"parity {where}: {env_id} {st['subset']}: {st['steps']} steps, bitwise "
+                      f"state {st['state_bitwise']} obs {st['obs_bitwise']} reward "
+                      f"{st['reward_bitwise']}, flags equal {st['flag_match']}; max|err| state "
+                      f"{st['max_state_err']:.3g} obs {st['max_obs_err']:.3g} reward "
+                      f"{st['max_reward_err']:.3g}; {st['ms_per_step']:.3f} ms/step, "
+                      f"{st['round_trips_per_step']:.1f} host round trips/step"
+                      + (f"; first mismatches {st['mismatches'][:3]}" if "mismatches" in st
+                         else ""), flush=True)
+                if st["flag_match"] != st["steps"] or not max(
+                        st["max_state_err"], st["max_obs_err"], st["max_reward_err"]) <= TOL_GOLDEN:
+                    fail(f"the parity replay on {where} left the golden: {st}")
+                if where == "cpu" and not st["bitwise"]:
+                    fail(f"the parity replay on the CPU is not bitwise: {st}")
+        steps = sum(f["steps"] for f in files)
+        summary = {k: sum(f[k] for f in files)
+                   for k in ("steps", "state_bitwise", "obs_bitwise", "reward_bitwise",
+                             "flag_match", "host_round_trips")}
+        summary.update(seconds=time.perf_counter() - t0,
+                       ms_per_step=sum(f["ms_per_step"] * f["steps"] for f in files) / steps,
+                       bitwise_files=sum(f["bitwise"] for f in files),
+                       max_state_err=max(f["max_state_err"] for f in files),
+                       max_obs_err=max(f["max_obs_err"] for f in files),
+                       max_reward_err=max(f["max_reward_err"] for f in files),
+                       files={f"{f['env_id']} {f['subset']}": [
+                           f["steps"], f["state_bitwise"], f["obs_bitwise"], f["reward_bitwise"],
+                           f["ms_per_step"], f["round_trips_per_step"]] for f in files})
+        print(f"parity {where} ({card}): {summary['bitwise_files']} of {len(files)} files "
+              f"bitwise, {steps} steps in {summary['seconds']:.1f} s", flush=True)
+        out["cpu" if where == "cpu" else "card"] = summary
+    return out
+
+
 # ---------------------------------------------------------- replay agent path --
 REPLAY_CKPT = "docs/goal2p_sac_best.npz"
 REPLAY_OUT = os.path.join("build", "replays")  # gitignored
@@ -2782,6 +2856,9 @@ def main():
         print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(reports)}", flush=True)
         env_bits(dev, card)
         return
+    if sys.argv[1:] == ["--parity"]:
+        print(json.dumps({"parity": parity_path(dev, card)}), flush=True)
+        return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
 
@@ -2860,11 +2937,12 @@ def main():
     # ------------------------------------------------ 7b. the bench entry --
     bench = bench_run(card)
 
-    # ------------------------- 7c-7f. scale-out, native, replay and fuzzing --
+    # ------------- 7c-7g. scale-out, native, replay, fuzzing and the parity tier --
     scale = scale_path(dev, card)
     natives = native_path(dev, card)
     replay = replay_agent_path(card)
     fuzz = fuzz_path(dev, card)
+    parity = parity_path(dev, card)
 
     # ------------------------------------------------------ 8. the lines --
     # launches: K3, K3-tf and K3-hw from their captured main-path runs (a
@@ -2941,6 +3019,7 @@ def main():
     print(json.dumps({"adaptive": adaptive, "adapters": adapters}), flush=True)
     print(json.dumps({"scale": scale, "native": natives, "replay_agent": replay, "fuzz": fuzz}),
           flush=True)
+    print(json.dumps({"parity": parity}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -32,7 +32,11 @@ nothing of it (nor of jax).  Public surface of this slice:
                                   integrator (physics="host") and the JAX
                                   package's option names (compat/options.py)
   * space_gym_torch.parity      — the native C++ host runtime
-                                  (physics="native", built with g++)
+                                  (physics="native", built with g++) and
+                                  the device parity tier: the goldens
+                                  replayed bit for bit through the engine
+                                  (parity/device_replay.py, on ops/exact.py
+                                  and tiling/device_exact.py)
   * space_gym_torch.render      — the adapter's renderer (PIL, lazily)
   * python -m space_gym_torch.train / .bench — the training CLI and the
                                   headline benchmark

@@ -1,10 +1,23 @@
 #pragma once
 // Stand-in for the CUDA runtime, for running a kernel's LOGIC on the CPU with
-// a host compiler (g++ -std=c++20 -I this directory): one OS thread per CUDA
-// thread, __syncthreads, warp shuffles, ballots and the grid barrier as real
-// barriers, shared memory as one array per block.  It says nothing about
-// registers, memory coherence or speed; it finds wrong indices, missing
-// barriers and wrong arithmetic where there is no card.  Used by
+// a host compiler (g++ -std=c++20 -I this directory): one fiber (one OS
+// thread off x86-64) per CUDA thread, __syncthreads, warp shuffles, ballots
+// and the grid barrier as real barriers, shared memory as one array per
+// block.  It says nothing about registers, memory coherence or speed; it
+// finds wrong indices, missing barriers and wrong arithmetic where there is
+// no card.
+//
+// Fibers: every CUDA thread of a launch runs on the launching OS thread, on
+// a stack of its own, and gives way only where it waits at a barrier; the
+// last member to arrive releases the others, in arrival order on even
+// phases and in reverse on odd ones, so a read that misses its barrier sees
+// the writer's value in one order and the unwritten NaN of the shared
+// memory in the other.  A launch costs one core, however loaded the
+// machine: with an OS thread per CUDA thread a barrier needs every member
+// scheduled, and the same cases took ten times as long on a machine busy
+// with other processes.  Threads left waiting when no fiber is ready are a
+// deadlock, and abort.  Fibers are x86-64 only; elsewhere the OS threads
+// run.  Used by
 // tests/test_torch_sac_kernel_host.py through sac_update_host.cpp, by
 // tests/test_torch_td3_kernel_host.py through td3_update_host.cpp and by
 // tests/test_torch_full_step_host.py through full_step_host.cpp and by
@@ -19,6 +32,9 @@
 #include <algorithm>
 #include <bit>
 #include <cstdlib>
+#include <cstdio>
+#include <deque>
+#include <functional>
 #define __host__
 #define __constant__
 #define __device__
@@ -41,16 +57,25 @@ struct dim3 { unsigned x = 1, y = 1, z = 1; dim3(unsigned a = 1) : x(a) {} };
 struct WarpX {
     struct Lane { const void* ptr; unsigned reg[6]; } lane[2][32];
 };
-// A barrier of n threads that yields a while and then sleeps: with many more
-// threads than cores a warp or block barrier mostly completes while its
-// members yield to each other, without a sleep and a wake-up in the kernel
-// per member; a member that waits longer (a loaded machine) sleeps on the
-// atomic and leaves the cores to other processes.
+// A barrier of n threads.  Fibers park on it (fiber_arrive).  OS threads
+// yield a while and then sleep: with many more threads than cores a warp or
+// block barrier mostly completes while its members yield to each other,
+// without a sleep and a wake-up in the kernel per member; a member that
+// waits longer (a loaded machine) sleeps on the atomic and leaves the cores
+// to other processes.
+struct Barrier;
+inline bool fiber_running();
+inline void fiber_arrive(Barrier& b);
 struct Barrier {
     std::atomic<int> count{0}, phase{0};
     const int n;
+    std::vector<int> waiting;  // fibers: the members parked here, in arrival order
     explicit Barrier(int n_) : n(n_) {}
     void arrive_and_wait() {
+        if (fiber_running()) {
+            fiber_arrive(*this);
+            return;
+        }
         constexpr int yields = 16;
         const int ph = phase.load(std::memory_order_acquire);
         if (count.fetch_add(1, std::memory_order_acq_rel) == n - 1) {
@@ -131,6 +156,126 @@ template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline float* host_shared_memory() { return tctx.smem; }
+// ---- fibers (x86-64): a stack switch that saves the callee-saved registers.
+#if defined(__x86_64__)
+extern "C" void sg_fiber_switch(void** save_sp, void* to_sp);
+asm(R"(
+.text
+.globl sg_fiber_switch
+.type sg_fiber_switch, @function
+sg_fiber_switch:
+    pushq %rbp
+    pushq %rbx
+    pushq %r12
+    pushq %r13
+    pushq %r14
+    pushq %r15
+    movq %rsp, (%rdi)
+    movq %rsi, %rsp
+    popq %r15
+    popq %r14
+    popq %r13
+    popq %r12
+    popq %rbx
+    popq %rbp
+    ret
+.size sg_fiber_switch, .-sg_fiber_switch
+)");
+constexpr bool kFibers = true;
+#else
+inline void sg_fiber_switch(void**, void*) { std::abort(); }
+constexpr bool kFibers = false;
+#endif
+
+struct Fiber {
+    void* sp = nullptr;
+    ThreadCtx ctx{};
+    std::function<void()> body;
+    bool done = false;
+};
+struct FiberRun {
+    std::vector<Fiber> fibers;
+    std::deque<int> ready;  // fibers to run, in order
+    void* sched_sp = nullptr;
+    int cur = 0;
+};
+inline thread_local FiberRun* g_fibers = nullptr;
+inline bool fiber_running() { return g_fibers != nullptr; }
+
+// A member parks at the barrier and gives way; the last one to arrive
+// releases the others to run after what is ready now, in arrival order on
+// even phases and the reverse on odd ones, and goes on.
+inline void fiber_arrive(Barrier& b) {
+    FiberRun* r = g_fibers;
+    const int ph = b.phase.load(std::memory_order_relaxed);
+    if (b.count.fetch_add(1, std::memory_order_relaxed) == b.n - 1) {
+        b.count.store(0, std::memory_order_relaxed);
+        b.phase.store(ph + 1, std::memory_order_relaxed);
+        if (ph % 2) std::reverse(b.waiting.begin(), b.waiting.end());
+        r->ready.insert(r->ready.end(), b.waiting.begin(), b.waiting.end());
+        b.waiting.clear();
+        return;
+    }
+    b.waiting.push_back(r->cur);
+    Fiber& f = r->fibers[r->cur];
+    f.ctx = tctx;
+    sg_fiber_switch(&f.sp, r->sched_sp);
+    tctx = r->fibers[r->cur].ctx;
+}
+
+[[noreturn]] inline void fiber_entry() {
+    FiberRun* r = g_fibers;
+    Fiber& f = r->fibers[r->cur];
+    f.body();
+    f.done = true;
+    sg_fiber_switch(&f.sp, r->sched_sp);
+    std::abort();  // a finished fiber is never resumed
+}
+
+// Runs body(b, t) for every thread (block b, thread t) as fibers; returns
+// after all have ended.
+template <class Body>
+void run_fibers(int G, int T, Body body) {
+    constexpr size_t kStack = 1 << 20;  // virtual; a page is committed where touched
+    const int n = G * T;
+    char* stacks = static_cast<char*>(std::malloc(size_t(n) * kStack));
+    if (!stacks) std::abort();
+    FiberRun run;
+    run.fibers.resize(n);
+    for (int i = 0; i < n; i++) {
+        Fiber& f = run.fibers[i];
+        f.body = [&body, i, T] { body(i / T, i % T); };
+        // the initial frame: six zero registers, then fiber_entry as the
+        // return address, with rsp = 8 mod 16 on entry as a call leaves it
+        uintptr_t top = reinterpret_cast<uintptr_t>(stacks + (i + 1) * kStack) & ~uintptr_t(15);
+        void** sp = reinterpret_cast<void**>(top) - 2;
+        sp[1] = nullptr;
+        sp[0] = reinterpret_cast<void*>(&fiber_entry);
+        sp -= 6;
+        for (int k = 0; k < 6; k++) sp[k] = nullptr;
+        f.sp = sp;
+        run.ready.push_back(i);
+    }
+    FiberRun* outer = g_fibers;
+    const ThreadCtx saved = tctx;
+    g_fibers = &run;
+    int ended = 0;
+    while (!run.ready.empty()) {
+        run.cur = run.ready.front();
+        run.ready.pop_front();
+        sg_fiber_switch(&run.sched_sp, run.fibers[run.cur].sp);
+        ended += run.fibers[run.cur].done;  // else it parked at a barrier
+    }
+    if (ended != n) {
+        std::fprintf(stderr, "launch_emul: deadlock, %d of %d threads wait at a barrier\n",
+                     n - ended, n);
+        std::abort();
+    }
+    g_fibers = outer;
+    tctx = saved;
+    std::free(stacks);
+}
+
 template <class A>
 cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, size_t smem) {
     A args = *static_cast<A*>(params[0]);
@@ -145,20 +290,24 @@ cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, siz
         bbar.emplace_back(new Barrier(T));
         for (int w = 0; w < nw; w++) wbar.emplace_back(new Barrier(std::min(32, T - 32 * w)));
     }
+    auto thread_body = [&](int b, int t) {
+        tctx.tid = dim3(t); tctx.bid = dim3(b); tctx.bdim = block; tctx.gdim = grid;
+        tctx.block_bar = bbar[b].get(); tctx.grid_bar = &gbar;
+        tctx.warp_bar = wbar[b * nw + t / 32].get();
+        tctx.warp_slots = slots[b * nw + t / 32].data();
+        tctx.warp_bits = bits[b * nw + t / 32].data();
+        tctx.smem = sm[b].data();
+        tctx.warpx = &xch[b * nw + t / 32];
+        tctx.xhalf = 0;
+        fn(args);
+    };
+    if (kFibers) {
+        run_fibers(G, T, thread_body);
+        return 0;
+    }
     std::vector<std::thread> th;
     for (int b = 0; b < G; b++)
-        for (int t = 0; t < T; t++)
-            th.emplace_back([&, b, t] {
-                tctx.tid = dim3(t); tctx.bid = dim3(b); tctx.bdim = block; tctx.gdim = grid;
-                tctx.block_bar = bbar[b].get(); tctx.grid_bar = &gbar;
-                tctx.warp_bar = wbar[b * nw + t / 32].get();
-                tctx.warp_slots = slots[b * nw + t / 32].data();
-                tctx.warp_bits = bits[b * nw + t / 32].data();
-                tctx.smem = sm[b].data();
-                tctx.warpx = &xch[b * nw + t / 32];
-                tctx.xhalf = 0;
-                fn(args);
-            });
+        for (int t = 0; t < T; t++) th.emplace_back(thread_body, b, t);
     for (auto& x : th) x.join();
     return 0;
 }

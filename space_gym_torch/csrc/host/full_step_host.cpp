@@ -1,6 +1,6 @@
 // K3, K3-tf and K3-hw (../full_step.cuh) compiled for the CPU against the
 // stand-in headers of this directory: the three C entry points as on the
-// card, the persistent grid's blocks as OS threads.  Build:
+// card, the persistent grid's threads as fibers.  Build:
 //   g++ -std=c++20 -O1 -ffp-contract=off -shared -fPIC -pthread -I <this directory> -o libfull_step_host.so full_step_host.cpp
 #include "../full_step.cuh"
 

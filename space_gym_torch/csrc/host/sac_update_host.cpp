@@ -1,6 +1,6 @@
 // K4 and K5 (../sac_update.cuh) compiled for the CPU against the stand-in
 // headers of this directory: both C entry points in one library, the
-// cooperative launch as OS threads, the tensor-core instructions of the bf16
+// cooperative launch as fibers, the tensor-core instructions of the bf16
 // mode emulated lane by lane (mma_emul.h).  Build:
 //   g++ -std=c++20 -O1 -shared -fPIC -pthread -I <this directory> -o libsac_update_host.so sac_update_host.cpp
 #include "../sac_update.cuh"

@@ -1,6 +1,6 @@
 // K6 (../td3_update.cuh) compiled for the CPU against the stand-in headers of
 // this directory: the C entry points as on the card, the cooperative launch as
-// OS threads.  Build:
+// fibers.  Build:
 //   g++ -std=c++20 -O1 -shared -fPIC -pthread -I <this directory> -o libtd3_update_host.so td3_update_host.cpp
 #include "../td3_update.cuh"
 

@@ -73,7 +73,7 @@ from ..envs import dnc_math, goal_math, kepler_math
 from ..envs.config import (DISCRETE_ACTIONS, TASK_DO_NOT_CRASH, TASK_GOAL, TASK_KEPLER,
                            EnvConfig)
 from ..ops import events as events_mod
-from ..ops import field, fixed_rk, rk45
+from ..ops import exact, field, fixed_rk, rk45
 from ..ops.constants import G
 from ..ops.env_step import EnvStep
 from ..ops.full_step import FullStep, normalize_rng_mode
@@ -555,7 +555,7 @@ class EnvEngine:
         """Velocity and clipped spin of a fresh ship."""
         vel = rs.normal(2).to(self.dtype) * vel_scale
         max_w = 0.7 * self.config.max_abs_vel_angle
-        w = torch.clamp(rs.normal().to(self.dtype) * max_w / w_div, -max_w, max_w)
+        w = torch.clamp(exact.divc(rs.normal().to(self.dtype) * max_w, w_div), -max_w, max_w)
         return vel, w
 
     def _reset_goal(self, rs: RandSource):
@@ -580,7 +580,7 @@ class EnvEngine:
         dtype = self.dtype
         planet_angle = rs.uniform(maxval=2 * torch.pi).to(dtype)
         dist = rs.uniform(minval=k.planet_radius + 0.5, maxval=k.border_radius - 0.5).to(dtype)
-        pos = torch.stack([torch.cos(planet_angle), torch.sin(planet_angle)], dim=1) * dist[:, None]
+        pos = torch.stack([exact.cos(planet_angle), exact.sin(planet_angle)], dim=1) * dist[:, None]
         ship_angle = rs.uniform(maxval=2 * torch.pi).to(dtype)
         B, dev = pos.shape[0], pos.device
         if k.randomize:
@@ -602,7 +602,7 @@ class EnvEngine:
         dtype = self.dtype
         planet_angle = rs.uniform(maxval=2 * torch.pi).to(dtype)
         dist = rs.uniform(minval=d.planet_radius + 0.2, maxval=d.border_radius - 0.15).to(dtype)
-        pos = torch.stack([torch.cos(planet_angle), torch.sin(planet_angle)], dim=1) * dist[:, None]
+        pos = torch.stack([exact.cos(planet_angle), exact.sin(planet_angle)], dim=1) * dist[:, None]
         ship_angle = rs.uniform(maxval=2 * torch.pi).to(dtype)
         vel, w = self._kinematics(rs, 0.07, 3)
         y = torch.cat([pos, ship_angle[:, None], vel, w[:, None]], dim=1)
@@ -714,9 +714,12 @@ class EnvEngine:
         last_dist = norm2(state.goal_pos - last_xy)
         goal_vel_reward = (last_dist - cur_dist) * p.distance_fctr
 
+        # the reference's closest-planet scan squares numpy SCALARS
+        # (goal.py:204-227): libm pow in the parity mode, not x*x, and the
+        # IEEE sqrt
         def scalar_dist(a, b):
             d = a - b
-            return torch.sqrt(d[..., 0] ** 2 + d[..., 1] ** 2)
+            return exact.sqrt(exact.powf(d[..., 0], 2) + exact.powf(d[..., 1], 2))
 
         dists = scalar_dist(pos[:, None, :], state.planets_pos)          # (B, P)
         mindist, closest = dists.min(dim=1)
@@ -742,9 +745,11 @@ class EnvEngine:
         """_dense_reward5 (kepler.py:111-150)."""
         k = self.config.kepler
         ref = state.ref_orbit
+        # np.linalg.norm(last_action): float32 sdot for continuous actions
+        xp = exact.exact_xp if exact.enabled() else kepler_math.TORCH_OPS
         return kepler_math.dense_reward(
             self._alpha_gm, y[:, 0:2], y[:, 3:5], norm2(action), ref[:, 0], ref[:, 2], ref[:, 1],
-            k.numerator_C, k.rad_penalty_C, k.act_penalty_C,
+            k.numerator_C, k.rad_penalty_C, k.act_penalty_C, xp,
         ).to(self.dtype)
 
     # ---------------------------------------------------------- observation --
@@ -754,7 +759,8 @@ class EnvEngine:
         cfg = self.config
         y = state.y
         pos = y[:, 0:2]
-        parts = [pos, torch.stack([torch.cos(y[:, 2]), torch.sin(y[:, 2])], dim=1), y[:, 3:5], y[:, 5:6]]
+        parts = [pos, torch.stack([exact.cos(y[:, 2]), exact.sin(y[:, 2])], dim=1), y[:, 3:5],
+                 y[:, 5:6]]
         if cfg.with_lidar:
             radii = torch.tensor(cfg.planet_radii, dtype=self.dtype, device=y.device)
             parts.append(self._lidar(pos[:, None, :], state.planets_pos, radii).reshape(y.shape[0], -1))
@@ -768,10 +774,11 @@ class EnvEngine:
         """_create_lidar_vector (spaceship_env.py:133-140):
         unit(ship->obj) * (dist - radius) * 2 / world_size."""
         v = obj_pos - ship_pos
-        ang = torch.remainder(torch.atan2(v[..., 1], v[..., 0]), 2 * torch.pi)
-        dist = torch.sqrt((v * v).sum(-1))
-        scale = (dist - obj_radius) * 2 / self.config.world_size
-        return torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1) * scale[..., None]
+        ang = torch.remainder(exact.atan2(v[..., 1], v[..., 0]), 2 * torch.pi)
+        # np.linalg.norm (BLAS dot) in the parity mode
+        dist = exact.norm_last(v) if exact.enabled() else torch.sqrt((v * v).sum(-1))
+        scale = exact.divc((dist - obj_radius) * 2, self.config.world_size)
+        return torch.stack([exact.cos(ang), exact.sin(ang)], dim=-1) * scale[..., None]
 
 
 class PolicyRollout:

@@ -3,84 +3,122 @@ and the orbit's invariants (specific energy, angular momentum, the
 Laplace-Runge-Lenz vector) that the property tests hold the integrators to.
 
 The port's own copy of space_gym_tpu/envs/kepler_math.py, in the reference's
-operation order; every function broadcasts over leading lane axes.
+operation order; every function broadcasts over leading lane axes.  As there,
+the reward functions take the operations that must round as numpy's from an
+`xp` argument: plain PyTorch by default, ops/exact.py's `exact_xp` in the
+parity engine.
 """
 from __future__ import annotations
 
 import torch
 
 
-def semi_minor(a, ecc):
+class _TorchOps:
+    """The default `xp` of the reward functions: plain PyTorch, today's
+    expressions.  The parity engine hands ops/exact.py's `exact_xp` instead,
+    whose operations round as the reference's numpy does (libm cos, sin and
+    pow, np.arctan2, numpy's BLAS norm and matrix-vector product, true
+    divisions of a constant)."""
+
+    class _Linalg:
+        @staticmethod
+        def norm(v):
+            return torch.linalg.norm(v, dim=-1)
+
+    linalg = _Linalg()
+    cos = staticmethod(torch.cos)
+    sin = staticmethod(torch.sin)
+    sqrt = staticmethod(torch.sqrt)
+    arctan2 = staticmethod(torch.atan2)
+    dot = None  # `rotate` multiplies the 2x2 product out
+
+    @staticmethod
+    def pow2(v):
+        return v ** 2
+
+    @staticmethod
+    def rdiv(c, x):
+        return c / x
+
+
+TORCH_OPS = _TorchOps()
+
+
+def semi_minor(a, ecc, xp=TORCH_OPS):
     """Semi-minor axis (kepler.py:43-45)."""
-    return torch.sqrt(a * a * (1 - ecc * ecc))
+    return xp.sqrt(a * a * (1 - ecc * ecc))
 
 
-def focal_dist(a, b):
+def focal_dist(a, b, xp=TORCH_OPS):
     """Focal-point distance from the ellipse centre (kepler.py:47-49)."""
-    return torch.sqrt(a * a - b * b)
+    return xp.sqrt(a * a - b * b)
 
 
-def rotate(pos_xy, alpha):
-    """Rotation by alpha, the reference's 2x2 matrix product (kepler.py:51-58)."""
-    c, s = torch.cos(alpha), torch.sin(alpha)
-    x, y = pos_xy[..., 0], pos_xy[..., 1]
-    return torch.stack([c * x + s * y, -s * x + c * y], dim=-1)
+def rotate(pos_xy, alpha, xp=TORCH_OPS):
+    """Rotation by alpha, the reference's 2x2 matrix product (kepler.py:51-58):
+    multiplied out by default, numpy's dgemv of the stacked matrix where
+    `xp` has a `dot`."""
+    c, s = xp.cos(alpha), xp.sin(alpha)
+    if xp.dot is None:
+        x, y = pos_xy[..., 0], pos_xy[..., 1]
+        return torch.stack([c * x + s * y, -s * x + c * y], dim=-1)
+    R = torch.stack([torch.stack([c, s], dim=-1), torch.stack([-s, c], dim=-1)], dim=-2)
+    return xp.dot(R, pos_xy)
 
 
-def orbit_vel(alpha_gm, r, ref_a):
+def orbit_vel(alpha_gm, r, ref_a, xp=TORCH_OPS):
     """Vis-viva speed on the reference orbit (kepler.py:60-62)."""
-    return torch.sqrt(alpha_gm * (2 / r - 1 / ref_a))
+    return xp.sqrt(alpha_gm * (xp.rdiv(2, r) - xp.rdiv(1, ref_a)))
 
 
-def _norm(v):
-    return torch.linalg.norm(v, dim=-1)
-
-
-def _shifted_wz(pos_xy, ref_angle, a, ecc):
-    b = semi_minor(a, ecc)
-    pos_wz = rotate(pos_xy, ref_angle)
-    c = focal_dist(a, b)
+def _shifted_wz(pos_xy, ref_angle, a, ecc, xp):
+    b = semi_minor(a, ecc, xp)
+    pos_wz = rotate(pos_xy, ref_angle, xp)
+    c = focal_dist(a, b, xp)
     return torch.stack([pos_wz[..., 0] - c, pos_wz[..., 1]], dim=-1), b, c
 
 
-def orbit_target_vel(alpha_gm, pos_xy, ref_angle, ref_a, ecc, curl=1.0):
+def orbit_target_vel(alpha_gm, pos_xy, ref_angle, ref_a, ecc, curl=1.0, xp=TORCH_OPS):
     """Tangential target velocity on the reference ellipse (kepler.py:64-88)."""
     a = ref_a
-    pos_wz, b, c = _shifted_wz(pos_xy, ref_angle, a, ecc)
-    theta = torch.atan2(pos_wz[..., 1], pos_wz[..., 0])
-    target_rad = b / torch.sqrt(1 - (ecc * torch.cos(theta)) ** 2)
-    pos_wz = pos_wz * target_rad[..., None] / _norm(pos_wz)[..., None]
+    norm = xp.linalg.norm
+    pos_wz, b, c = _shifted_wz(pos_xy, ref_angle, a, ecc, xp)
+    theta = xp.arctan2(pos_wz[..., 1], pos_wz[..., 0])
+    target_rad = b / xp.sqrt(1 - xp.pow2(ecc * xp.cos(theta)))
+    pos_wz = pos_wz * target_rad[..., None] / norm(pos_wz)[..., None]
     vt = torch.stack([-curl * a / b * pos_wz[..., 1], curl * b / a * pos_wz[..., 0]], dim=-1)
-    r = _norm(pos_wz + torch.stack([c, torch.zeros_like(c)], dim=-1))
-    vt = vt * orbit_vel(alpha_gm, r, a)[..., None] / _norm(vt)[..., None]
-    return rotate(vt, -ref_angle)
+    r = norm(pos_wz + torch.stack([c, torch.zeros_like(c)], dim=-1))
+    vt = vt * orbit_vel(alpha_gm, r, a, xp)[..., None] / norm(vt)[..., None]
+    return rotate(vt, -ref_angle, xp)
 
 
-def orbit_cur_rad(pos_xy, ref_angle, ref_a, ecc):
+def orbit_cur_rad(pos_xy, ref_angle, ref_a, ecc, xp=TORCH_OPS):
     """Current radius from the occupied focal point (kepler.py:90-96)."""
-    return _norm(_shifted_wz(pos_xy, ref_angle, ref_a, ecc)[0])
+    return xp.linalg.norm(_shifted_wz(pos_xy, ref_angle, ref_a, ecc, xp)[0])
 
 
-def orbit_target_rad(pos_xy, ref_angle, ref_a, ecc):
+def orbit_target_rad(pos_xy, ref_angle, ref_a, ecc, xp=TORCH_OPS):
     """Reference-orbit radius at the current angle (kepler.py:98-109)."""
-    pos_wz, b, _ = _shifted_wz(pos_xy, ref_angle, ref_a, ecc)
-    theta = torch.atan2(pos_wz[..., 1], pos_wz[..., 0])
-    return b / torch.sqrt(1 - (ecc * torch.cos(theta)) ** 2)
+    pos_wz, b, _ = _shifted_wz(pos_xy, ref_angle, ref_a, ecc, xp)
+    theta = xp.arctan2(pos_wz[..., 1], pos_wz[..., 0])
+    return b / xp.sqrt(1 - xp.pow2(ecc * xp.cos(theta)))
 
 
 def dense_reward(alpha_gm, pos_xy, vel_xy, act_penalty, ref_angle, ref_a, ecc,
-                 numerator_C, rad_penalty_C, act_penalty_C):
+                 numerator_C, rad_penalty_C, act_penalty_C, xp=TORCH_OPS):
     """_dense_reward5 (kepler.py:111-150): approaches 1 as the radius, velocity
-    and action-energy deviations from the reference orbit vanish."""
-    cur_rad = orbit_cur_rad(pos_xy, ref_angle, ref_a, ecc)
-    target_vel = orbit_target_vel(alpha_gm, pos_xy, ref_angle, ref_a, ecc)
-    target_rad = orbit_target_rad(pos_xy, ref_angle, ref_a, ecc)
+    and action-energy deviations from the reference orbit vanish.  `xp`: the
+    operations that round differently from numpy (TORCH_OPS, or
+    ops/exact.py's exact_xp for bitwise parity)."""
+    cur_rad = orbit_cur_rad(pos_xy, ref_angle, ref_a, ecc, xp)
+    target_vel = orbit_target_vel(alpha_gm, pos_xy, ref_angle, ref_a, ecc, xp=xp)
+    target_rad = orbit_target_rad(pos_xy, ref_angle, ref_a, ecc, xp)
     rad_penalty = torch.abs(cur_rad - target_rad)
     vel_x_penalty = torch.abs(target_vel[..., 0] - vel_xy[..., 0])
     vel_y_penalty = torch.abs(target_vel[..., 1] - vel_xy[..., 1])
     C = numerator_C
-    return C / (rad_penalty_C * rad_penalty + vel_x_penalty + vel_y_penalty
-                + act_penalty_C * act_penalty + C)
+    return xp.rdiv(C, rad_penalty_C * rad_penalty + vel_x_penalty + vel_y_penalty
+                   + act_penalty_C * act_penalty + C)
 
 
 # Multi-scale tanh gains of `error_features`: one feature stays in its linear

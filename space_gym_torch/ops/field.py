@@ -12,7 +12,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from . import maths
+from . import exact, maths
 
 STEERING_ACCELERATION = 0
 STEERING_VELOCITY = 1
@@ -75,13 +75,15 @@ def ship_vector_field(ship: ShipParams, planet_masses: Sequence[float],
 
     for i, mass in enumerate(planet_masses):
         force_xy = force_xy + maths.gravity_force(pos_xy, planets_pos[..., i, :], ship.mass, mass)
-    acceleration_xy = force_xy / ship.mass
+    # exact.divc: numpy divides by the constant ship mass; the card would
+    # multiply by its reciprocal (parity-mode guard)
+    acceleration_xy = exact.divc(force_xy, ship.mass)
 
     if ship.steering == STEERING_ACCELERATION:
         if f32_action:
             acceleration_angle = (ext_force_angle_f32 / c32(ship.moi)).to(y.dtype)
         else:
-            acceleration_angle = ext_force_angle / ship.moi
+            acceleration_angle = exact.divc(ext_force_angle, ship.moi)
     else:
         acceleration_angle = torch.zeros_like(ext_force_angle)
 

@@ -1,20 +1,24 @@
 """Small batched maths: lookups of the reset path and the vector primitives
-of the fixed-substep physics (space_gym_tpu/ops/maths.py, lane axis first)."""
+of the fixed-substep physics (space_gym_tpu/ops/maths.py, lane axis first).
+In the parity mode (ops/exact.py) the trigonometry, norms, powers and
+divisions round as the reference's numpy does."""
 from __future__ import annotations
 
 import torch
 
+from . import exact
 from .constants import G
 
 
 def angle_to_unit_vector(angle: torch.Tensor) -> torch.Tensor:
     """[cos a, sin a] stacked on a trailing axis (helpers.py:4-5)."""
-    return torch.stack([torch.cos(angle), torch.sin(angle)], dim=-1)
+    return torch.stack([exact.cos(angle), exact.sin(angle)], dim=-1)
 
 
 def norm2(v: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the trailing axis."""
-    return torch.linalg.norm(v, dim=-1)
+    """Euclidean norm over the trailing axis; np.linalg.norm's bits (BLAS
+    dot) in the parity mode."""
+    return exact.norm_last(v)
 
 
 def gravity_force(from_pos, toward_pos, from_mass: float, toward_mass: float) -> torch.Tensor:
@@ -24,7 +28,10 @@ def gravity_force(from_pos, toward_pos, from_mass: float, toward_mass: float) ->
     pos_diff = toward_pos - from_pos
     center_distance = norm2(pos_diff)[..., None]
     force_direction = pos_diff / center_distance
-    scalar_force = G * from_mass * toward_mass / center_distance.squeeze(-1) ** 2
+    # dist**2 upstream is a numpy SCALAR power, libm pow(x, 2.0), which
+    # differs from x*x by an ulp on some inputs
+    scalar_force = exact.rdivc(G * from_mass * toward_mass,
+                               exact.powf(center_distance.squeeze(-1), 2))
     return force_direction * scalar_force[..., None]
 
 

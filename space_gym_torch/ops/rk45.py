@@ -20,9 +20,13 @@ carried tensor, and one host read of `active.any()` per iteration, so a lane
 comes back with the bits it would have alone.  Brent's method runs only on
 the (lane, event) pairs whose event changed sign, all pairs in one batch.
 
-Only the JAX module's default build is ported: its parity mode (numpy's
-BLAS and libm through ops/exact.py, for bit-exact scipy replay) is not.
-`x ** e` and the norm may differ from XLA's by an ulp.
+In the parity mode of ops/exact.py (the parity engine's reset and step,
+parity/device_replay.py) the branches of the JAX module's parity mode are
+taken: the stage combinations, the dense output's Q = K^T P and Q @ p go
+through numpy's OpenBLAS (`kt_dot`, `ktp`, `dot_mv`), the RMS norm through
+its BLAS dot, the controller's pow through libm, and divisions by constants
+divide, so the solver computes scipy's bits.  Outside it the sequential sums
+below run, and `x ** e` and the norm may differ from scipy's by an ulp.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from . import exact
 from .events import crossings
 
 SAFETY = 0.9
@@ -90,21 +95,32 @@ def _wsum(vectors, coeffs):
     return acc
 
 
+def _stage_dot(vectors, coeffs, which: int):
+    """np.dot(K[:s].T, coeffs) as scipy computes it: numpy's gemv in the
+    parity mode (exact.kt_dot), the sequential sum otherwise."""
+    if exact.enabled():
+        return exact.kt_dot(torch.stack(vectors, dim=-2), which)
+    return _wsum(vectors, coeffs)
+
+
 def rk_step(rhs, t, y, f, h):
     """One Dormand-Prince step of y (B, n); returns (y_new, f_new, K list of
     the 7 stage derivatives)."""
     K = [f]
     for s in range(1, N_STAGES):
-        dy = _wsum(K, DP_A[s]) * h
+        dy = _stage_dot(K, DP_A[s], s) * h
         K.append(rhs(t + DP_C[s] * h, y + dy))
-    y_new = y + h * _wsum(K, DP_B)
+    y_new = y + h * _stage_dot(K, DP_B, exact.WHICH_B)
     f_new = rhs(t + h, y_new)
     K.append(f_new)
     return y_new, f_new, K
 
 
 def dense_q(K):
-    """Dense-output coefficients Q = K^T P, shape (B, n, 4)."""
+    """Dense-output coefficients Q = K^T P, shape (B, n, 4); numpy's dgemm of
+    K.T by P in the parity mode."""
+    if exact.enabled():
+        return exact.ktp(torch.stack(K, dim=-2))
     cols = [_wsum(K, tuple(DP_P[j][m] for j in range(7))) for m in range(4)]
     return torch.stack(cols, dim=-1)
 
@@ -118,7 +134,11 @@ def dense_eval(t_old, h, y_old, Q, t):
     p3 = p2 * x
     p4 = p3 * x
     hc = h[:, None] if h.dim() else h
-    y = hc * (Q[..., 0] * p1 + Q[..., 1] * p2 + Q[..., 2] * p3 + Q[..., 3] * p4)
+    if exact.enabled():
+        # scipy: y = h * np.dot(Q, p) + y_old (numpy's RowMajor gemv)
+        y = hc * exact.dot_mv(Q, torch.cat([p1, p2, p3, p4], dim=-1))
+    else:
+        y = hc * (Q[..., 0] * p1 + Q[..., 1] * p2 + Q[..., 2] * p3 + Q[..., 3] * p4)
     return y + y_old
 
 
@@ -130,13 +150,12 @@ STATUS_FAILED = -1
 
 
 def _rms_norm(x):
-    """scipy common.norm of each row: ||x||_2 / sqrt(n)."""
+    """scipy common.norm of each row: ||x||_2 / sqrt(n); numpy's BLAS dot
+    in the parity mode (numpy's 1-D norm is not a sequential sum of
+    squares)."""
+    if exact.enabled():
+        return exact.divc(exact.norm_last(x), x.shape[-1] ** 0.5)
     return torch.linalg.vector_norm(x, dim=-1) / (x.shape[-1] ** 0.5)
-
-
-def _powf(x, e: float):
-    """x ** e for a static exponent (the controller's pow)."""
-    return x ** e
 
 
 def select_initial_step(rhs, t0, y0, f0, t_bound, rtol, atol):
@@ -153,7 +172,8 @@ def select_initial_step(rhs, t0, y0, f0, t_bound, rtol, atol):
     f1 = rhs((t0 + h0)[:, None], y1)
     d2 = _rms_norm((f1 - f0) / scale) / h0
     h1 = torch.where((d1 <= 1e-15) & (d2 <= 1e-15), torch.clamp(h0 * 1e-3, min=1e-6),
-                     _powf(0.01 / torch.maximum(d1, d2), 1.0 / (ERROR_ESTIMATOR_ORDER + 1)))
+                     exact.powf(exact.rdivc(0.01, torch.maximum(d1, d2)),
+                                1.0 / (ERROR_ESTIMATOR_ORDER + 1)))
     return torch.minimum(torch.minimum(100 * h0, h1), interval_length)
 
 
@@ -262,9 +282,9 @@ def _attempt_steps(rhs, t, y, f, h_abs, t_bound, rtol, atol, live, syncs):
         h_abs_cur = hh.abs()
         yn, fn, Ks = rk_step(rhs, t[:, None], y, f, hh[:, None])
         scale = atol + torch.maximum(y.abs(), yn.abs()) * rtol
-        error_norm = _rms_norm(_wsum(Ks, DP_E) * hh[:, None] / scale)
+        error_norm = _rms_norm(_stage_dot(Ks, DP_E, exact.WHICH_E) * hh[:, None] / scale)
         ok = error_norm < 1
-        pow_err = _powf(error_norm, ERROR_EXPONENT)
+        pow_err = exact.powf(error_norm, ERROR_EXPONENT)  # scipy's numpy-scalar pow
         factor_ok = where(error_norm == 0, MAX_FACTOR, torch.clamp(SAFETY * pow_err, max=MAX_FACTOR))
         factor_ok = where(rejected, torch.clamp(factor_ok, max=1.0), factor_ok)
         # a non-finite error would make the step size NaN: shrink it instead,

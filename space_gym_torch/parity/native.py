@@ -17,15 +17,13 @@ not bit for bit.
 from __future__ import annotations
 
 import ctypes
-import glob
 import os
-import subprocess
 import threading
 from typing import Optional
 
 import numpy as np
 
-from ..utils.native_build import lib_is_fresh, write_stamp
+from ..utils.native_build import build_shared, lib_is_fresh, openblas_path
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native", "sgt_native.cpp")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -38,34 +36,10 @@ _build_error: Optional[str] = None
 
 
 def _build() -> Optional[str]:
-    """Compile the shared library; returns an error string or None.  The
-    library is written under a name of this process and moved into place,
-    so that processes building at once never load a half-written file."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    cmd = [
-        # -fno-builtin-pow: gcc otherwise folds std::pow(x, 2.0) back into
-        # x*x, undoing the libm-pow parity semantics (numpy scalar ** 2).
-        "g++", "-O2", "-ffp-contract=off", "-fno-builtin-pow", "-fPIC", "-shared",
-        "-o", tmp, _SRC, "-ldl",
-    ]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-    except (OSError, subprocess.TimeoutExpired) as e:  # g++ missing etc.
-        return str(e)
-    if proc.returncode != 0:
-        return proc.stderr[-2000:]
-    os.replace(tmp, _LIB)
-    write_stamp(_SRC, _LIB)
-    return None
-
-
-def openblas_path() -> Optional[str]:
-    """numpy's bundled OpenBLAS, whose ILP64 cblas symbols the library
-    calls; None where numpy bundles none."""
-    base = os.path.dirname(os.path.dirname(os.path.abspath(np.__file__)))
-    cands = sorted(glob.glob(os.path.join(base, "numpy.libs", "libscipy_openblas*.so")))
-    return cands[0] if cands else None
+    """Compile the shared library; returns an error string or None."""
+    # -fno-builtin-pow: gcc otherwise folds std::pow(x, 2.0) back into x*x,
+    # undoing the libm-pow parity semantics (numpy scalar ** 2).
+    return build_shared(_SRC, _LIB, ["-O2", "-ffp-contract=off", "-fno-builtin-pow"])
 
 
 def _load() -> Optional[ctypes.CDLL]:

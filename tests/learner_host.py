@@ -1,7 +1,7 @@
 """The learner kernels' LOGIC on the CPU, shared by the host-build tests
 (tests/test_torch_sac_kernel_host*.py, tests/test_torch_td3_kernel_host*.py):
 csrc/sac_update.cuh (K4, K5) and csrc/td3_update.cuh (K6) compiled by g++
-against the stand-in CUDA headers of csrc/host/ (one OS thread per CUDA
+against the stand-in CUDA headers of csrc/host/ (one fiber per CUDA
 thread, real barriers), called as the wrappers call them on the card, and
 held to the plain version `update_k_reference`.
 

@@ -870,6 +870,21 @@ def test_cuda_make_runs_golden_steps():
 
 
 @pytest.mark.cuda
+def test_cuda_parity_replay_of_a_golden_file():
+    """The device parity tier on the card (parity/device_replay.py): one golden
+    file through the parity engine, its tensors on the card and its exact ops
+    through the host library, at chip_smoke's tolerance (flags equal on every
+    step, errors <= 1e-10)."""
+    from space_gym_torch.parity import device_replay
+
+    _need_card()
+    st = device_replay.replay("KeplerRandomOrbits-v0", "seed7")
+    assert st["flag_match"] == st["steps"] == 177
+    assert max(st["max_state_err"], st["max_obs_err"], st["max_reward_err"]) <= 1e-10, st
+    assert st["host_round_trips"] > 0
+
+
+@pytest.mark.cuda
 def test_cuda_vector_env_launches_k3_once_a_step():
     import space_gym_torch
 

@@ -4,7 +4,7 @@ the kernels' LOGIC on the CPU, held to their plain twins
 
 csrc/host/env_step_host.cpp compiles both kernel bodies with g++
 (-ffp-contract=off, as the card's build has -fmad=false) against the
-stand-in headers of csrc/host/: one OS thread per CUDA thread, ballots,
+stand-in headers of csrc/host/: one fiber per CUDA thread, ballots,
 shuffles and atomics as real ones.  It says nothing about the card, but it
 runs the same source.
 

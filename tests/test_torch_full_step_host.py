@@ -3,11 +3,11 @@ LOGIC on the CPU, held to its plain twin (ops/full_step_plain.py).
 
 csrc/host/full_step_host.cpp compiles the kernel body with g++
 (-ffp-contract=off, as the card's build has -fmad=false) against the stand-in
-headers of csrc/host/: one OS thread per CUDA thread, the persistent grid's
+headers of csrc/host/: one fiber per CUDA thread, the persistent grid's
 blocks, their barriers, ballots, shuffles and atomics as real ones.  It says
 nothing about the card, but it runs the same source, so a wrong tile index, a
 missing barrier or a compacted lane written back to the wrong slot fails here;
-a race between warps that the host's scheduling does not hit can pass.
+a race between warps that the fibers' two orders do not hit can pass.
 
 Every case runs one row source (uniforms from memory, threefry, Philox) on
 one env family and tableau, at two batches, each with more tiles than the
