@@ -607,39 +607,24 @@ def check_engine(dev, small=512, steps=8):
         fail("engine on the card disagrees with the engine on the CPU")
 
 
+KERNELS = ("full_step", "full_step_threefry", "full_step_philox", "env_step", "fused_step",
+           "sac_update", "sac_update_fold", "td3_update")
+
+
 def reset_launches():
-    """Set every wrapper's launch count to 0."""
-    from space_gym_torch.models import fused_sac, fused_td3
-    from space_gym_torch.ops.env_step import EnvStep
-    from space_gym_torch.ops.full_step import FullStep
-    from space_gym_torch.ops.physics_step import PhysicsStep
+    """Set every launch count to 0 (utils/profiling.py)."""
+    from space_gym_torch.utils import profiling
 
-    from space_gym_torch.utils import graphs
-
-    FullStep.reset_launches()
-    EnvStep.launches = 0
-    PhysicsStep.launches = 0
-    fused_sac.reset_launches()
-    fused_td3.reset_launches()
-    graphs.reset_launches()
+    profiling.reset_counts()
 
 
 def read_launches():
     """Launch counts by kernel since the last reset: the launches each wrapper
-    made, plus, for K3 and its variants, those of the CUDA graphs' replays
-    (a graph's launches once per replay, utils/graphs.py)."""
-    from space_gym_torch.models import fused_sac, fused_td3
-    from space_gym_torch.ops.env_step import EnvStep
-    from space_gym_torch.ops.full_step import FullStep
-    from space_gym_torch.ops.physics_step import PhysicsStep
-    from space_gym_torch.utils import graphs
+    made, a CUDA graph's launches once per replay included (utils/profiling.py)."""
+    from space_gym_torch.utils import profiling
 
-    by, rep = FullStep.launches_by_rng, graphs.REPLAYED
-    return {"full_step": by[False] + rep.get("full_step", 0),
-            "full_step_threefry": by["threefry"] + rep.get("full_step_threefry", 0),
-            "full_step_philox": by["philox"] + rep.get("full_step_philox", 0),
-            "env_step": EnvStep.launches, "fused_step": PhysicsStep.launches,
-            **fused_sac.LAUNCHES, **fused_td3.LAUNCHES}
+    counts = profiling.counts()
+    return {k: counts.get(k, 0) for k in KERNELS}
 
 
 K3_NAMES = {False: "full_step", "threefry": "full_step_threefry", "philox": "full_step_philox"}

@@ -81,7 +81,7 @@ from ..ops.maths import norm2, onehot_take
 from ..ops.physics_step import PhysicsStep
 from ..ops.rng_plain import key_words
 from ..tiling import device as dtiling
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.device import resolve_device
 from ..utils.randvec import RandSource
 
@@ -435,7 +435,9 @@ class EnvEngine:
         owner updates it in place, and captures anew when it moves to other
         tensors.  The generator is the graph's: its uniforms, key words and
         the policy's draws advance it as the loop does.  Needs the card and
-        fuse="full"; a capture that fails raises."""
+        fuse="full"; a capture that fails raises.  Each call is the span
+        `sg.graph.call` (utils/profiling.py), its iteration id the count of
+        calls."""
         if self.tier != "full" or self.device.type != "cuda":
             raise ValueError("a captured rollout needs the card and fuse='full', got "
                              f"{self.device} and the {self.tier!r} tier")
@@ -443,14 +445,18 @@ class EnvEngine:
             raise ValueError("a captured rollout draws from an explicit generator")
         body = self._carried_rollout(policy_fn, n_steps, generator, trajectory)
         captured = None
+        calls = 0
+        profiling.prepare(self.device)
 
         def run(state: EnvState, obs: torch.Tensor):
-            nonlocal captured
-            args = self._carried_args(state, obs)
-            if captured is None:
-                captured = graphs.Captured(body, args, generator)
-            carry, obs, traj = captured(*args)
-            return self.from_carry(carry), obs, traj
+            nonlocal captured, calls
+            calls += 1
+            with profiling.span("graph.call", device=self.device, it=calls):
+                args = self._carried_args(state, obs)
+                if captured is None:
+                    captured = graphs.Captured(body, args, generator)
+                carry, obs, traj = captured(*args)
+                return self.from_carry(carry), obs, traj
 
         return run
 

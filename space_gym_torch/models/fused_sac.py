@@ -44,7 +44,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from ..utils import cuda_build
+from ..utils import cuda_build, profiling
 from .replay import Transition, pack_slab, replay_cols, unpack_flat
 
 IN1 = 128     # padded first-layer input width (obs | action | zeros)
@@ -606,7 +606,7 @@ def _build_width(h: int):
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: "
                                f"{_PLAN_ERRORS.get(err, 'CUDA error')} (code {err})")
-        LAUNCHES["sac_update_fold" if fold else "sac_update"] += 1
+        profiling.launch("sac_update_fold" if fold else "sac_update")
         return losses[:, 0], losses[:, 1]
 
     def fused_update_k_wmat(f: FusedState, ring, row_idx, noises, **kw):
@@ -656,20 +656,12 @@ def _build_width(h: int):
     return ns
 
 
-# Kernel launches since the last reset, by library (never plain-version calls).
-LAUNCHES = {"sac_update": 0, "sac_update_fold": 0}
-
 _PLAN_ERRORS = {
     -1: "hidden width not built",
     -2: "the kernel's shared memory does not fit one SM",
     -4: "the grid is not the planned one",
     -5: "no scratch for the products' weights of this mode",
 }
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 @functools.cache

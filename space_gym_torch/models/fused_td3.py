@@ -44,7 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils import cuda_build
+from ..utils import cuda_build, profiling
 from .fused_sac import (KERNEL_TILE, _BF16Dot, _BF16Round, _PLAN_ERRORS, _adam,  # noqa: F401
                         _critic_leaves, _data_mode, _gathered, _kernel_operands, _pad_x, _sd,
                         n_tiles)
@@ -448,7 +448,7 @@ def _build_width(h: int):
         if err != 0:
             raise RuntimeError(f"sg_td3_update kernel launch failed: "
                            f"{_PLAN_ERRORS.get(err, 'CUDA error')} (code {err})")
-        LAUNCHES["td3_update"] += 1
+        profiling.launch("td3_update")
         return losses[:, 0], losses[:, 1]
 
     def fused_update_k_wmat(f: FusedState, ring, row_idx, noises, **kw):
@@ -497,15 +497,6 @@ def _build_width(h: int):
     ns.IN1 = IN1
     ns.AH = AH
     return ns
-
-
-# Kernel launches since the last reset (never plain-version calls).
-LAUNCHES = {"td3_update": 0}
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 @functools.cache

@@ -23,6 +23,7 @@ import torch
 
 from ..engine.core import EnvEngine, PolicyRollout
 from ..parallel.mesh import gather_model, split_model, trainer_state_shardings
+from ..utils import profiling
 from .fused_sac import check_kernel_width
 from .replay import (Transition, global_lanes, replay_add_slab, replay_rows, replay_sample,
                      replay_sample_rows)
@@ -223,15 +224,21 @@ class OffPolicyTrainer:
         return {}
 
     def train_iter(self, state, generator):
-        """One rollout, one replay insert, `updates_per_iter` updates."""
+        """One rollout, one replay insert, `updates_per_iter` updates: the
+        span `sg.train_iter` around the spans `sg.rollout`, `sg.insert` and
+        `sg.update` (utils/profiling.py), their iteration id the state's step."""
         refresh = self._refresh_from_fused if self.cfg.fused_updates else None
-        return with_whole_params(self, state, lambda s: self._train_iter(s, generator), refresh)
+        with profiling.span("train_iter", device=self.device, it=state.step):
+            return with_whole_params(self, state, lambda s: self._train_iter(s, generator),
+                                     refresh)
 
     def _train_iter(self, state, generator):
         c = self.cfg
         with torch.no_grad():
-            env_state, obs, slab, rewards, dones = self._rollout(state, generator)
-            replay = replay_add_slab(state.replay, self._slab_for_replay(slab, dones))
+            with profiling.span("rollout", device=self.device):
+                env_state, obs, slab, rewards, dones = self._rollout(state, generator)
+            with profiling.span("insert", device=self.device):
+                replay = replay_add_slab(state.replay, self._slab_for_replay(slab, dones))
         state = state._replace(env_state=env_state, obs=obs, replay=replay)
 
         # The warm-up gate: before the ring holds min(warmup_rows, replay_rows)
@@ -242,11 +249,12 @@ class OffPolicyTrainer:
         nan = torch.full((), float("nan"), device=self.device)
         metrics = {"critic_loss": nan, "actor_loss": nan}
         if replay.filled >= min(c.warmup_rows, c.replay_rows):
-            if c.fused_updates:
-                state, metrics = self._update_fused(state, generator)
-            else:
-                for _ in range(c.updates_per_iter):
-                    state, metrics = self._update_once(state, generator)
+            with profiling.span("update", device=self.device):
+                if c.fused_updates:
+                    state, metrics = self._update_fused(state, generator)
+                else:
+                    for _ in range(c.updates_per_iter):
+                        state, metrics = self._update_once(state, generator)
         metrics = dict(metrics, mean_reward=lane_mean(self.mesh, rewards),
                        episodes_done=lane_sum(self.mesh, dones),
                        **self._iter_metrics(state))

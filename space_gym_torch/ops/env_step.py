@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from ..utils import cuda_build
+from ..utils import cuda_build, profiling
 from .full_step import FullStep
 from .kernel_params import TABLEAU_IDS, TASK_IDS, full_params
 from .observe_reward import make_observe_reward
@@ -41,9 +41,7 @@ def _lib():
 
 class EnvStep:
     """Physics + observation + reward of one control step for one EnvConfig.
-    `launches` counts kernel launches over all instances."""
-
-    launches = 0
+    A launch is counted as `env_step` in `utils/profiling.py`'s counts."""
 
     def __init__(self, cfg, n_substeps: int = 2, refine_iters: int = 12, tableau: str = "dp5"):
         if tableau not in TABLEAU_IDS:
@@ -111,7 +109,7 @@ class EnvStep:
             )
         if err != 0:
             raise RuntimeError(f"env_step kernel launch failed: error {err}")
-        EnvStep.launches += 1
+        profiling.launch("env_step")
         return tuple(outs)
 
     def kernel_info(self, B):

@@ -25,7 +25,7 @@ import functools
 import torch
 
 from ..envs.config import TASK_GOAL
-from ..utils import cuda_build, graphs
+from ..utils import cuda_build, profiling
 from . import rng_plain
 from .full_step_plain import count_uniform_rows, cs_rows, int_rows, make_full_step_plain
 from .kernel_params import TABLEAU_IDS, TASK_IDS, full_params
@@ -81,20 +81,11 @@ class FullStep:
 
     `in_kernel_rng`: False reads the (n_u, B) uniforms from memory;
     "threefry" (or True) and "philox" compute them in the kernel from two key
-    words.  `launches` counts kernel launches (never plain-twin calls) over
-    all instances and modes, `launches_by_rng` the same per mode; callers
-    reset them with `reset_launches()` to count one run.  A launch made
-    while a CUDA graph is captured is counted by the graph, once a replay
-    (utils/graphs.py), not here.
+    words.  A launch (never a plain-twin call) is counted under its
+    kernel's name (`RNG_MODES`: full_step, full_step_threefry,
+    full_step_philox) in `utils/profiling.py`'s counts; one made while a CUDA
+    graph is captured is counted by the graph, once a replay.
     """
-
-    launches = 0
-    launches_by_rng = {mode: 0 for mode in RNG_MODES}
-
-    @classmethod
-    def reset_launches(cls):
-        cls.launches = 0
-        cls.launches_by_rng = {mode: 0 for mode in RNG_MODES}
 
     def __init__(self, cfg, n_substeps: int = 2, refine_iters: int = 12, tableau: str = "dp5",
                  in_kernel_rng=False):
@@ -244,7 +235,5 @@ class FullStep:
             )
         if err != 0:
             raise RuntimeError(f"full_step kernel launch failed: error {err}")
-        if graphs.note_launch(RNG_MODES[self.rng][0]):
-            FullStep.launches += 1
-            FullStep.launches_by_rng[self.rng] += 1
+        profiling.launch(RNG_MODES[self.rng][0])
         return tuple(outs)

@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from ..utils import cuda_build
+from ..utils import cuda_build, profiling
 from .full_step import FullStep
 from .kernel_params import TABLEAU_IDS, phys_params
 from .physics import physics_for_config
@@ -35,10 +35,8 @@ def _lib():
 
 
 class PhysicsStep:
-    """Physics of one control step for one EnvConfig.  `launches` counts kernel
-    launches over all instances."""
-
-    launches = 0
+    """Physics of one control step for one EnvConfig.  A launch is counted as
+    `fused_step` in `utils/profiling.py`'s counts."""
 
     def __init__(self, cfg, n_substeps: int = 2, refine_iters: int = 12, tableau: str = "dp5"):
         if tableau not in TABLEAU_IDS:
@@ -85,7 +83,7 @@ class PhysicsStep:
             )
         if err != 0:
             raise RuntimeError(f"fused_step kernel launch failed: error {err}")
-        PhysicsStep.launches += 1
+        profiling.launch("fused_step")
         return yo, term
 
     def kernel_info(self, B):

@@ -12,7 +12,10 @@ a run of the same algorithm and configuration; SAC and TD3 also read the
 other `--fused` setting's checkpoints, as tools/train.py does: a fused run
 migrates an unfused checkpoint to the kernel layout ("migrated"), an unfused
 run re-hydrates the parameters and Adam moments of a fused one
-("re-hydrated").
+("re-hydrated").  Each log line also gives `graph_captures`, the CUDA graphs
+captured so far (utils/profiling.py's counts): the trainer's and the
+evaluator's rollouts capture once each, so a count that grows means their
+graphs are captured again.
 
     python -m space_gym_torch.train --env GoalContinuous2P-v0 --algo sac --iters 500
     python -m space_gym_torch.train --algo td3 --lanes 8192 --ckpt run1.pt
@@ -216,7 +219,7 @@ def resume(args, trainer, template: dict, gen, eval_gen):
 
 def main(argv=None):
     from .utils import checkpoint as ckpt
-    from .utils.profiling import ThroughputMeter
+    from .utils import profiling
 
     args = parse_args(argv)
     trainer = make_trainer(args)
@@ -252,7 +255,7 @@ def main(argv=None):
         np.savez(best_path + ".tmp", **arrs)
         os.replace(best_path + ".tmp.npz", best_path)
 
-    meter = ThroughputMeter()
+    meter = profiling.ThroughputMeter()
     evaluate = None
     meter.tick(0)
     i = state.step
@@ -270,6 +273,7 @@ def main(argv=None):
             rate = meter.rate
             print(json.dumps(dict(iter=i, env_steps=i * steps_per_iter,
                                   steps_per_s=round(rate, 0) if rate == rate else None,
+                                  graph_captures=profiling.counts().get("graph.capture", 0),
                                   **{k: round(v, 4) for k, v in m.items()})), flush=True)
         if args.eval_every and i % args.eval_every == 0:
             if evaluate is None:

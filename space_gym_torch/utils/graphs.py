@@ -23,33 +23,17 @@ it lives at each replay.  `fn` must not synchronise with the host, and must
 not make a tensor from host data.  A capture that fails raises; there is no
 eager fallback.
 
-Launch counts.  A kernel wrapper counts a launch that runs; under capture its
-launch only enters the graph, so the wrapper calls `note_launch(name)`,
-which records it for the graph being captured instead.  Each replay then adds
-the graph's launches to `REPLAYED`, which `reset_launches` sets to 0.
+Counts and spans (utils/profiling.py).  Under capture a kernel wrapper's
+launch only enters the graph: `profiling.launch` records it for the graph,
+and each replay adds the graph's launches to the counts.  Each capture adds 1
+to `graph.capture` and is the span `sg.graph.capture`; a replay is the span
+`sg.graph.replay`.
 """
 from __future__ import annotations
 
 import torch
 
-# kernel name -> its launches in the graph being captured
-_CAPTURING: dict[str, int] = {}
-# kernel name -> launches made by graph replays since the last reset
-REPLAYED: dict[str, int] = {}
-
-
-def note_launch(name: str) -> bool:
-    """Called by a kernel wrapper where it launches kernel `name`: True when
-    the launch runs now (the wrapper counts it), False when it is recorded
-    into the graph being captured (each replay counts it)."""
-    if torch.cuda.is_current_stream_capturing():
-        _CAPTURING[name] = _CAPTURING.get(name, 0) + 1
-        return False
-    return True
-
-
-def reset_launches():
-    REPLAYED.clear()
+from . import profiling
 
 
 def _tree_map(fn, tree):
@@ -77,6 +61,13 @@ class Captured:
                 generator.device.index not in (None, dev.index)):
             raise ValueError("the captured function draws from an explicit generator on "
                              f"{dev}, got {generator!r}")
+        self.device = dev
+        with profiling.span("graph.capture", device=dev):
+            self._capture(fn, args, generator)
+        profiling.add({"graph.capture": 1})
+
+    def _capture(self, fn, args, generator):
+        dev = self.device
         self.static_in = [a.clone() for a in args]
         side = torch.cuda.Stream(device=dev)
         saved = generator.get_state()
@@ -89,13 +80,9 @@ class Captured:
 
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
-        _CAPTURING.clear()
-        try:
+        with profiling.captured_launches() as self.launches:
             with torch.cuda.graph(self.graph, stream=side):
                 self.static_out = fn(*self.static_in)
-            self.launches = dict(_CAPTURING)
-        finally:
-            _CAPTURING.clear()
         if not torch.equal(generator.get_state(), saved):
             raise RuntimeError("capturing the graph moved its generator")
 
@@ -107,7 +94,7 @@ class Captured:
                 raise ValueError(f"argument {tuple(a.shape)} {a.dtype} {a.device} does not fit "
                                  f"the captured {tuple(s.shape)} {s.dtype} {s.device}")
             s.copy_(a)
-        self.graph.replay()
-        for k, n in self.launches.items():
-            REPLAYED[k] = REPLAYED.get(k, 0) + n
+        with profiling.span("graph.replay", device=self.device):
+            self.graph.replay()
+        profiling.add(self.launches)
         return _tree_map(torch.clone, self.static_out)

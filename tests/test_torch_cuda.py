@@ -30,7 +30,7 @@ from space_gym_torch.ops.env_step import EnvStep
 from space_gym_torch.ops.full_step import FullStep
 from space_gym_torch.ops.physics_step import PhysicsStep
 from space_gym_torch.ops.rng_plain import key_words
-from space_gym_torch.utils import cuda_build
+from space_gym_torch.utils import cuda_build, profiling
 
 from .torch_scenarios import (firing_operands, one_torch_thread,  # noqa: F401 (autouse)
                               pattern_operands, scenario_inputs)
@@ -44,6 +44,15 @@ def _need_card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
+K3_KERNELS = ("full_step", "full_step_threefry", "full_step_philox")
+
+
+def _launches(*kernels):
+    """The launches of `kernels` counted so far (utils/profiling.py)."""
+    counts = profiling.counts()
+    return sum(counts.get(k, 0) for k in kernels)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("env_id", ["GoalContinuous2P-v0", "GoalContinuous4P-v0",
                                     "KeplerRandomOrbits-v0", "DoNotCrashContinuous-v0"])
@@ -55,9 +64,9 @@ def test_cuda_full_step_matches_plain_twin(env_id, tableau, substeps, refine):
     ins32 = [torch.as_tensor(a) if a.dtype == np.int32 else torch.as_tensor(a).float()
              for a in ins]
     want = full.apply(*ins32)
-    launches = FullStep.launches
+    launches = _launches(*K3_KERNELS)
     got = [o.cpu() for o in full.apply(*[a.cuda() for a in ins32])]
-    assert FullStep.launches == launches + 1
+    assert _launches(*K3_KERNELS) == launches + 1
     assert (got[-1] == want[-1]).all() and (got[-2] == want[-2]).all()
     for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
         tol = TOL_REWARD if i == 7 else TOL_STATE
@@ -85,9 +94,9 @@ def test_cuda_full_step_any_batch_matches_plain_twin(env_id, tableau, substeps, 
     if rng:
         rows[6] = key_words([0x600DF00D, batch])
     want = full.step_rows(*rows)
-    launches = FullStep.launches
+    launches = _launches(*K3_KERNELS)
     got = [o.cpu() for o in full.step_rows(*[t.cuda() for t in rows])]
-    assert FullStep.launches == launches + 1
+    assert _launches(*K3_KERNELS) == launches + 1
     agree = (got[-1] == want[-1]).all(0) & (got[-2] == want[-2]).all(0)
     assert agree.all() if batch < 1000 else agree.float().mean() >= 0.999
     for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
@@ -105,9 +114,9 @@ def test_cuda_physics_matches_plain_twin(tableau, substeps, refine):
     k1 = PhysicsStep(cfg, substeps, refine, tableau)
     y, a, p = (torch.as_tensor(v).float() for v in ins[:3])
     yw, tw = k1(y, a, p)
-    launches = PhysicsStep.launches
+    launches = _launches("fused_step")
     yg, tg = k1(y.cuda(), a.cuda(), p.cuda())
-    assert PhysicsStep.launches == launches + 1
+    assert _launches("fused_step") == launches + 1
     assert (tg.cpu() == tw).all() and tw.any()
     assert torch.allclose(yg.cpu(), yw, rtol=0, atol=TOL_STATE)
 
@@ -153,9 +162,9 @@ def test_cuda_env_step_matches_plain_twin(env_id, tableau, substeps, refine):
     k2 = EnvStep(cfg, substeps, refine, tableau)
     t = [torch.as_tensor(v).float() for v in ins[:5]]
     want = k2(*t)
-    launches = EnvStep.launches
+    launches = _launches("env_step")
     got = [o.cpu() for o in k2(*[v.cuda() for v in t])]
-    assert EnvStep.launches == launches + 1
+    assert _launches("env_step") == launches + 1
     assert (got[1] == want[1]).all() and want[1].any()
     assert torch.allclose(got[0], want[0], rtol=0, atol=TOL_STATE)
     assert torch.allclose(got[2], want[2], rtol=0, atol=TOL_STATE, equal_nan=True)
@@ -212,10 +221,11 @@ def test_cuda_generators_match_plain_versions_bitwise(env_id, batch, mode):
     t = [torch.as_tensor(a).cuda() if a.dtype == np.int32 else torch.as_tensor(a).float().cuda()
          for a in ins]
     block = keyed.kernel_uniforms(key.cuda(), 64)
-    by_mode = dict(FullStep.launches_by_rng)
+    by_mode = profiling.counts()
     got = keyed.apply(*t[:7], key.cuda())
-    assert FullStep.launches_by_rng[mode] == by_mode[mode] + 1
-    assert FullStep.launches_by_rng[False] == by_mode[False]
+    name = {"threefry": "full_step_threefry", "philox": "full_step_philox"}[mode]
+    assert _launches(name) == by_mode.get(name, 0) + 1
+    assert _launches("full_step") == by_mode.get("full_step", 0)
     fed = mem.apply(*t[:7], block.t())
     for g, w in zip(got, fed):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
@@ -323,13 +333,13 @@ def test_cuda_sac_update_kernels_match_the_plain_version(h, K, B, lanes):
             runs = []
             for _ in range(2):
                 f0 = ns.fused_init(packed, adam)
-                before = fused_sac.LAUNCHES[lib]
+                before = _launches(lib)
                 if mode == "ring":
                     out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, fold=fold, **hyper)
                 else:
                     out = ns.fused_update_k_wmat_batches(f0, batches, noises, fold=fold, **hyper)
                 torch.cuda.synchronize()
-                assert fused_sac.LAUNCHES[lib] == before + 1
+                assert _launches(lib) == before + 1
                 assert out[0].w is f0.w, "the state is updated in place"
                 runs.append((out[0], out[1].clone(), out[2].clone()))
             assert _same_bits(*runs), "a second call gives the same bits"
@@ -435,13 +445,13 @@ def test_cuda_trainer_launches_its_kernel_every_live_iteration(fold):
     st = tr.init(0)
     g = tr.generator(1)
     lib = "sac_update_fold" if fold else "sac_update"
-    before = fused_sac.LAUNCHES[lib]
+    before = _launches(lib)
     w0 = st.fused.w.clone()
     st, m = tr.train_iter(st, g)
-    assert torch.equal(st.fused.w, w0) and fused_sac.LAUNCHES[lib] == before
+    assert torch.equal(st.fused.w, w0) and _launches(lib) == before
     for _ in range(3):
         st, m = tr.train_iter(st, g)
-    assert fused_sac.LAUNCHES[lib] == before + 3 and st.fused.count == 12
+    assert _launches(lib) == before + 3 and st.fused.count == 12
     assert not torch.equal(st.fused.w, w0)
     assert all(np.isfinite(float(v)) for v in m.values())
     # a batch that is no multiple of the lanes goes through the kernel's batches mode
@@ -450,7 +460,7 @@ def test_cuda_trainer_launches_its_kernel_every_live_iteration(fold):
                                updates_per_iter=2, warmup_rows=4, fused_updates=True,
                                fused_fold=fold))
     st2, m2 = tr2.train_iter(tr2.init(0), tr2.generator(2))
-    assert fused_sac.LAUNCHES[lib] == before + 4 and np.isfinite(float(m2["critic_loss"]))
+    assert _launches(lib) == before + 4 and np.isfinite(float(m2["critic_loss"]))
 
 
 # ----------------------------------------------------- the learner kernel K6 --
@@ -530,13 +540,13 @@ def test_cuda_td3_update_kernel_matches_the_plain_version(h, K, B, lanes, warm, 
         runs = []
         for _ in range(2):
             f0 = ns.fused_init(packed, adam)
-            before = fused_td3.LAUNCHES["td3_update"]
+            before = _launches("td3_update")
             if mode == "ring":
                 out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, **hyper)
             else:
                 out = ns.fused_update_k_wmat_batches(f0, batches, noises, **hyper)
             torch.cuda.synchronize()
-            assert fused_td3.LAUNCHES["td3_update"] == before + 1
+            assert _launches("td3_update") == before + 1
             assert out[0].w is f0.w, "the state is updated in place"
             runs.append((out[0], out[1].clone(), out[2].clone()))
         assert _same_td3(*runs), "a second call gives the same bits"
@@ -623,13 +633,13 @@ def test_cuda_td3_trainer_launches_its_kernel_every_live_iteration():
     assert tr.device.type == "cuda"
     st = tr.init(0)
     g = tr.generator(1)
-    before = fused_td3.LAUNCHES["td3_update"]
+    before = _launches("td3_update")
     w0 = st.fused.w.clone()
     st, m = tr.train_iter(st, g)
-    assert torch.equal(st.fused.w, w0) and fused_td3.LAUNCHES["td3_update"] == before
+    assert torch.equal(st.fused.w, w0) and _launches("td3_update") == before
     for _ in range(3):
         st, m = tr.train_iter(st, g)
-    assert fused_td3.LAUNCHES["td3_update"] == before + 3
+    assert _launches("td3_update") == before + 3
     assert (st.fused.count, st.fused.count_a, st.n_updates) == (9, 5, 9)
     assert not torch.equal(st.fused.w, w0)
     assert all(np.isfinite(float(v)) for v in m.values())
@@ -640,7 +650,7 @@ def test_cuda_td3_trainer_launches_its_kernel_every_live_iteration():
                      TD3Config(lanes=512, rollout_len=4, replay_rows=64, batch_size=768,
                                updates_per_iter=2, warmup_rows=4, fused_updates=True))
     st2, m2 = tr2.train_iter(tr2.init(0), tr2.generator(2))
-    assert fused_td3.LAUNCHES["td3_update"] == before + 4
+    assert _launches("td3_update") == before + 4
     assert np.isfinite(float(m2["critic_loss"]))
 
 
@@ -660,9 +670,7 @@ def test_cuda_captured_rollout_equals_the_eager_loop_bitwise(env_id, rng):
     the same steps run eagerly (`rollout`) and against the loop of `step`,
     from one generator state: every observation, reward and flag, the state
     after, the generator after; a second replay from the same state gives
-    the same; a replay counts K3's launches once each (utils/graphs.py)."""
-    from space_gym_torch.utils import graphs
-
+    the same; a replay counts K3's launches once each (utils/profiling.py)."""
     _need_card()
     eng = EnvEngine(get_config(env_id), in_kernel_rng=rng)
     g = eng.generator(4)
@@ -691,9 +699,9 @@ def test_cuda_captured_rollout_equals_the_eager_loop_bitwise(env_id, rng):
             assert torch.equal(getattr(traj, name), torch.stack([getattr(t, name) for t in ts_l]))
     assert runs[0][2].truncated.any()
     name = {False: "full_step", "threefry": "full_step_threefry", "philox": "full_step_philox"}
-    graphs.reset_launches()
+    profiling.reset_counts()
     captured(state, obs)
-    assert graphs.REPLAYED == {name[rng]: 8}
+    assert profiling.counts() == {name[rng]: 8}
 
 
 @pytest.mark.cuda
@@ -702,6 +710,94 @@ def test_cuda_capture_needs_an_explicit_generator():
     eng = EnvEngine(get_config("GoalContinuous2P-v0"))
     with pytest.raises(ValueError, match="explicit generator"):
         eng.capture_rollout(eng.random_policy(), 2, None)
+
+
+@pytest.mark.cuda
+def test_cuda_train_iter_spans_cover_the_iteration():
+    """One documented-size SAC train_iter under profiling.tracing(): the device
+    extents of its rollout, insert and update lie inside the iteration's and
+    cover at least 95% of it."""
+    _need_card()
+    tr = SACTrainer(EnvEngine(get_config("GoalContinuous2P-v0")),
+                    SACConfig(lanes=2048, rollout_len=8, replay_rows=2048, batch_size=8192,
+                              updates_per_iter=32, warmup_rows=32, fused_updates=True))
+    st, g = tr.init(0), tr.generator(1)
+    for _ in range(5):  # past the warm-up gate, the graph captured
+        st, _ = tr.train_iter(st, g)
+    profiling.clear_spans()
+    with profiling.tracing():
+        st, _ = tr.train_iter(st, g)
+    torch.cuda.synchronize()
+    got = {s["name"]: s for s in profiling.spans()}
+    it = got["sg.train_iter"]
+    parts = [got[n] for n in ("sg.rollout", "sg.insert", "sg.update")]
+    assert all(it["dev_start_ns"] <= p["dev_start_ns"] <= p["dev_end_ns"] <= it["dev_end_ns"]
+               for p in parts), got
+    covered = sum(p["dev_end_ns"] - p["dev_start_ns"] for p in parts)
+    assert covered >= 0.95 * (it["dev_end_ns"] - it["dev_start_ns"]), got
+    assert "sg.graph.capture" not in got and got["sg.graph.replay"]["dev_start_ns"] is not None
+    profiling.clear_spans()
+
+
+@pytest.mark.cuda
+def test_cuda_span_stamps_follow_the_host_clock():
+    """The device stamps lie on the host clock: a span opened on an idle
+    device starts there within 1 ms of its host start, and one around a
+    kernel that spins 20-40 ms lasts over 10 ms on the device and ends there
+    after the host has left it; under the profiler the stamps are `span_stamp` kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_card()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda._sleep(1000)  # loaded before the timed block
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    with profiling.tracing():
+        with profiling.span("idle", device=dev):
+            pass
+        with profiling.span("spin", device=dev):
+            torch.cuda._sleep(40_000_000)  # 20-40 ms at 1-2 GHz
+    idle, spin = profiling.spans()
+    assert abs(idle["dev_start_ns"] - idle["host_start_ns"]) < 1_000_000, idle
+    assert spin["dev_end_ns"] - spin["dev_start_ns"] > 10_000_000, spin
+    assert spin["dev_end_ns"] > spin["host_end_ns"], spin
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiling.span("traced", device=dev):
+            torch.ones(4, device=dev).sum()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert sum("span_stamp" in n for n in names) >= 2 and "sg.traced" in names
+    assert profiling.spans()[-1]["dev_end_ns"] > profiling.spans()[-1]["dev_start_ns"]
+    profiling.clear_spans()
+
+
+@pytest.mark.cuda
+def test_cuda_first_capture_inside_a_span():
+    """A PolicyRollout that captures its graph for the first time inside a
+    traced span raises nothing and records one `sg.graph.capture`, timed on
+    the device, under the call's span; the next call captures nothing."""
+    from space_gym_torch.engine import PolicyRollout
+
+    _need_card()
+    eng = EnvEngine(get_config("GoalContinuous2P-v0"))
+    g = eng.generator(3)
+    state, obs = eng.init(256, g)
+    params = {"w": torch.full((2,), 0.5, device=eng.device)}
+    held = PolicyRollout(eng, lambda p, gen, o: torch.tanh(o[:, :2] * p["w"]), 4)
+    before = profiling.counts().get("graph.capture", 0)
+    profiling.clear_spans()
+    with profiling.tracing():
+        with profiling.span("outer", device=eng.device):
+            state, obs, _ = held(params, state, obs, g)
+        state, obs, _ = held(params, state, obs, g)
+    torch.cuda.synchronize()
+    got = profiling.spans()
+    caps = [s for s in got if s["name"] == "sg.graph.capture"]
+    assert len(caps) == 1 and caps[0]["parent"] == "sg.graph.call"
+    assert caps[0]["dev_end_ns"] > caps[0]["dev_start_ns"]
+    assert [s["it"] for s in got if s["name"] == "sg.graph.call"] == [1, 2]
+    assert profiling.counts().get("graph.capture", 0) == before + 1
+    profiling.clear_spans()
 
 
 @pytest.mark.cuda
@@ -892,11 +988,11 @@ def test_cuda_vector_env_launches_k3_once_a_step():
     venv = space_gym_torch.VectorEnv("GoalContinuous2P-v0", num_envs=4096, physics="kernel")
     assert venv.engine.device.type == "cuda" and venv.engine.tier == "full"
     venv.reset()
-    FullStep.reset_launches()
+    profiling.reset_counts()
     rng = np.random.default_rng(0)
     for _ in range(4):
         obs, rewards, dones, infos = venv.step(rng.uniform(-1, 1, (4096, 2)).astype(np.float32))
-    assert FullStep.launches_by_rng[False] == 4
+    assert _launches("full_step") == 4
     assert obs.shape == (4096, venv.config.obs_dim) and np.isfinite(obs).all()
     assert len(infos) == 4096 and all(("terminal_observation" in i) == d
                                       for i, d in zip(infos, dones))

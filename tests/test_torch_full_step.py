@@ -18,6 +18,7 @@ from space_gym_tpu.ops.pallas_full import make_full_step
 from space_gym_torch import get_config
 from space_gym_torch.ops.full_step import FullStep
 from space_gym_torch.ops.full_step_plain import count_uniform_rows, norminv
+from space_gym_torch.utils import profiling
 
 from .torch_scenarios import one_torch_thread, scenario_inputs  # noqa: F401 (autouse)
 
@@ -85,7 +86,7 @@ def test_wrapper_rejects_bad_operands():
         full.apply(*t[:-1], t[-1][:, :-1])  # too few uniform rows
     with pytest.raises(TypeError):
         full.apply(*t[:6], t[6].float(), t[7])  # ti not int32
-    launches = FullStep.launches
+    launches = profiling.counts()
     full.apply(*t)  # CPU tensors take the plain twin and count no launch
-    assert FullStep.launches == launches
+    assert profiling.counts() == launches
 

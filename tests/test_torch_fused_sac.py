@@ -35,6 +35,7 @@ from space_gym_torch.engine import EnvEngine
 from space_gym_torch.models import SACConfig, SACTrainer, convert, fused_sac
 from space_gym_torch.models.replay import Transition
 from space_gym_torch.models.sac import AdamState
+from space_gym_torch.utils import profiling
 
 from .test_fused_sac import flax_update_with_noise
 from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
@@ -193,10 +194,10 @@ def test_batches_entry_matches_interpret_kernel(h, K, B, fold):
     args = (obs_dim, HYPER["gamma"], HYPER["tau"], HYPER["lr"], HYPER["target_entropy"])
     want = jns.fused_update_k(jp, jad, to_jax(b), jnp.asarray(noises), *args, block=32,
                               interpret=True, mm_bf16=False, fold=fold)
-    launches = dict(fused_sac.LAUNCHES)
+    launches = profiling.counts()
     got = tns.fused_update_k(tp, tad, to_torch(b), torch.as_tensor(noises), *args, block=32,
                              mm_bf16=False, fold=fold)
-    assert fused_sac.LAUNCHES == launches, "CPU tensors take the plain version"
+    assert profiling.counts() == launches, "CPU tensors take the plain version"
     assert_close(*got, *want)
 
 

@@ -33,6 +33,7 @@ from space_gym_torch.engine import EnvEngine
 from space_gym_torch.models import TD3Config, TD3Trainer, convert, fused_td3, networks
 from space_gym_torch.models import replay as treplay
 from space_gym_torch.models.sac import AdamState
+from space_gym_torch.utils import profiling
 
 from .test_fused_td3 import flax_update_with_noise
 from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
@@ -130,7 +131,7 @@ def test_trainer_runs_through_the_warmup_gate(fused):
     # the targets start as copies of the online networks, not as the same tensors
     assert all(torch.equal(st.actor_params[k], st.target_actor_params[k])
                for k in st.target_actor_params)
-    launches = dict(fused_td3.LAUNCHES)
+    launches = profiling.counts()
 
     before = learner_leaves(st)
     st, m = tr.train_iter(st, g)                 # 4 rows < warm-up 8: nothing moves
@@ -152,7 +153,7 @@ def test_trainer_runs_through_the_warmup_gate(fused):
     assert set(vals) == {"critic_loss", "actor_loss", "mean_reward", "episodes_done"}
     assert all(np.isfinite(v) for v in vals.values()), vals
     assert all(torch.isfinite(t).all() for t in learner_leaves(st))
-    assert fused_td3.LAUNCHES == launches, "no kernel is launched for CPU tensors"
+    assert profiling.counts() == launches, "no kernel is launched for CPU tensors"
     if fused:  # the rollout's actor is the fused state's, not a stale copy
         want = tr._ft.unpack_actor(st.fused.w, st.fused.vec, tr.obs_dim)
         assert all(torch.equal(st.actor_params[k], want[k]) for k in want)

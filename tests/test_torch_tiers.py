@@ -31,6 +31,7 @@ from space_gym_torch.engine import EnvEngine
 from space_gym_torch.envs import dnc_math, goal_math, kepler_math
 from space_gym_torch.ops.constants import G
 from space_gym_torch.ops.env_step import EnvStep
+from space_gym_torch.utils import profiling
 
 from .test_torch_fixed import run_both
 from .torch_scenarios import one_torch_thread, scenario_inputs  # noqa: F401 (autouse)
@@ -52,9 +53,9 @@ def test_plain_env_step_matches_pallas_kernel_f64(env_id, tableau, substeps, ref
                                        True, tableau=tableau)
     want = [np.asarray(v) for v in jfused(*[jnp.asarray(v) for v in (y, a, p, g, r)])]
     k2 = EnvStep(cfg, substeps, refine, tableau)
-    launches = EnvStep.launches
+    launches = profiling.counts()
     got = [v.numpy() for v in k2(*[torch.as_tensor(v) for v in (y, a, p, g, r)])]
-    assert EnvStep.launches == launches, "CPU tensors take the plain twin"
+    assert profiling.counts() == launches, "CPU tensors take the plain twin"
     np.testing.assert_array_equal(got[1], want[1])
     for name, gv, wv in zip(("y", "terminated", "obs", "reward"), got, want):
         assert gv.shape == wv.shape, name
