@@ -125,6 +125,17 @@ each kernel's ms per launch at the main path's shapes: a copy of this script
 run from two checkouts on one card prints equal digests where the two
 compute the same bits.
 
+    python3 chip_smoke.py --rollout-bits
+
+prints instead a SHA-256 of a captured collect rollout, as the benchmark's
+collect cells run it (float32, DP5 x 2 / refine 12, 262144 lanes, the random
+policy, 256 steps a call, no trajectory), after 4 calls from seed 0: the
+carried state's rows, the observation and each call's reward and done sums;
+for GoalContinuous2P-v0 with the bulk draw, threefry and Philox,
+GoalContinuous4P-v0 and GoalDiscrete3-v0.  It uses only the engine's
+public API, so a copy of this script runs in an older checkout too: equal
+digests from two checkouts on one card mean equal bits.
+
     python3 chip_smoke.py --scale-worker RANK N PORT
 
 is one rank of phase 7c's two-process run (the phase starts both).
@@ -287,11 +298,13 @@ def rhs_ops(cfg, tab, sub, B, n_term):
 
 
 # --------------------------------------------------------------- scenarios --
-def scenario(cfg, B: int, seed: int, device):
+def scenario(cfg, B: int, seed: int, device, translated: bool = False):
     """(B, rows) operands of one full step with lanes in every branch:
     lane % 10 == 0 truncates, 1 crashes into planet 0, 2 reaches its goal
     (Goal) or flies out of the world, 3 carries a known goal tile; the rest
-    are live lanes of a fresh episode."""
+    are live lanes of a fresh episode.  The action is the raw one K3 takes
+    (FullStep.apply), or with `translated` the one K1 and K2 take
+    (`tail_rows`)."""
     from space_gym_torch.engine import EnvEngine
 
     rng = np.random.default_rng(seed)
@@ -328,7 +341,30 @@ def scenario(cfg, B: int, seed: int, device):
         ts = ts._replace(goal_tile=goal_tile)
     u = torch.as_tensor(rng.random((B, eng.n_step_rand), dtype=np.float32), device=device)
     state = state._replace(y=y, steps=steps, tiling=ts)
-    return eng.kernel_operands(state, eng._translate_action(action), u)
+    ops = list(eng.kernel_operands(state, action, u))
+    if translated:
+        ops[1] = eng._translate_action(action)
+    return ops
+
+
+def tail_rows(ops):
+    """K2's component-major operands (y, a, p, g, ref; K1 takes the first
+    three) from the (B, rows) ones of `scenario(..., translated=True)`."""
+    return [t.reshape(t.shape[0], -1).t().contiguous() for t in ops[:5]]
+
+
+def main_rows(eng, state, raw_action, u):
+    """The operands of one step of the main path's engine: K3's
+    (`FullStep.step_rows`, the raw action) and K2's (`tail_rows`, the action
+    translated)."""
+    rows = eng.full.to_rows(*eng.kernel_operands(state, raw_action, u))
+    return rows, [rows[0], eng._translate_action(raw_action).t().contiguous(), *rows[2:5]]
+
+
+def bits(t):
+    """A float tensor's bits as int32, so that equal NaNs compare equal; any
+    other tensor as it is."""
+    return t.view(torch.int32) if t.is_floating_point() else t
 
 
 def firing_rows(cfg, B: int, seed: int, device):
@@ -338,9 +374,7 @@ def firing_rows(cfg, B: int, seed: int, device):
     world's border heading out.  Where B is more than the lanes the card
     holds at once, a block walks several tiles and its firing lanes are more
     than its list of deferred lanes holds (csrc/env_lanes.cuh, 128)."""
-    from space_gym_torch.ops.full_step import FullStep
-
-    ops = list(scenario(cfg, B, seed, device))
+    ops = scenario(cfg, B, seed, device, translated=True)
     y, p = ops[0].clone(), ops[2]
     lane = torch.arange(B, device=device)
     crash = lane % 5 < 3
@@ -351,7 +385,7 @@ def firing_rows(cfg, B: int, seed: int, device):
     y[out, 0], y[out, 1] = cfg.world_size / 2 - 0.01, 0.0
     y[out, 3], y[out, 4] = 3.0, 0.0
     ops[0] = y
-    return FullStep.to_rows(*ops)[:5]
+    return tail_rows(ops)
 
 
 OUT_NAMES = ("y", "planets", "goal", "ref", "col_shift", "obs", "final_obs", "reward")
@@ -410,12 +444,11 @@ def print_build(reports):
 def check_k1(dev, B):
     """K1 against its plain twin; returns the max float error."""
     from space_gym_torch import get_config
-    from space_gym_torch.ops.full_step import FullStep
     from space_gym_torch.ops.physics_step import PhysicsStep
 
     cfg = get_config(MAIN_ENV)
     worst = 0.0
-    states = {"branches": FullStep.to_rows(*scenario(cfg, B, seed=1, device=dev))[:3],
+    states = {"branches": tail_rows(scenario(cfg, B, seed=1, device=dev, translated=True))[:3],
               "most lanes fire": firing_rows(cfg, MAIN_B, 1, dev)[:3]}
     for tab, sub, ref in (("dp5", 2, 12), ("bs3", 1, 8)):
         k1 = PhysicsStep(cfg, sub, ref, tab)
@@ -489,13 +522,12 @@ def check_k2(dev, B):
     max float error."""
     from space_gym_torch import get_config
     from space_gym_torch.ops.env_step import EnvStep
-    from space_gym_torch.ops.full_step import FullStep
 
     worst = 0.0
     for env_id in (MAIN_ENV, "GoalContinuous4P-v0", "KeplerRandomOrbits-v0",
                    "DoNotCrashContinuous-v0"):
         cfg = get_config(env_id)
-        states = {"branches": FullStep.to_rows(*scenario(cfg, B, seed=4, device=dev))[:5]}
+        states = {"branches": tail_rows(scenario(cfg, B, seed=4, device=dev, translated=True))}
         if env_id in (MAIN_ENV, "KeplerRandomOrbits-v0"):
             states["most lanes fire"] = firing_rows(cfg, MAIN_B, 4, dev)
         for tab, sub, ref in (("bs3", 1, 8), ("dp5", 2, 12)):
@@ -540,7 +572,7 @@ def check_rng(dev, B):
             got = keyed.step_rows(*rows[:6], key, rows[7])
             want = mem.step_rows(*rows)
             bad = [n for n, g, w in zip(OUT_NAMES + ("int_rows", "flags"), got, want)
-                   if not torch.equal(g.view(torch.int32), w.view(torch.int32))]
+                   if not torch.equal(bits(g), bits(w))]
             print(f"rng {mode} {env_id} {tab}x{sub} B={B}: ({keyed.n_uniform_rows}, {B}) block "
                   f"bitwise equal to the plain version: {same}, in [0, 1): {in_range}, mean "
                   f"{u.mean().item():.6f}; K3 with the key vs K3 fed the block: "
@@ -562,12 +594,11 @@ def check_lane_offset(cfg, mem, keyed, key, B, seed, device):
               and torch.equal(u_off, keyed.kernel_uniforms(key, 2 * B)[:, B:]))
     wide_rows = mem.to_rows(*scenario(cfg, 2 * B, seed=seed + 1, device=device))
     wide = keyed.step_rows(*wide_rows[:6], key, wide_rows[7])
-    block = [t[:, B:].contiguous() for t in wide_rows]
+    block = mem.lane_block(wide_rows, B)
     got = keyed.step_rows(*block[:6], key, block[7], lane0=B)
     fed = mem.step_rows(*block[:6], u_off, block[7])
     bad = [n for n, g, w, f in zip(OUT_NAMES + ("int_rows", "flags"), got, wide, fed)
-           if not (torch.equal(g.view(torch.int32), w[:, B:].view(torch.int32))
-                   and torch.equal(g.view(torch.int32), f.view(torch.int32)))]
+           if not (torch.equal(bits(g), bits(w[:, B:])) and torch.equal(bits(g), bits(f)))]
     print(f"  {keyed.rng} at lane0={B}: block bitwise equal to the plain version and to lanes "
           f"{B}.. of a {2 * B}-lane block: {same_u}; the step against lanes {B}.. of the "
           f"{2 * B}-lane launch and against K3 fed the block: "
@@ -709,8 +740,7 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, 
     full = eng.full
     n_u = full.n_uniform_rows
     u = eng.draw_key(g) if rng else torch.rand((B, n_u), generator=g, device=dev)
-    a = eng._translate_action(policy(g, obs))
-    rows = full.to_rows(*eng.kernel_operands(state, a, u))
+    rows, tail = main_rows(eng, state, policy(g, obs), u)
 
     def plain_call():
         u_rows = full.plain_uniforms(rows[6], B) if rng else rows[6]
@@ -768,19 +798,20 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, 
     if rng:
         return res
 
-    # K1 and K2 at the same shapes and configuration, on the same rows.
+    # K1 and K2 at the same shapes and configuration, on the same state and
+    # actions (translated, as they take them).
     k1 = PhysicsStep(cfg, sub, ref, tab)
-    yo, term = k1.step_rows(*rows[:3])
-    yw, tw = k1.plain_rows(*rows[:3])
+    yo, term = k1.step_rows(*tail[:3])
+    yw, tw = k1.plain_rows(*tail[:3])
     agree = (term == tw)[0]
     k1_err = float_err(yo, yw, agree)
     print(f"K1 vs plain on the main path's state, {tab}x{sub} r{ref} B={B}: flag agreement "
           f"{agree.float().mean().item():.6f}, max|err| {k1_err:.3g}", flush=True)
     if agree.float().mean().item() < MIN_FLAG_AGREEMENT or not k1_err <= TOL_STATE:
         fail("K1 disagrees with its plain twin on the main path's state")
-    k1_call_ms = time_ms(lambda: k1.step_rows(*rows[:3]), iters=200, warmup=20)
-    k1_ms = kernel_ms(lambda: k1.step_rows(*rows[:3]), "fused_step_kernel")
-    k1_plain_ms = time_ms(lambda: k1.plain_rows(*rows[:3]), iters=plain_iters, warmup=1)
+    k1_call_ms = time_ms(lambda: k1.step_rows(*tail[:3]), iters=200, warmup=20)
+    k1_ms = kernel_ms(lambda: k1.step_rows(*tail[:3]), "fused_step_kernel")
+    k1_plain_ms = time_ms(lambda: k1.plain_rows(*tail[:3]), iters=plain_iters, warmup=1)
     k1_bound = bound(4 * (6 + 2 + 2 * cfg.n_planets + 6 + 1) * B,
                      rhs_ops(cfg, tab, sub, B, int(tw.sum())))
     print(f"  K1: {k1_ms:.5f} ms/launch on the device ({k1_call_ms:.5f} ms per wrapper call), "
@@ -789,8 +820,8 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, 
     print(f"  K1 launch: {launch_line(k1, B)[0]}", flush=True)
 
     k2 = EnvStep(cfg, sub, ref, tab)
-    got2 = k2.step_rows(*rows[:5])
-    want2 = k2.plain_rows(*rows[:5])
+    got2 = k2.step_rows(*tail)
+    want2 = k2.plain_rows(*tail)
     frac2, errs2 = compare_k2(got2, want2)
     k2_err = max(errs2)
     print(f"K2 vs plain on the main path's state, {tab}x{sub} r{ref} B={B}: flag agreement "
@@ -798,9 +829,9 @@ def main_path(dev, card, B, tab, sub, ref, n_steps, rng=False, time_ms=cuda_ms, 
           flush=True)
     if frac2 < MIN_FLAG_AGREEMENT:
         fail("K2 disagrees with its plain twin on the main path's state")
-    k2_call_ms = time_ms(lambda: k2.step_rows(*rows[:5]), iters=200, warmup=20)
-    k2_ms = kernel_ms(lambda: k2.step_rows(*rows[:5]), "env_step_kernel")
-    k2_plain_ms = time_ms(lambda: k2.plain_rows(*rows[:5]), iters=plain_iters, warmup=1)
+    k2_call_ms = time_ms(lambda: k2.step_rows(*tail), iters=200, warmup=20)
+    k2_ms = kernel_ms(lambda: k2.step_rows(*tail), "env_step_kernel")
+    k2_plain_ms = time_ms(lambda: k2.plain_rows(*tail), iters=plain_iters, warmup=1)
     k2_bound = bound(k2.bytes_per_lane() * B, rhs_ops(cfg, tab, sub, B, int(want2[1].sum())))
     print(f"  K2: {k2_ms:.5f} ms/launch on the device ({k2_call_ms:.5f} ms per wrapper call), "
           f"plain {k2_plain_ms:.3f} ms, bound bytes {k2_bound['bytes']:.5f} ms "
@@ -2035,13 +2066,14 @@ def env_bits(dev, card, B=CHECK_B, n_steps=3):
         cfg = get_config(env_id)
         for tab, sub, ref in (("bs3", 1, 8), ("dp5", 2, 12)):
             rows0 = FullStep.to_rows(*scenario(cfg, B, seed=8, device=dev))
+            tail = tail_rows(scenario(cfg, B, seed=8, device=dev, translated=True))
             k1, k2 = PhysicsStep(cfg, sub, ref, tab), EnvStep(cfg, sub, ref, tab)
             hashes = {}
             for name in ("K1", "K2"):
-                y, outs = rows0[0], []
+                y, outs = tail[0], []
                 for _ in range(n_steps):
-                    out = (k1.step_rows(y, *rows0[1:3]) if name == "K1"
-                           else k2.step_rows(y, *rows0[1:5]))
+                    out = (k1.step_rows(y, *tail[1:3]) if name == "K1"
+                           else k2.step_rows(y, *tail[1:5]))
                     outs += out
                     y = out[0]
                 hashes[name] = digest(outs)
@@ -2064,13 +2096,13 @@ def env_bits(dev, card, B=CHECK_B, n_steps=3):
         eng, g, policy, state, obs = warm_engine(dev, MAIN_B, tab, sub, ref)
         full = eng.full
         u = torch.rand((MAIN_B, full.n_uniform_rows), generator=g, device=dev)
-        rows = full.to_rows(*eng.kernel_operands(state, eng._translate_action(policy(g, obs)), u))
+        rows, tail = main_rows(eng, state, policy(g, obs), u)
         key = eng.draw_key(g)
         cfg = full.cfg
         calls = {"K1": ("fused_step_kernel", lambda k=PhysicsStep(cfg, sub, ref, tab):
-                        k.step_rows(*rows[:3])),
+                        k.step_rows(*tail[:3])),
                  "K2": ("env_step_kernel", lambda k=EnvStep(cfg, sub, ref, tab):
-                        k.step_rows(*rows[:5])),
+                        k.step_rows(*tail)),
                  "K3": ("full_step_kernel", lambda: full.step_rows(*rows))}
         for name, rng in (("K3-tf", "threefry"), ("K3-hw", "philox")):
             keyed = FullStep(cfg, sub, ref, tab, in_kernel_rng=rng)
@@ -2079,6 +2111,34 @@ def env_bits(dev, card, B=CHECK_B, n_steps=3):
         print(f"time {MAIN_ENV} B={MAIN_B} {tab}x{sub} r{ref} on {card}, ms per launch on the "
               f"device: " + ", ".join(f"{name} {kernel_device_ms(fn, kernel):.5f}"
                                       for name, (kernel, fn) in calls.items()), flush=True)
+
+
+def rollout_bits(card, B=MAIN_B, calls=4, steps=256):
+    """The `--rollout-bits` digests (module docstring)."""
+    import hashlib
+
+    from space_gym_torch import get_config
+    from space_gym_torch.engine import EnvEngine
+
+    for env_id, rng in ((MAIN_ENV, False), ("GoalContinuous4P-v0", False),
+                        ("GoalDiscrete3-v0", False), (MAIN_ENV, "threefry"),
+                        (MAIN_ENV, "philox")):
+        eng = EnvEngine(get_config(env_id), in_kernel_rng=rng)
+        g = eng.generator(0)
+        state, obs = eng.init(B, g)
+        run = eng.capture_rollout(eng.random_policy(), steps, g, trajectory=False)
+        sums = []
+        for _ in range(calls):
+            state, obs, traj = run(state, obs)
+            sums += [traj.reward_sum, traj.done_sum]
+        h = hashlib.sha256()
+        for t in (*eng.to_carry(state), obs, *sums):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        print(f"rollout bits {env_id} {RNG_NAMES[rng]} B={B} {calls} calls of {steps} steps: "
+              f"{h.hexdigest()[:16]}; reward sums {[float(x) for x in sums[::2]]}, done sums "
+              f"{[int(x) for x in sums[1::2]]} on {card}", flush=True)
+        del run, state, obs, traj
+        torch.cuda.empty_cache()
 
 
 def clocked_builds(names):
@@ -2139,19 +2199,19 @@ ENV_CLOCKED = {"K1": ("fused_step", False, "fused_step_kernel", "ILi2E"),
                          r"I\w+Li0ELi2ELi4ELi2E")}
 
 
-def env_clock_targets(label, eng, sub, ref, tab, rows):
+def env_clock_targets(label, eng, sub, ref, tab, rows, tail):
     """(module whose _lib the clocked build replaces, its C entry points, a
     call of one launch, the wrapper that describes the launch) of an env
-    kernel on the main path's operands `rows`."""
+    kernel on the main path's operands `rows` and `tail` (`main_rows`)."""
     from space_gym_torch.ops import env_step, full_step, physics_step
 
     cfg = eng.full.cfg
     if label == "K1":
         k = physics_step.PhysicsStep(cfg, sub, ref, tab)
-        return physics_step, ("sg_fused_step",), lambda: k.step_rows(*rows[:3]), k
+        return physics_step, ("sg_fused_step",), lambda: k.step_rows(*tail[:3]), k
     if label == "K2":
         k = env_step.EnvStep(cfg, sub, ref, tab)
-        return env_step, ("sg_env_step",), lambda: k.step_rows(*rows[:5]), k
+        return env_step, ("sg_env_step",), lambda: k.step_rows(*tail), k
     full = eng.full
     return (full_step, (full_step.RNG_MODES[full.rng][1],), lambda: full.step_rows(*rows), full)
 
@@ -2182,9 +2242,8 @@ def env_phase_clock(dev, card, procs, reports, B=MAIN_B, cases=(("bs3", 1, 8), (
             full = eng.full
             u = eng.draw_key(g) if rng else torch.rand((B, full.n_uniform_rows), generator=g,
                                                         device=dev)
-            rows = full.to_rows(*eng.kernel_operands(state, eng._translate_action(
-                policy(g, obs)), u))
-            module, entries, call, wrapper = env_clock_targets(label, eng, sub, ref, tab, rows)
+            module, entries, call, wrapper = env_clock_targets(
+                label, eng, sub, ref, tab, *main_rows(eng, state, policy(g, obs), u))
             real = module._lib
             built = real(rng) if label.startswith("K3") else real()
             for fn in entries + tuple(e + "_info" for e in entries):
@@ -2742,7 +2801,7 @@ def fuzz_path(dev, card):
             if physics == "kernel":
                 full = eng.full
                 z = lambda k: torch.zeros((FUZZ_B, k), device=d)  # noqa: E731
-                outs = full.apply(y, eng._translate_action(a), planets, z(2), z(3),
+                outs = full.apply(y, a, planets, z(2), z(3),
                                   z(full.cs_rows),
                                   torch.zeros((FUZZ_B, full.n_int_rows), dtype=torch.int32,
                                               device=d),
@@ -2840,6 +2899,9 @@ def main():
         reports = cuda_build.build_all(list(ENV_KERNELS))
         print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(reports)}", flush=True)
         env_bits(dev, card)
+        return
+    if sys.argv[1:] == ["--rollout-bits"]:
+        rollout_bits(card)
         return
     if sys.argv[1:] == ["--parity"]:
         print(json.dumps({"parity": parity_path(dev, card)}), flush=True)

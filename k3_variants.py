@@ -17,7 +17,10 @@ refine 12) and source, on the main path's state at B=262144 after its warm-up
 its outputs compared bit for bit with the first variant's, and is timed in
 turns: the variants in order, then in reverse, twice (device ms a launch,
 chip_smoke.kernel_device_ms).  The variants of one source must share its C
-interface.  Needs a card.
+interface and the meaning of its operands: K3 builds of checkouts before
+the raw action came into the kernel read a translated component-major
+(2, B) action and write int32 flags, so their bits cannot be compared with
+a later build's, nor they be timed on its operands.  Needs a card.
 """
 from __future__ import annotations
 
@@ -91,11 +94,10 @@ def main():
             full = eng.full
             u = eng.draw_key(g) if rng else torch.rand((cs.MAIN_B, full.n_uniform_rows),
                                                         generator=g, device=dev)
-            rows = full.to_rows(*eng.kernel_operands(state, eng._translate_action(
-                policy(g, obs)), u))
+            rows, tail = cs.main_rows(eng, state, policy(g, obs), u)
             if name in TAIL:
                 label, module, entry = TAIL[name]
-                _, _, call, _ = cs.env_clock_targets(label, eng, *CASES[tab][1:], tab, rows)
+                _, _, call, _ = cs.env_clock_targets(label, eng, *CASES[tab][1:], tab, rows, tail)
                 built = module._lib()
             else:
                 module, entry, call = full_step, full_step.RNG_MODES[rng][1], (

@@ -15,11 +15,16 @@
 // Goal/Kepler/DoNotCrash with the post-reset observation.  Plain twin:
 // space_gym_torch/ops/full_step_plain.py.
 //
-// Operands are component-major (rows, B): inputs y 6, a 2, p 2P, g 2, ref 3,
-// cs max(cols,1), u (float32 (n_u, B), or the two uint32 key words), ti
-// int_rows (int32); outputs y' 6, p' 2P,
-// g' 2, ref' 3, cs' max(cols,1), obs D, final obs D, reward 1 (float32),
-// ti' int_rows, flags 3 = (terminated, truncated, done) (int32).
+// Operands: inputs y 6, p 2P, g 2, ref 3, cs max(cols,1), u (float32 (n_u,
+// B), or the two uint32 key words), ti int_rows (int32), component-major
+// (rows, B), and the action a, lane-major (B, 2) float32: the policy's raw
+// action for a continuous config, which the kernel translates
+// (spaceship_env.py:189-214, `sg_action`), the looked-up table rows for a
+// discrete one (FullParams::continuous); outputs, component-major, y' 6, p'
+// 2P, g' 2, ref' 3, cs' max(cols,1), obs D, final obs D, reward 1 (float32),
+// ti' int_rows (int32), flags 3 = (terminated, truncated, done) (bytes of 0
+// or 1: torch.bool).  So the action comes in, and the flags go out, in the
+// layouts the engine's callers hold and read, with no conversion between.
 //
 // Uniforms: every row has a fixed index in exactly the
 // JAX kernel's consumption order: the Goal resample's rows first, then the
@@ -31,11 +36,11 @@
 // resample too: the reset overwrites everything the resample writes, and
 // takes its rows from GP_ROWS on either way.
 //
-// What bounds it on an H100: bytes.  It moves (in + out) x 4 bytes per lane
-// (536 B for GoalContinuous2P-v0 by the operand list, 336 B without the u
-// rows, less where lanes skip their uniform rows) against a few hundred float
-// operations per lane, which at the card's f32 rate take a tenth of the
-// memory time (chip_smoke.py prints both).  But each lane's operations form
+// What bounds it on an H100: bytes.  It moves 4 bytes a row in and out and 1
+// a flag per lane (527 B for GoalContinuous2P-v0 by the operand list, 327 B
+// without the u rows, less where lanes skip their uniform rows) against a
+// few hundred float operations per lane, which at the card's f32 rate take a
+// tenth of the memory time (chip_smoke.py prints both).  But each lane's operations form
 // one long dependent chain (physics, observation, reward) and the rare
 // branches (resample, reset and its second observation) are long too, so
 // latency, residency and divergence set its time (the phase clock,
@@ -324,9 +329,9 @@ __device__ void sg_orbit_reset(const FullParams& P, ROWS& U, bool kepler, float*
 // ------------------------------------------------------------ the kernel --
 #define SG_TILE 128  // lanes a tile = threads a block
 
-// Row layout of one env's operands: the input rows a lane loads (y, a, p,
-// g, ref, cs, ti; the u rows are read where they are taken) and the row
-// counts; the block's shared memory.
+// Row layout of one env's operands: the input rows a lane stages (y, its
+// translated action, p, g, ref, cs, ti; the u rows are read where they are
+// taken) and the row counts; the block's shared memory.
 template <int TASK, int NP, int NT, int COLS>
 struct StepShape {
   static constexpr bool GOAL = TASK == SG_TASK_GOAL;
@@ -344,12 +349,13 @@ struct StepShape {
 
 // The operands of one launch, in the kernel's order.
 struct FullStepArgs {
-  const float *y, *a, *p, *g, *r, *cs;
+  const float *y, *a, *p, *g, *r, *cs;  // a: (B, 2), 8-byte aligned
   const void* u;  // (n_u, B) float32 uniforms, or two uint32 key words
   int n_u;
   const int* ti;
   float *yo, *po, *go, *ro, *cso, *obs, *fobs, *rew;
-  int *tio, *flags;
+  int* tio;
+  unsigned char* flags;
   int B;
   cudaStream_t stream;
   int lane0;  // global index of lane 0 for the in-kernel generators (rng.cuh)
@@ -362,13 +368,17 @@ struct K3Args {
   int tiles;  // ceil(B / SG_TILE)
 };
 
-// f(input row, row pointer) for every input row a lane loads.
+// torch.clamp(x, -1, 1): a NaN passes as it is.
+__device__ __forceinline__ float sg_clamp_unit(float x) {
+  return x != x ? x : fminf(fmaxf(x, -1.f), 1.f);
+}
+
+// f(input row, row pointer) for every component-major input row a lane
+// loads; the action is not one (`sg_action`).
 template <class S, class F>
 __device__ __forceinline__ void sg_each_input_row(const FullStepArgs& A, size_t n, F f) {
 #pragma unroll
   for (int c = 0; c < 6; ++c) f(S::R_Y + c, A.y + c * n);
-#pragma unroll
-  for (int c = 0; c < 2; ++c) f(S::R_A + c, A.a + c * n);
 #pragma unroll
   for (int c = 0; c < S::R_G - S::R_P; ++c) f(S::R_P + c, A.p + c * n);
 #pragma unroll
@@ -379,6 +389,23 @@ __device__ __forceinline__ void sg_each_input_row(const FullStepArgs& A, size_t 
   for (int c = 0; c < S::CSR; ++c) f(S::R_CS + c, A.cs + c * n);
 #pragma unroll
   for (int c = 0; c < S::IR; ++c) f(S::R_TI + c, (const float*)(A.ti + c * n));
+}
+
+// A lane's action as the physics takes it, (thrust, turn), from its float2 of
+// the (B, 2) operand.  A continuous config's raw action is translated as
+// EnvEngine._translate_action does it, in the same float32 operations
+// (spaceship_env.py:189-214): clamped to [-1, 1], thrust (a0 + 1) / 2, turn
+// a1; a discrete config's rows are the table's, passed as they are.
+__device__ __forceinline__ void sg_action(const FullParams& P, const float* a, int lane,
+                                          float& thrust, float& turn) {
+  const float2 v = reinterpret_cast<const float2*>(a)[lane];
+  if (P.continuous) {
+    thrust = (sg_clamp_unit(v.x) + 1.f) / 2.f;
+    turn = sg_clamp_unit(v.y);
+  } else {
+    thrust = v.x;
+    turn = v.y;
+  }
 }
 
 // The common path of one lane, from its input rows `in` (row r at in[r *
@@ -428,9 +455,9 @@ __device__ __forceinline__ int sg_step_common(const FullParams& P, const FullSte
 #pragma unroll
   for (int i = 0; i < S::D; ++i) __stcs(A.fobs + i * n + lane, fobs[i]);
   __stcs(A.rew + lane, rew);
-  __stcs(A.flags + lane, terminated ? 1 : 0);
-  __stcs(A.flags + n + lane, truncated ? 1 : 0);
-  __stcs(A.flags + 2 * n + lane, done ? 1 : 0);
+  __stcs(A.flags + lane, (unsigned char)terminated);
+  __stcs(A.flags + n + lane, (unsigned char)truncated);
+  __stcs(A.flags + 2 * n + lane, (unsigned char)done);
   __stcs(A.tio + (S::IR - 3) * n + lane, done ? 0 : steps1);
   if (!done) {
 #pragma unroll
@@ -586,8 +613,10 @@ __global__ void __launch_bounds__(SG_TILE, (K3MinBlocks<TASK, NP, TAB>::value))
     const int lane = t * T + tid;
     const bool live = (size_t)lane < n;
     int kind = 0;
-    if (live)
+    if (live) {
       sg_each_input_row<S>(A, n, [&](int r, const float* row) { stage[r * T + tid] = row[lane]; });
+      sg_action(P, A.a, lane, stage[S::R_A * T + tid], stage[(S::R_A + 1) * T + tid]);
+    }
     SG_K3_MARK(K3_WAIT);
     if (live) kind = sg_step_common<TASK, NP, NT, COLS, TAB, T>(P, A, stage + tid, lane, n);
     SG_K3_COUNT(live, kind == 2, kind == 1);
@@ -674,7 +703,8 @@ static int sg_full_step_impl(const FullParams& P, int task, int n_planets, int n
 
 // The C interface of one translation unit: `NAME` launches the step with the
 // row source ROWS.  Arguments: params, task, planets, tiles, cols, tableau,
-// the 8 inputs with n_u after u, the 10 outputs, B, stream.  `NAME_at` takes
+// the 8 inputs with n_u after u (the action (B, 2) lane-major), the 10
+// outputs (the flags bytes), B, stream.  `NAME_at` takes
 // lane0, the global index of lane 0 (rng.cuh), before the stream; `NAME` is
 // lane0 = 0.  `NAME_info`
 // writes sg_kernel_info's eight numbers of the instantiation a launch of B
@@ -686,7 +716,7 @@ static int sg_full_step_impl(const FullParams& P, int task, int n_planets, int n
                            const float* g, const float* r, const float* cs, const void* u,       \
                            int n_u, const int* ti, float* yo, float* po, float* go, float* ro,   \
                            float* cso, float* obs, float* fobs, float* rew, int* tio,            \
-                           int* flags, int B, int lane0, void* stream) {                         \
+                           unsigned char* flags, int B, int lane0, void* stream) {               \
     const FullStepArgs A{y,  a,  p,  g,  r,   cs,   u,   n_u, ti,    yo, po,                     \
                          go, ro, cso, obs, fobs, rew, tio, flags, B, (cudaStream_t)stream,       \
                          lane0};                                                                 \
@@ -696,7 +726,7 @@ static int sg_full_step_impl(const FullParams& P, int task, int n_planets, int n
                       int tableau, const float* y, const float* a, const float* p,               \
                       const float* g, const float* r, const float* cs, const void* u, int n_u,   \
                       const int* ti, float* yo, float* po, float* go, float* ro, float* cso,     \
-                      float* obs, float* fobs, float* rew, int* tio, int* flags, int B,          \
+                      float* obs, float* fobs, float* rew, int* tio, unsigned char* flags, int B,\
                       void* stream) {                                                            \
     return NAME##_at(P, task, n_planets, n_tiles, cols, tableau, y, a, p, g, r, cs, u, n_u, ti,  \
                      yo, po, go, ro, cso, obs, fobs, rew, tio, flags, B, 0, stream);             \

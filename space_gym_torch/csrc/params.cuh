@@ -42,6 +42,9 @@ struct FullParams {
   float k_dist_lo, k_dist_span, alpha_gm, k_C, k_rad_C, k_act_C;
   // DoNotCrash
   float d_dist_lo, d_dist_span, dnc_reward;
+  // K3's action operand is the raw continuous action (1) or the discrete
+  // table's rows (0)
+  int continuous;
 };
 
 #define SG_TWO_PI 6.283185307179586f

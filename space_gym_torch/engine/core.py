@@ -320,7 +320,7 @@ class EnvEngine:
     def _step_full(self, state: EnvState, raw_action: torch.Tensor, u: torch.Tensor):
         """The whole step through the full-step kernel; `u` is the uniforms
         block or the key words."""
-        ins = self.kernel_operands(state, self._translate_action(raw_action), u)
+        ins = self.kernel_operands(state, raw_action, u)
         yo, po, go, ro, cso, obs, fobs, rew, tio, flags = self.full.apply(
             *ins, lane0=self.lane0(state.y.shape[0]) if self.in_kernel_rng else 0)
         return self.from_carry(RowCarry(yo, po, go, ro, cso, tio)), _time_step(
@@ -348,12 +348,20 @@ class EnvEngine:
             col_shift = torch.zeros((batch, 1), dtype=self.dtype, device=dev)
         return (state.y, state.planets_pos, state.goal_pos, state.ref_orbit, col_shift, tili)
 
-    def kernel_operands(self, state: EnvState, action_b: torch.Tensor, u: torch.Tensor):
+    def kernel_operands(self, state: EnvState, raw_action: torch.Tensor, u: torch.Tensor):
         """The full-step kernel's (B, rows) operands, in `FullStep.apply`
-        order, for translated actions `action_b`; `u` is the uniforms block or
-        the key words."""
+        order, for the policy's raw action (`_kernel_action`); `u` is the
+        uniforms block or the key words."""
         y, planets, goal, ref, col_shift, tili = self._state_operands(state)
-        return (y, action_b, planets, goal, ref, col_shift, tili, u)
+        return (y, self._kernel_action(raw_action), planets, goal, ref, col_shift, tili, u)
+
+    def _kernel_action(self, raw_action: torch.Tensor) -> torch.Tensor:
+        """K3's action operand, (B, 2) lane-major: a continuous config's raw
+        action as the policy gives it (K3 translates it, FullParams'
+        `continuous`), a discrete config's table rows."""
+        if self.config.continuous:
+            return raw_action.to(self.dtype).contiguous()
+        return self._translate_action(raw_action).contiguous()
 
     def to_carry(self, state: EnvState) -> RowCarry:
         """The state as K3's contiguous (rows, B) operands."""
@@ -398,10 +406,10 @@ class EnvEngine:
             u = self.draw_key(generator)
         else:
             u = self._lane_uniforms(self.n_step_rand, batch, generator, 1)
-        a = self._translate_action(raw_action).t().contiguous()
         y, p, g, r, cs, ti = carry
         yo, po, go, ro, cso, obs, fobs, rew, tio, flags = self.full.step_rows(
-            y, a, p, g, r, cs, u, ti, lane0=self.lane0(batch) if self.in_kernel_rng else 0)
+            y, self._kernel_action(raw_action), p, g, r, cs, u, ti,
+            lane0=self.lane0(batch) if self.in_kernel_rng else 0)
         ts = _time_step(obs, fobs, rew, flags)
         if self.obs_features:
             ts = ts._replace(obs=self._augment_obs(ts.obs),
@@ -830,23 +838,24 @@ class PolicyRollout:
 
 
 def _time_step(obs, fobs, rew, flags) -> TimeStep:
-    """K3's (D, B) observations, (1, B) reward and (3, B) flags as a
+    """K3's (D, B) observations, (1, B) reward and (3, B) bool flags as a
     TimeStep of (B, ...) views."""
-    return TimeStep(obs=obs.t(), reward=rew[0], terminated=flags[0].bool(),
-                    truncated=flags[1].bool(), done=flags[2].bool(), final_obs=fobs.t())
+    return TimeStep(obs=obs.t(), reward=rew[0], terminated=flags[0], truncated=flags[1],
+                    done=flags[2], final_obs=fobs.t())
 
 
 def _rollout_loop(step, carry, obs, policy_fn, n_steps, generator, trajectory):
     """The steps of a rollout: `step(carry, raw action, generator)` ->
     (carry, TimeStep).  Returns (carry, observation, Trajectory)."""
-    rewards = dones = 0  # per lane, summed at the end: one reduction, not two a step
+    rewards = 0  # per lane, summed at the end: one reduction, not two a step
     steps = []
-    for _ in range(n_steps):
+    for t in range(n_steps):
         out = policy_fn(generator, obs)
         action, kept = out if isinstance(out, tuple) else (out, {})
         carry, ts = step(carry, action, generator)
         rewards = rewards + ts.reward
-        dones = dones + ts.done.to(torch.int32)
+        # int32 counts, one kernel a step: int32 + bool stays int32
+        dones = ts.done.to(torch.int32) if t == 0 else dones + ts.done
         if trajectory:
             steps.append((obs, {"action": action, **kept}, ts))
         obs = ts.obs

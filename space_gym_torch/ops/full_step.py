@@ -5,8 +5,13 @@ Philox (csrc/full_step_philox.cu).
 
 Replaces space_gym_tpu/ops/pallas_full.py::make_full_step (the Pallas kernel
 at pallas_full.py:500, pallas_call at :663) with `in_kernel_rng` False,
-"threefry" and "hw".  `FullStep.apply` takes the same (B, rows) operands as the
-JAX `apply` and returns the same ten component-major (rows, B) outputs; with
+"threefry" and "hw".  `FullStep.apply` takes the (B, rows) operands of the
+JAX `apply` but the action and returns the same ten component-major (rows, B)
+outputs, the flags as torch.bool where the JAX kernel has int32.  The action is the
+policy's, lane-major (B, 2): for a continuous config the raw action, which
+the kernel translates as the engine's `_translate_action` does (clamp to
+[-1, 1], thrust (a0 + 1) / 2), for a discrete one the action table's rows.
+So neither the action nor the flags pass through a conversion kernel.  With
 an in-kernel source the `u` operand is the (2,) int32 tensor of the two key
 words' bits (ops/rng_plain.py::key_words), on the operands' device, and
 `lane0` is the global index of lane 0 where the lanes are split over ranks
@@ -105,9 +110,9 @@ class FullStep:
         self.cols = cfg.tiling.cols if cfg.task == TASK_GOAL else 0
 
     def in_rows(self):
-        """Rows of each component-major input: y, a, p, g, ref, cs, u, ti; no
-        u rows where the kernel computes its uniforms (the key is 8 bytes a
-        launch)."""
+        """Rows of each input: y, a, p, g, ref, cs, u, ti (the action's are its
+        (B, 2) columns); no u rows where the kernel computes its uniforms
+        (the key is 8 bytes a launch)."""
         return (6, 2, 2 * self.cfg.n_planets, 2, 3, self.cs_rows,
                 0 if self.rng else self.n_uniform_rows, self.n_int_rows)
 
@@ -117,40 +122,53 @@ class FullStep:
 
     def bytes_per_lane(self) -> int:
         """Device-memory bytes the kernel must move per lane-step: each input
-        row read once, each output row written once, 4 bytes each."""
-        return 4 * (sum(self.in_rows()) + sum(self.out_rows()))
+        row read once, each output row written once, 4 bytes each but the
+        flags' one."""
+        flags = self.out_rows()[-1]
+        return 4 * (sum(self.in_rows()) + sum(self.out_rows()) - flags) + flags
 
     def apply(self, y, action, planets, goal, ref_orbit, col_shift, tili, u, lane0: int = 0):
-        """(B, rows) operands (planets (B, P, 2); tili int32; u (B, n_u)
-        uniforms in [0, 1), or the (2,) key words in an in-kernel mode) ->
-        the ten component-major outputs."""
+        """(B, rows) operands (action (B, 2), see the module docstring;
+        planets (B, P, 2); tili int32; u (B, n_u) uniforms in [0, 1), or the
+        (2,) key words in an in-kernel mode) -> the ten component-major
+        outputs."""
         return self.step_rows(*self.to_rows(y, action, planets, goal, ref_orbit, col_shift,
                                             tili, u), lane0=lane0)
 
     @staticmethod
     def to_rows(y, action, planets, goal, ref_orbit, col_shift, tili, u):
-        """`apply`'s (B, rows) operands -> `step_rows`' contiguous (rows, B)
-        operands, in the kernel's order (u before the integer rows); a (2,)
-        key passes as it is."""
+        """`apply`'s (B, rows) operands -> `step_rows`' contiguous operands,
+        (rows, B) but the (B, 2) action, in the kernel's order (u before the
+        integer rows); a (2,) key passes as it is."""
         B = y.shape[0]
-        ins = [y, action, planets.reshape(B, -1), goal, ref_orbit, col_shift, u, tili]
-        return [t if t.dim() == 1 else t.t().contiguous() for t in ins]
+        ins = [y, planets.reshape(B, -1), goal, ref_orbit, col_shift, u, tili]
+        rows = [t if t.dim() == 1 else t.t().contiguous() for t in ins]
+        return [rows[0], action.contiguous(), *rows[1:]]
+
+    @staticmethod
+    def lane_block(ins, start: int, stop: int | None = None):
+        """`step_rows`' operands of lanes start .. stop - 1, contiguous; a
+        (2,) key passes as it is."""
+        return [t if t.dim() == 1 else (t[start:stop] if i == 1 else t[:, start:stop]).contiguous()
+                for i, t in enumerate(ins)]
 
     def step_rows(self, y, a, p, g, r, cs, u, ti, lane0: int = 0):
-        """Component-major (rows, B) operands -> outputs; the kernel's own
-        API.  `lane0` (in-kernel modes only) is the global index of lane 0."""
+        """Component-major (rows, B) operands but the lane-major (B, 2)
+        action `a` -> outputs; the kernel's own API.  `lane0` (in-kernel
+        modes only) is the global index of lane 0."""
         ins = (y, a, p, g, r, cs, u, ti)
         B = y.shape[1]
         if lane0 < 0 or (lane0 and not self.rng):
             raise ValueError(f"lane0={lane0}: a lane offset needs an in-kernel generator "
                              "(a bulk draw is the rank's own block)")
         for t, rows, name in zip(ins, self.in_rows(), ("y", "a", "p", "g", "ref", "cs", "u", "ti")):
+            want = (B, rows) if name == "a" else (rows, B)
             if name == "u" and self.rng:
                 if tuple(t.shape) != (2,) or t.dtype != torch.int32:
                     raise TypeError(f"in_kernel_rng={self.rng!r} takes the key as a (2,) int32 "
                                     f"tensor, got {tuple(t.shape)} {t.dtype}")
-            elif t.dim() != 2 or tuple(t.shape) != (rows, B):
-                raise ValueError(f"{name}: want shape ({rows}, {B}), got {tuple(t.shape)}")
+            elif tuple(t.shape) != want:
+                raise ValueError(f"{name}: want shape {want}, got {tuple(t.shape)}")
             if t.device != y.device:
                 raise ValueError(f"{name} is on {t.device}, y on {y.device}")
         if ti.dtype != torch.int32:
@@ -219,8 +237,10 @@ class FullStep:
         dev = ins[0].device
         outs = [torch.empty((rows, B), dtype=torch.float32, device=dev)
                 for rows in self.out_rows()[:8]]
-        outs += [torch.empty((rows, B), dtype=torch.int32, device=dev)
-                 for rows in self.out_rows()[8:]]
+        outs += [torch.empty((self.n_int_rows, B), dtype=torch.int32, device=dev),
+                 torch.empty((3, B), dtype=torch.bool, device=dev)]
+        if ins[1].data_ptr() % 8:  # the kernel reads a lane's action as one float2
+            ins = (ins[0], ins[1].clone(), *ins[2:])
         ptrs = [t.data_ptr() for t in ins]
         # lane0 = 0 keeps the entry point without the offset, whose C interface
         # builds of earlier checkouts share (k3_variants.py)

@@ -4,7 +4,10 @@ Same computation as space_gym_tpu/ops/pallas_full.py::make_full_step's inner
 `kernel`: physics (ops/physics.py), observation (final and post-reset) and
 per-task reward (ops/observe_reward.py), Goal resample via the hex tiling, TimeLimit, and masked
 auto-reset for Goal/Kepler/DNC.  Every tensor is one row of the
-component-major (rows, B) layout.
+component-major (rows, B) layout but the action, which comes lane-major
+(B, 2) as the policy gives it: a continuous config's raw action, translated
+here as EnvEngine._translate_action translates it, or a discrete config's
+table rows.  The flags go out as torch.bool.
 
 Uniforms are read from the (n_u, B) block through a row cursor in exactly the
 kernel's consumption order: the Goal resample first, unconditionally, then
@@ -104,8 +107,8 @@ def cs_rows(cfg) -> int:
 
 def make_full_step_plain(cfg, n_substeps=2, refine_iters=12, tableau="dp5"):
     """`step(y, a, p, g, ref, cs, u, ti) -> (yo, po, go, ro, cso, obs, fobs,
-    rew, tio, flags)`, all component-major (rows, B); the float inputs share
-    one dtype, ti is int32."""
+    rew, tio, flags)`, component-major (rows, B) but the (B, 2) action `a`;
+    the float inputs share one dtype, ti is int32, the flags are bool."""
     observe, reward_fn = make_observe_reward(cfg)
     task = cfg.task
     n_planets = cfg.n_planets
@@ -315,7 +318,11 @@ def make_full_step_plain(cfg, n_substeps=2, refine_iters=12, tableau="dp5"):
 
     def step(y, a, p, g, r, cs, u_rows, ti):
         comp0 = [y[c] for c in range(6)]
-        ae, at = a[0], a[1]
+        if cfg.continuous:  # spaceship_env.py:189-214
+            a = torch.clamp(a, -1.0, 1.0)
+            ae, at = (a[:, 0] + 1) / 2, a[:, 1]
+        else:
+            ae, at = a[:, 0], a[:, 1]
         px = [p[2 * i] for i in range(n_planets)]
         py = [p[2 * i + 1] for i in range(n_planets)]
         gx, gy = g[0], g[1]
@@ -394,7 +401,7 @@ def make_full_step_plain(cfg, n_substeps=2, refine_iters=12, tableau="dp5"):
             torch.stack(y_out), torch.stack(p_out), torch.stack([gx_out, gy_out]),
             torch.stack(ref_out), torch.stack(col_shift_out), torch.stack(obs),
             torch.stack(fobs), rew[None], torch.stack([t.to(i32) for t in tio]),
-            torch.stack([terminated.to(i32), truncated.to(i32), done.to(i32)]),
+            torch.stack([terminated, truncated, done]),
         )
 
     return step

@@ -82,6 +82,7 @@ class FullParams(ctypes.Structure):
         ("d_dist_lo", _f),
         ("d_dist_span", _f),
         ("dnc_reward", _f),
+        ("continuous", _i),         # K3 translates the raw action (EnvConfig.continuous)
     ]
 
 
@@ -120,6 +121,7 @@ def full_params(cfg, n_substeps: int, refine_iters: int) -> FullParams:
     q = FullParams()
     q.phys = phys_params(cfg, n_substeps, refine_iters)
     q.max_episode_steps = int(cfg.max_episode_steps)
+    q.continuous = int(cfg.continuous)
     q.two_over_ws = 2.0 / cfg.world_size
     max_w = 0.7 * cfg.max_abs_vel_angle
     q.max_w, q.max_w_3, q.max_w_5 = max_w, max_w / 3, max_w / 5

@@ -32,8 +32,8 @@ from space_gym_torch.ops.physics_step import PhysicsStep
 from space_gym_torch.ops.rng_plain import key_words
 from space_gym_torch.utils import cuda_build, profiling
 
-from .torch_scenarios import (firing_operands, one_torch_thread,  # noqa: F401 (autouse)
-                              pattern_operands, scenario_inputs)
+from .torch_scenarios import (bits, edge_actions, firing_operands,  # noqa: F401 (autouse)
+                              one_torch_thread, pattern_operands, scenario_inputs)
 
 TOL_STATE = 1e-5
 TOL_REWARD = 1e-3
@@ -59,7 +59,7 @@ def _launches(*kernels):
 @pytest.mark.parametrize("tableau,substeps,refine", [("bs3", 1, 8), ("dp5", 2, 12)])
 def test_cuda_full_step_matches_plain_twin(env_id, tableau, substeps, refine):
     _need_card()
-    cfg, ins = scenario_inputs(env_id, 64, seed=5)
+    cfg, ins = scenario_inputs(env_id, 64, seed=5, raw_action=True)
     full = FullStep(cfg, substeps, refine, tableau)
     ins32 = [torch.as_tensor(a) if a.dtype == np.int32 else torch.as_tensor(a).float()
              for a in ins]
@@ -89,8 +89,8 @@ def test_cuda_full_step_any_batch_matches_plain_twin(env_id, tableau, substeps, 
     _need_card()
     cfg = get_config(env_id)
     full = FullStep(cfg, substeps, refine, tableau, in_kernel_rng=rng)
-    rows = pattern_operands(cfg, max(batch, 10), seed=batch)
-    rows = [t[:, :batch].contiguous() for t in rows]
+    rows = FullStep.lane_block(pattern_operands(cfg, max(batch, 10), seed=batch, raw_action=True),
+                               0, batch)
     if rng:
         rows[6] = key_words([0x600DF00D, batch])
     want = full.step_rows(*rows)
@@ -124,7 +124,7 @@ def test_cuda_physics_matches_plain_twin(tableau, substeps, refine):
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     _need_card()
-    cfg, ins = scenario_inputs("DoNotCrashContinuous-v0", 8, seed=1)
+    cfg, ins = scenario_inputs("DoNotCrashContinuous-v0", 8, seed=1, raw_action=True)
     full = FullStep(cfg, 1, 8, "bs3")
     t = [torch.as_tensor(a).cuda() for a in ins]  # float64 floats
     with pytest.raises(TypeError):
@@ -209,7 +209,7 @@ def test_cuda_generators_match_plain_versions_bitwise(env_id, batch, mode):
     against ops/rng_plain.py, bit for bit; then K3 given the key against K3
     fed that block: every output bit-identical."""
     _need_card()
-    cfg, ins = scenario_inputs(env_id, 64, seed=7)
+    cfg, ins = scenario_inputs(env_id, 64, seed=7, raw_action=True)
     keyed = FullStep(cfg, 1, 8, "bs3", in_kernel_rng=mode)
     mem = FullStep(cfg, 1, 8, "bs3")
     key = key_words([0x9E3779B9, 0x00C0FFEE])
@@ -228,7 +228,7 @@ def test_cuda_generators_match_plain_versions_bitwise(env_id, batch, mode):
     assert _launches("full_step") == by_mode.get("full_step", 0)
     fed = mem.apply(*t[:7], block.t())
     for g, w in zip(got, fed):
-        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(bits(g), bits(w))
     assert fed[-1][2].any(), "some lane resets"
     with pytest.raises(TypeError):
         keyed.apply(*t)  # a uniforms block where the key belongs
@@ -999,6 +999,74 @@ def test_cuda_vector_env_launches_k3_once_a_step():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rng", [False, "threefry", "philox"], ids=["mem", "threefry", "philox"])
+@pytest.mark.parametrize("env_id", ["GoalContinuous2P-v0", "KeplerRandomOrbits-v0"])
+def test_cuda_full_step_translates_raw_actions(env_id, rng):
+    """K3, K3-tf and K3-hw on raw edge actions (outside [-1, 1], infinite,
+    NaN, -0.0, an a0 + 1 of 25 mantissa bits) at a ragged 1001 lanes: every
+    output bit for bit the operand path of K3 before it took the raw action
+    (`_translate_action` on the card, then K3 of the config with
+    `continuous=False`, which passes the rows as they are); and flags,
+    integer rows and floats as the plain twin's on the lanes where those
+    agree (the usual tolerances: the card's rsqrtf/sinf/cosf differ from the
+    CPU's by ulps)."""
+    import dataclasses
+
+    _need_card()
+    cfg = get_config(env_id)
+    B = 1001
+    rows = [t.cuda() for t in pattern_operands(cfg, B, seed=31, raw_action=True)]
+    rows[1] = edge_actions(31, B).cuda()
+    if rng:
+        rows[6] = key_words([0x5EED0004, 0x0000C0DE], "cuda")
+    full = FullStep(cfg, 1, 8, "bs3", in_kernel_rng=rng)
+    passes = FullStep(dataclasses.replace(cfg, continuous=False), 1, 8, "bs3", in_kernel_rng=rng)
+    translated = EnvEngine(cfg)._translate_action(rows[1])
+    got = full.step_rows(*rows)
+    old = passes.step_rows(rows[0], translated, *rows[2:])
+    assert all(torch.equal(bits(g), bits(w)) for g, w in zip(got, old))
+    assert got[-1].dtype == torch.bool and got[-1][2].any()
+    want = full.step_rows(*[t.cpu() for t in rows])
+    got = [o.cpu() for o in got]
+    agree = (got[-1] == want[-1]).all(0) & (got[-2] == want[-2]).all(0)
+    assert agree.float().mean() >= 0.99
+    for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
+        tol = TOL_REWARD if i == 7 else TOL_STATE
+        assert torch.allclose(g[:, agree], w[:, agree], rtol=0, atol=tol, equal_nan=True), i
+
+
+@pytest.mark.cuda
+def test_cuda_collect_step_launches_seven_kernels():
+    """An eager collect step on the card (`step_carry`, the bulk draw, a
+    continuous random policy, no trajectory) launches at most 7 kernels: the
+    policy's draw and its two arithmetic kernels, the bulk draw, K3 and the
+    reward and done sums.  Before K3 read the raw action and wrote bool
+    flags it launched about 16: the action's clamp, rescale, stack and
+    transpose, and four casts of the flags, besides.  Counted by the
+    profiler in a 6-step rollout, from the first K3 launch to the last."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_card()
+    eng = EnvEngine(get_config("GoalContinuous2P-v0"))
+    g = eng.generator(0)
+    state, obs = eng.init(4096, g)
+
+    def policy(generator, obs):
+        return torch.rand((obs.shape[0], 2), generator=generator, device=obs.device) * 2.0 - 1.0
+
+    eng.rollout(state, obs, policy, 2, g, trajectory=False)  # loads the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.rollout(state, obs, policy, 6, g, trajectory=False)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                                    key=lambda e: e.time_range.start)]
+    k3 = [i for i, name in enumerate(names) if "full_step_kernel" in name]
+    assert len(k3) == 6, names
+    assert (k3[-1] - k3[0]) / 5 <= 7, names[k3[0]:k3[-1] + 1]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["threefry", "philox"])
 def test_cuda_keyed_full_step_at_a_lane_offset(mode):
     """K3-tf and K3-hw at lane0 (a rank's block of lanes split over ranks):
@@ -1010,11 +1078,11 @@ def test_cuda_keyed_full_step_at_a_lane_offset(mode):
     cfg = get_config("GoalContinuous2P-v0")
     full = FullStep(cfg, 1, 8, "bs3", in_kernel_rng=mode)
     B, lane0 = 4099, 4097
-    rows = [t.cuda() for t in pattern_operands(cfg, lane0 + B, seed=9)]
+    rows = [t.cuda() for t in pattern_operands(cfg, lane0 + B, seed=9, raw_action=True)]
     key = key_words([0x5EED0003, 0x0000C0DE], "cuda")
     rows[6] = key
     wide = full.step_rows(*rows)
-    block = [t[:, lane0:].contiguous() if t.dim() == 2 else t for t in rows]
+    block = FullStep.lane_block(rows, lane0)
     got = full.step_rows(*block, lane0=lane0)
     for w, g in zip(wide, got):
         assert torch.equal(w[:, lane0:], g)

@@ -31,14 +31,15 @@ SUB, REFINE, TAB = 1, 8, "bs3"
 def test_plain_full_step_matches_jax_kernel(env_id):
     import jax.numpy as jnp
 
-    cfg, ins = scenario_inputs(env_id, B, seed=11)
+    cfg, ins = scenario_inputs(env_id, B, seed=11)  # the JAX kernel's: translated actions
+    _, raw = scenario_inputs(env_id, B, seed=11, raw_action=True)  # the port's: raw actions
     jcfg = space_gym_tpu.get_config(env_id)
     jfull = make_full_step(jcfg, SUB, REFINE, block=B, interpret=True, tableau=TAB)
     assert jfull.n_uniform_rows == ins[-1].shape[1]
     want = [np.asarray(o) for o in jfull(*[jnp.asarray(a) for a in ins])]
 
     full = FullStep(cfg, SUB, REFINE, TAB)
-    got = [o.numpy() for o in full.apply(*[torch.as_tensor(a) for a in ins])]
+    got = [o.numpy() for o in full.apply(*[torch.as_tensor(a) for a in raw])]
     names = ("y", "planets", "goal", "ref", "col_shift", "obs", "final_obs", "reward",
              "int_rows", "flags")
     for name, g, w in zip(names, got, want):
@@ -79,7 +80,7 @@ def test_norminv_matches_jax_and_ndtri():
 
 
 def test_wrapper_rejects_bad_operands():
-    cfg, ins = scenario_inputs("DoNotCrashContinuous-v0", B, seed=1)
+    cfg, ins = scenario_inputs("DoNotCrashContinuous-v0", B, seed=1, raw_action=True)
     full = FullStep(cfg, SUB, REFINE, TAB)
     t = [torch.as_tensor(a) for a in ins]
     with pytest.raises(ValueError):

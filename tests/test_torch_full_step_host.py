@@ -74,11 +74,13 @@ def host_lib(tmp_path_factory):
 
 def host_step(lib, full, rows, sms, lane0=0):
     """What FullStep._launch does on the card, through the host build: the
-    outputs poisoned first (NaN, and -777 for the integer rows)."""
+    outputs poisoned first (NaN, -777 for the integer rows, 0xAB for the
+    flags' bytes)."""
     B = rows[0].shape[1]
     rows = [t.contiguous() for t in rows]
     outs = [torch.full((r, B), float("nan")) for r in full.out_rows()[:8]]
-    outs += [torch.full((r, B), -777, dtype=torch.int32) for r in full.out_rows()[8:]]
+    outs += [torch.full((full.n_int_rows, B), -777, dtype=torch.int32),
+             torch.full((3, B), 0xAB, dtype=torch.uint8)]
     lib.host_set_sms(sms)
     entry = ENTRY[full.rng] + ("_at" if lane0 else "")
     err = getattr(lib, entry)(
@@ -87,7 +89,8 @@ def host_step(lib, full, rows, sms, lane0=0):
         full.n_uniform_rows, rows[7].data_ptr(), *[t.data_ptr() for t in outs], B,
         *((lane0,) if lane0 else ()), None)
     assert err == 0
-    return outs
+    assert (outs[-1] <= 1).all(), "every flag written, as 0 or 1"
+    return outs[:-1] + [outs[-1].view(torch.bool)]
 
 
 @pytest.mark.parametrize("tableau,substeps,refine", [("bs3", 1, 8), ("dp5", 2, 12)])
@@ -100,7 +103,7 @@ def test_host_built_full_step_matches_plain_twin(host_lib, rng, env_id, tableau,
     cfg = get_config(env_id)
     full = FullStep(cfg, substeps, refine, tableau, in_kernel_rng=rng)
     for B, sms in BATCHES:
-        rows = pattern_operands(cfg, B, seed=B)
+        rows = pattern_operands(cfg, B, seed=B, raw_action=True)
         if rng:
             rows[6] = key_words([0x5EED0000 + B, 0x0000C0DE])
         want = full.step_rows(*rows)
@@ -144,7 +147,7 @@ def test_host_built_full_step_when_the_lists_fill(host_lib, env_id):
     cfg = get_config(env_id)
     full = FullStep(cfg, 1, 8, "bs3")
     B = 128 * 9
-    rows = pattern_operands(cfg, B, seed=3)
+    rows = pattern_operands(cfg, B, seed=3, raw_action=True)
     rows[7][-3] = cfg.max_episode_steps - 1  # the step count row
     want = full.step_rows(*rows)
     got = host_step(host_lib, full, rows, 1)
@@ -163,10 +166,10 @@ def test_host_built_full_step_at_a_lane_offset(host_lib, rng):
     cfg = get_config("GoalContinuous2P-v0")
     full = FullStep(cfg, 1, 8, "bs3", in_kernel_rng=rng)
     B, lane0 = 676, 677
-    rows = pattern_operands(cfg, lane0 + B, seed=5)
+    rows = pattern_operands(cfg, lane0 + B, seed=5, raw_action=True)
     rows[6] = key_words([0x5EED0002, 0x0000C0DE])
     wide = full.step_rows(*rows)
-    block = [t[:, lane0:].contiguous() if t.dim() == 2 else t for t in rows]
+    block = FullStep.lane_block(rows, lane0)
     want = full.step_rows(*block, lane0=lane0)
     for w, g in zip(wide, want):
         assert torch.equal(w[:, lane0:], g)

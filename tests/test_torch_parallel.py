@@ -196,16 +196,15 @@ def test_lane_offset_equals_the_same_lanes_of_a_wider_launch(rng):
     cfg = get_config(ENV)
     full = FullStep(cfg, 1, 8, "bs3", in_kernel_rng=rng)
     B = 40
-    rows = pattern_operands(cfg, 2 * B, seed=7)
+    rows = pattern_operands(cfg, 2 * B, seed=7, raw_action=True)
     rows[6] = key_words([0x5EED0001, 0x0000C0DE])
     wide = full.step_rows(*rows)
-    right = [t[:, B:].contiguous() if t.dim() == 2 else t for t in rows]
+    right = FullStep.lane_block(rows, B)
     got = full.step_rows(*right, lane0=B)
     for w, g in zip(wide, got):
         assert torch.equal(w[:, B:], g)
     assert torch.equal(full.plain_uniforms(rows[6], B, B),
                        full.plain_uniforms(rows[6], 2 * B)[:, B:])
     with pytest.raises(ValueError, match="lane offset"):
-        FullStep(cfg, 1, 8, "bs3").step_rows(*[t[:, :B] if t.dim() == 2 else t
-                                               for t in pattern_operands(cfg, 2 * B, 7)],
-                                             lane0=B)
+        FullStep(cfg, 1, 8, "bs3").step_rows(
+            *FullStep.lane_block(pattern_operands(cfg, 2 * B, 7, raw_action=True), 0, B), lane0=B)

@@ -9,6 +9,7 @@ angular momentum, the Laplace-Runge-Lenz vector) equal the JAX package's
 (space_gym_tpu/envs/kepler_math.py on numpy) within 1e-15 on the coast's
 states.
 """
+import dataclasses
 import functools
 import math
 
@@ -22,16 +23,22 @@ from space_gym_torch import get_config
 from space_gym_torch.engine import EnvEngine
 from space_gym_torch.envs import kepler_math
 from space_gym_torch.ops.constants import G
+from space_gym_torch.ops.full_step import FullStep
 from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 F64 = torch.float64
 
 
 def k3_physics(eng):
-    """One control interval of K3's plain twin on (B, 6) states: (final y,
-    terminated, final observation).  Done lanes reset in K3, so the final
-    observation (pre-reset) is what shows where a terminated lane ended."""
-    full, cfg = eng.full, eng.config
+    """One control interval of K3's plain twin on (B, 6) states and the
+    translated action, as the other tiers' `_physics` take it: (final y,
+    terminated, final observation).  K3 of the config with
+    `continuous=False` passes the action as it is.  Done lanes reset in K3,
+    so the final observation (pre-reset) is what shows where a terminated
+    lane ended."""
+    cfg, k3 = eng.config, eng.full
+    full = FullStep(dataclasses.replace(cfg, continuous=False), k3.n_substeps, k3.refine_iters,
+                    k3.tableau)
     k = cfg.kepler
     ref_row = [k.ref_orbit_angle, k.ref_orbit_eccentricity, k.ref_orbit_a] if k else [0.0] * 3
 

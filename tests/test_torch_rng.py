@@ -103,7 +103,7 @@ def test_philox_matrix_layout_and_law():
 
 @pytest.mark.parametrize("mode", ["threefry", "philox"])
 def test_full_step_with_key_equals_full_step_on_the_plain_matrix(mode):
-    cfg, ins = scenario_inputs("GoalContinuous2P-v0", 8, seed=17)
+    cfg, ins = scenario_inputs("GoalContinuous2P-v0", 8, seed=17, raw_action=True)
     t = [torch.as_tensor(a) if a.dtype == np.int32 else torch.as_tensor(a).float() for a in ins]
     key = rng_plain.key_words([0xCAFEF00D, 42])
     keyed = FullStep(cfg, 1, 8, "bs3", in_kernel_rng=mode)

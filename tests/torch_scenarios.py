@@ -13,6 +13,31 @@ from space_gym_torch.ops.full_step import FullStep
 from space_gym_torch.ops.full_step_plain import count_uniform_rows
 
 
+# Raw continuous actions (a0, a1) at the edges of K3's translation: outside
+# [-1, 1], infinite, NaN, -0.0, and 1 - 2**-24, whose a0 + 1 needs 25
+# mantissa bits and rounds.
+EDGE_ACTIONS = ((-1.5, 1.5), (3.0, -7.0), (float("inf"), float("-inf")),
+                (float("-inf"), float("inf")), (float("nan"), 0.3), (0.2, float("nan")),
+                (-0.0, -0.0), (0.0, 0.0), (1 - 2**-24, 0.5), (-(1 - 2**-24), -(1 - 2**-24)),
+                (1.0, -1.0), (-1.0, 1.0))
+
+
+def bits(t):
+    """A float tensor's bits as int32, so that NaNs compare by their bits; any
+    other tensor as it is."""
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+def edge_actions(seed, n=2 * len(EDGE_ACTIONS)):
+    """(n, 2) float32 raw actions: the edge pairs again and again, every
+    other block of them uniform in [-1, 1] from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    edge = np.asarray(EDGE_ACTIONS)
+    blocks = [edge if i % 2 == 0 else rng.uniform(-1, 1, edge.shape)
+              for i in range(-(-n // len(edge)))]
+    return torch.as_tensor(np.concatenate(blocks)[:n].astype(np.float32))
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """PyTorch on one thread while a module of the port's tests runs, then as
@@ -25,12 +50,14 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def scenario_inputs(env_id, B, seed):
+def scenario_inputs(env_id, B, seed, raw_action=False):
     """(B, rows) numpy operands of one full step (B >= 8), made from a numpy
     seed: lanes 0-1 live, 2-3 truncating, 4-5 crashing into planet 0, 6-7
     reaching the goal (Goal) or leaving the world; Goal lanes 1, 3, 5, 7
-    carry a known goal tile.  Returns (config, operands in FullStep.apply
-    order)."""
+    carry a known goal tile.  Returns (config, operands in the JAX kernel's
+    `apply` order): the action translated, as the JAX kernels and K1/K2 take
+    it, or with `raw_action` the raw action it is translated from, as
+    FullStep.apply takes it."""
     cfg = get_config(env_id)
     rng = np.random.default_rng(seed)
     eng = EnvEngine(cfg, dtype=torch.float64, device="cpu")
@@ -69,15 +96,17 @@ def scenario_inputs(env_id, B, seed):
         tili = np.stack([steps, np.zeros(B, np.int32), np.zeros(B, np.int32)], 1)
         cs = np.zeros((B, 1))
     u = rng.random((B, count_uniform_rows(cfg)))
-    return cfg, (y, action_b, p, g, state.ref_orbit.numpy(), cs, tili, u)
+    return cfg, (y, action if raw_action else action_b, p, g, state.ref_orbit.numpy(), cs, tili, u)
 
 
-def pattern_operands(cfg, B, seed, device="cpu"):
-    """Component-major float32 operands of one step in the kernel's order
-    (FullStep.step_rows), at any B, made from a numpy seed: lane % 10 == 0
-    truncates, 1 crashes into planet 0, 2 reaches its goal (Goal) or leaves
-    the world, 3 carries a known goal tile (Goal); the rest are fresh
-    episodes."""
+def pattern_operands(cfg, B, seed, device="cpu", raw_action=False):
+    """Component-major float32 operands of one step in the kernels' order,
+    at any B, made from a numpy seed: lane % 10 == 0 truncates, 1 crashes
+    into planet 0, 2 reaches its goal (Goal) or leaves the world, 3 carries a
+    known goal tile (Goal); the rest are fresh episodes.  The action is the
+    translated (2, B) rows K1 and K2 take (their operands are the first three
+    and five), or with `raw_action` K3's: the raw action, lane-major (B, 2)
+    (FullStep.step_rows)."""
     rng = np.random.default_rng(seed)
     eng = EnvEngine(cfg, device="cpu")
     state, _ = eng.reset(B, u=torch.as_tensor(rng.random((B, eng.n_reset_rand),
@@ -106,7 +135,9 @@ def pattern_operands(cfg, B, seed, device="cpu"):
     action = torch.as_tensor(rng.uniform(-1, 1, (B, 2)).astype(np.float32))
     u = torch.as_tensor(rng.random((B, eng.n_step_rand), dtype=np.float32))
     state = state._replace(y=y, steps=steps, tiling=ts)
-    rows = FullStep.to_rows(*eng.kernel_operands(state, eng._translate_action(action), u))
+    rows = FullStep.to_rows(*eng.kernel_operands(state, action, u))
+    if not raw_action:
+        rows[1] = eng._translate_action(action).t().contiguous()
     return [t.to(device) for t in rows]
 
 
