@@ -34,6 +34,11 @@ Kernel layout, as in the JAX package (IN1 = 128 padded first-layer rows):
 
 On a CUDA device the kernel updates `w`, `vec` and the moments IN PLACE: the
 returned FusedState shares the tensors it was given.
+
+Counts (utils/profiling.py): each call of the entry points, on either
+device, adds its K updates to `td3.critic_updates` and its delayed ones
+(`applied_steps`) to `td3.actor_updates`; a launch of K6 adds 1 to
+`td3_update`.
 """
 from __future__ import annotations
 
@@ -384,8 +389,9 @@ def _build_width(h: int):
         is checked as the JAX kernel checks it; K6 tiles the batch, or each
         ring row, by KERNEL_TILE[H] samples per thread block whatever it is,
         the last tile of a row partial where that does not divide it.  noises:
-        (K, B, 2).  Returns (FusedState', critic_losses (K,), actor_losses
-        (K,))."""
+        (K, B, 2).  Adds the K critic updates and the delayed actor updates
+        to the counts `td3.critic_updates` and `td3.actor_updates`.  Returns
+        (FusedState', critic_losses (K,), actor_losses (K,))."""
         K, B = noises.shape[0], noises.shape[1]
         if tuple(noises.shape) != (K, B, AH):
             raise ValueError(f"noises must be (K, B, {AH}), got {tuple(noises.shape)}")
@@ -395,18 +401,23 @@ def _build_width(h: int):
         hyper = dict(obs_dim=obs_dim, gamma=gamma, tau=tau, lr=lr, smooth_std=smooth_std,
                      smooth_clip=smooth_clip, policy_delay=int(policy_delay))
 
+        count = int(f.count)
+        n_act = applied_steps(count, K, int(policy_delay))
         if f.w.device.type == "cpu":
             packed, adam = fused_unpack(f)
             packed, adam, closs, aloss = update_k_reference(
                 packed, adam, _gathered(data, row_idx, K, B, obs_dim), noises,
                 mm_bf16=mm_bf16, **hyper)
-            return fused_init(packed, adam), closs, aloss
-        if f.w.device.type != "cuda":
+            out = fused_init(packed, adam)
+        elif f.w.device.type == "cuda":
+            closs, aloss = _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16,
+                                   **hyper)
+            out = f._replace(count=count + K, count_a=int(f.count_a) + n_act)
+        else:
             raise ValueError(f"unsupported device {f.w.device}")
-        closs, aloss = _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, **hyper)
-        count = int(f.count)
-        return f._replace(count=count + K, count_a=int(f.count_a) + applied_steps(
-            count, K, int(policy_delay))), closs, aloss
+        # the updates made, host integers: no sync (utils/profiling.py)
+        profiling.add({"td3.critic_updates": K, "td3.actor_updates": n_act})
+        return out, closs, aloss
 
     def _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, *, obs_dim, gamma, tau,
                 lr, smooth_std, smooth_clip, policy_delay):

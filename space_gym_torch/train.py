@@ -171,7 +171,7 @@ def make_trainer(args):
         return PPOTrainer(eng, PPOConfig(lanes=args.lanes, rollout_len=args.rollout_len,
                                          lr=args.lr, gamma=args.gamma))
     if args.algo == "td3":
-        return TD3Trainer(eng, TD3Config(**kw, fused_updates=args.fused,
+        return TD3Trainer(eng, TD3Config(**kw, gamma=args.gamma, fused_updates=args.fused,
                                          fused_block=min(2048, args.batch_size)))
     return DQNTrainer(eng, DQNConfig(**kw))
 

@@ -153,7 +153,13 @@ def test_trainer_runs_through_the_warmup_gate(fused):
     assert set(vals) == {"critic_loss", "actor_loss", "mean_reward", "episodes_done"}
     assert all(np.isfinite(v) for v in vals.values()), vals
     assert all(torch.isfinite(t).all() for t in learner_leaves(st))
-    assert profiling.counts() == launches, "no kernel is launched for CPU tensors"
+    # no kernel is launched for CPU tensors; the fused entry points count the
+    # updates they make, the unfused ones nothing
+    if fused:
+        launches = dict(
+            launches, **{"td3.critic_updates": launches.get("td3.critic_updates", 0) + 12,
+                         "td3.actor_updates": launches.get("td3.actor_updates", 0) + 6})
+    assert profiling.counts() == launches
     if fused:  # the rollout's actor is the fused state's, not a stale copy
         want = tr._ft.unpack_actor(st.fused.w, st.fused.vec, tr.obs_dim)
         assert all(torch.equal(st.actor_params[k], want[k]) for k in want)
