@@ -113,9 +113,10 @@ Everything is made from seeds; it needs no network and imports no JAX.
 prints instead, for the checkout the script lies in, a SHA-256 of K4's, K5's
 and K6's outputs (w, vec, the moments, the losses) on the inputs of phase 6's
 first cases at H=256, float32 and bf16 mode, gathered minibatches and ring,
-and their ms per launch in both modes at the training path's shapes: two
-checkouts that print the same digest for a kernel and mode on one card
-compute the same bits there.
+and their ms per launch in both modes at the training path's shapes, each
+without thread block clusters (C=1) and in the plan's (C printed beside each
+line): two checkouts that print the same digest for a kernel, mode and C on
+one card compute the same bits there.
 
     python3 chip_smoke.py --env-bits
 
@@ -1990,15 +1991,29 @@ def sac_bits(dev, card):
     """A SHA-256 of what K4, K5 and K6 write (w, vec, the moments, the losses)
     on the inputs of check_k4's and check_k6's first cases at H=256, in both
     modes and both data modes, and their ms per launch at the training path's
-    shapes by CUDA events.  Uses the learner kernels alone: run it from two
-    checkouts to see which bits a change of their code moved."""
+    shapes by CUDA events; each without thread block clusters (C=1) and with
+    the clusters the plan takes (at most fused_sac.CLUSTER_MAX blocks), C
+    printed beside each line.  Uses the learner kernels alone: run it from
+    two checkouts to see which bits a change of their code moved."""
     import hashlib
 
-    def digest(name, ns, out, mode, bf):
+    from space_gym_torch.models import fused_sac, fused_td3
+
+    cmax = fused_sac.CLUSTER_MAX
+
+    def planned(name, mode, bf, B, ring, n):
+        """The cluster size the plan gives this launch, in clusters of at most n."""
+        lanes, ts = ring.shape[2], fused_sac.KERNEL_TILE[SAC_H]
+        tiles = fused_sac.n_tiles(*((lanes, B // lanes) if mode == "ring" else (B, 0)), ts)
+        if name == "K6":
+            return fused_td3.plan(SAC_H, ring.shape[1], 13, tiles, bf, n)[2]
+        return fused_sac.plan(SAC_H, ring.shape[1], 13, tiles, bf, name == "K5", n)[2]
+
+    def digest(name, out, mode, bf, c):
         h = hashlib.sha256()
         for t in (*out[0][:6], out[1], out[2]):
             h.update(t.detach().cpu().numpy().tobytes())
-        print(f"bits {name} H={SAC_H} K=4 B={SAC_B} {mode} mm_bf16={bf}: sha256 "
+        print(f"bits {name} H={SAC_H} K=4 B={SAC_B} {mode} mm_bf16={bf} C={c}: sha256 "
               f"{h.hexdigest()[:16]} sum(w) {out[0].w.double().sum().item():.12g} "
               f"sum(vec) {out[0].vec.double().sum().item():.12g} sum(mw) "
               f"{out[0].mw.double().sum().item():.12g}", flush=True)
@@ -2007,31 +2022,37 @@ def sac_bits(dev, card):
              ("K5", None, dict(fold=True)),
              ("K6", td3_inputs(dev, SAC_H, 4, SAC_B, SAC_LANES, delay=2, warm=3), {})]
     cases[1] = ("K5", cases[0][1], cases[1][2])
-    for name, inputs, kw in cases:
-        ns, packed, adam, ring, row_idx, batches, noises, hyper = inputs
-        for bf in (False, True):
-            for mode in ("batches", "ring"):
-                f0 = ns.fused_init(packed, adam)
-                if mode == "ring":
-                    out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
-                                                 mm_bf16=bf, **kw, **hyper)
-                else:
-                    out = ns.fused_update_k_wmat_batches(f0, batches, noises, block=2048,
-                                                         mm_bf16=bf, **kw, **hyper)
-                torch.cuda.synchronize()
-                digest(name, ns, out, mode, bf)
+    for n in (1, cmax):
+        for name, inputs, kw in cases:
+            ns, packed, adam, ring, row_idx, batches, noises, hyper = inputs
+            for bf in (False, True):
+                for mode in ("batches", "ring"):
+                    f0 = ns.fused_init(packed, adam)
+                    if mode == "ring":
+                        out = ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
+                                                     mm_bf16=bf, cluster_max=n, **kw, **hyper)
+                    else:
+                        out = ns.fused_update_k_wmat_batches(f0, batches, noises, block=2048,
+                                                             mm_bf16=bf, cluster_max=n, **kw,
+                                                             **hyper)
+                    torch.cuda.synchronize()
+                    digest(name, out, mode, bf, planned(name, mode, bf, SAC_B, ring, n))
     timed = [("K4", sac_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES), dict(fold=False)),
              ("K6", td3_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES, delay=2, warm=2), {})]
     timed.insert(1, ("K5", timed[0][1], dict(fold=True)))
-    for name, inputs, kw in timed + timed[::-1]:
+    # in turns: without clusters, with; then the other way round
+    for name, inputs, kw, order in ([(*c, (1, cmax)) for c in timed]
+                                    + [(*c, (cmax, 1)) for c in timed[::-1]]):
         ns, packed, adam, ring, row_idx, batches, noises, hyper = inputs
         for bf in (True, False):
-            f0 = ns.fused_init(packed, adam)
-            ms = cuda_ms(lambda: ns.fused_update_k_wmat(f0, ring, row_idx, noises, block=2048,
-                                                        mm_bf16=bf, **kw, **hyper),
-                         iters=5, warmup=2)
-            print(f"time {name} H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16={bf} on {card}: "
-                  f"{ms:.4f} ms per call by CUDA events", flush=True)
+            for n in order:
+                f0 = ns.fused_init(packed, adam)
+                ms = cuda_ms(lambda: ns.fused_update_k_wmat(
+                    f0, ring, row_idx, noises, block=2048, mm_bf16=bf, cluster_max=n, **kw,
+                    **hyper), iters=5, warmup=2)
+                print(f"time {name} H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16={bf} "
+                      f"C={planned(name, 'ring', bf, SAC_B, ring, n)} on {card}: {ms:.4f} ms per "
+                      f"call by CUDA events", flush=True)
 
 
 ENV_IDS = (MAIN_ENV, "GoalContinuous3P-v0", "GoalContinuous4P-v0", "KeplerRandomOrbits-v0",

@@ -16,8 +16,12 @@
 // machine: with an OS thread per CUDA thread a barrier needs every member
 // scheduled, and the same cases took ten times as long on a machine busy
 // with other processes.  Threads left waiting when no fiber is ready are a
-// deadlock, and abort.  Fibers are x86-64 only; elsewhere the OS threads
-// run.  Used by
+// deadlock, and abort.  With EMUL_LAG set, the last block of every thread
+// block cluster starts last after each cluster barrier: its threads wait
+// until no other is ready, so the cluster's other blocks run ahead to their
+// next barrier that needs it, and a block that rewrites what the lagging one
+// still has to read shows as a wrong sum.  Fibers are x86-64 only; elsewhere
+// the OS threads run.  Used by
 // tests/test_torch_sac_kernel_host.py through sac_update_host.cpp, by
 // tests/test_torch_td3_kernel_host.py through td3_update_host.cpp and by
 // tests/test_torch_full_step_host.py through full_step_host.cpp and by
@@ -40,6 +44,7 @@
 #define __device__
 #define __global__
 #define __forceinline__ inline
+#define __noinline__
 #define __launch_bounds__(...)
 #define __align__(x)
 struct float4 { float x, y, z, w; };
@@ -95,6 +100,9 @@ struct ThreadCtx {
     Barrier* block_bar; Barrier* grid_bar; Barrier* warp_bar;
     float* warp_slots; unsigned* warp_bits; float* smem;
     WarpX* warpx; int xhalf;
+    // the thread block cluster: its barrier, this block's rank, its size and
+    // the shared memory of its blocks in rank order
+    Barrier* cluster_bar; int crank, csize; float* const* cluster_smem;
 };
 inline thread_local ThreadCtx tctx;
 #define threadIdx (tctx.tid)
@@ -149,11 +157,36 @@ struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
 template <class F> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
     *a = {0, 0}; return 0; }
 inline int EMUL_SMS = 4;
+inline bool EMUL_LAG = false;   // the last block of a cluster lags (fibers only)
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int a, int) {
     *v = a == cudaDevAttrMultiProcessorCount ? EMUL_SMS : 232448; return 0; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
+// A launch's configuration with attributes (cudaLaunchKernelEx): the cluster
+// size and the cooperative flag are the ones read here.
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension, cudaLaunchAttributeCooperative };
+struct cudaLaunchAttribute {
+    cudaLaunchAttributeID id;
+    struct { struct { unsigned x, y, z; } clusterDim; int cooperative; } val;
+};
+struct cudaLaunchConfig_t {    // gridDim and blockDim in order (the names are macros here)
+    dim3 grid, block;
+    size_t dynamicSmemBytes;
+    cudaStream_t stream;
+    cudaLaunchAttribute* attrs;
+    unsigned numAttrs;
+};
+inline int cluster_dim(const cudaLaunchConfig_t* cfg) {
+    for (unsigned i = 0; i < cfg->numAttrs; i++)
+        if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+            return (int)cfg->attrs[i].val.clusterDim.x;
+    return 1;
+}
+// The stand-in card holds one block a "SM" and a cluster on any SMs: as many
+// clusters of n blocks at once as n divides into its SMs.
+template <class F> cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t* cfg) {
+    *n = EMUL_SMS / cluster_dim(cfg); return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline float* host_shared_memory() { return tctx.smem; }
 // ---- fibers (x86-64): a stack switch that saves the callee-saved registers.
@@ -196,29 +229,41 @@ struct Fiber {
 struct FiberRun {
     std::vector<Fiber> fibers;
     std::deque<int> ready;  // fibers to run, in order
+    std::deque<int> lagging;  // with EMUL_LAG: to run once nothing else is ready
     void* sched_sp = nullptr;
     int cur = 0;
 };
 inline thread_local FiberRun* g_fibers = nullptr;
 inline bool fiber_running() { return g_fibers != nullptr; }
 
+// Does fiber i start last after barrier b (EMUL_LAG: b is its cluster's
+// barrier and it is of the cluster's last block)?
+inline bool fiber_lags(const Fiber& f, const Barrier& b) {
+    return EMUL_LAG && f.ctx.cluster_bar == &b && f.ctx.csize > 1
+        && f.ctx.crank == f.ctx.csize - 1;
+}
+
 // A member parks at the barrier and gives way; the last one to arrive
 // releases the others to run after what is ready now, in arrival order on
-// even phases and the reverse on odd ones, and goes on.
+// even phases and the reverse on odd ones, and goes on (those that lag go
+// to the lagging queue, the last one too).
 inline void fiber_arrive(Barrier& b) {
     FiberRun* r = g_fibers;
+    Fiber& f = r->fibers[r->cur];
+    f.ctx = tctx;
     const int ph = b.phase.load(std::memory_order_relaxed);
     if (b.count.fetch_add(1, std::memory_order_relaxed) == b.n - 1) {
         b.count.store(0, std::memory_order_relaxed);
         b.phase.store(ph + 1, std::memory_order_relaxed);
         if (ph % 2) std::reverse(b.waiting.begin(), b.waiting.end());
-        r->ready.insert(r->ready.end(), b.waiting.begin(), b.waiting.end());
+        for (int i : b.waiting)
+            (fiber_lags(r->fibers[i], b) ? r->lagging : r->ready).push_back(i);
         b.waiting.clear();
-        return;
+        if (!fiber_lags(f, b)) return;
+        r->lagging.push_back(r->cur);
+    } else {
+        b.waiting.push_back(r->cur);
     }
-    b.waiting.push_back(r->cur);
-    Fiber& f = r->fibers[r->cur];
-    f.ctx = tctx;
     sg_fiber_switch(&f.sp, r->sched_sp);
     tctx = r->fibers[r->cur].ctx;
 }
@@ -260,7 +305,8 @@ void run_fibers(int G, int T, Body body) {
     const ThreadCtx saved = tctx;
     g_fibers = &run;
     int ended = 0;
-    while (!run.ready.empty()) {
+    while (!run.ready.empty() || !run.lagging.empty()) {
+        if (run.ready.empty()) std::swap(run.ready, run.lagging);
         run.cur = run.ready.front();
         run.ready.pop_front();
         sg_fiber_switch(&run.sched_sp, run.fibers[run.cur].sp);
@@ -277,12 +323,17 @@ void run_fibers(int G, int T, Body body) {
 }
 
 template <class A>
-cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, size_t smem) {
+cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, size_t smem,
+                        int cdim = 1) {
     A args = *static_cast<A*>(params[0]);
     int G = grid.x, T = block.x, nw = (T + 31) / 32;
+    if (cdim < 1 || G % cdim) return cudaErrorInvalidConfiguration;
     Barrier gbar(G * T);
-    std::vector<std::unique_ptr<Barrier>> bbar, wbar;
+    std::vector<std::unique_ptr<Barrier>> bbar, wbar, cbar;
     std::vector<std::vector<float>> sm(G, std::vector<float>(smem / 4 + 16, NAN));
+    std::vector<float*> smp(G);
+    for (int b = 0; b < G; b++) smp[b] = sm[b].data();
+    for (int c = 0; c < G / cdim; c++) cbar.emplace_back(new Barrier(cdim * T));
     std::vector<std::vector<float>> slots(G * nw, std::vector<float>(32));
     std::vector<std::vector<unsigned>> bits(G * nw, std::vector<unsigned>(32));
     std::vector<WarpX> xch(G * nw);
@@ -299,6 +350,10 @@ cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, siz
         tctx.smem = sm[b].data();
         tctx.warpx = &xch[b * nw + t / 32];
         tctx.xhalf = 0;
+        tctx.cluster_bar = cbar[b / cdim].get();
+        tctx.crank = b % cdim;
+        tctx.csize = cdim;
+        tctx.cluster_smem = smp.data() + (b / cdim) * cdim;
         fn(args);
     };
     if (kFibers) {
@@ -312,3 +367,11 @@ cudaError_t launch_emul(void (*fn)(A), dim3 grid, dim3 block, void** params, siz
     return 0;
 }
 cudaError_t cudaLaunchCooperativeKernel(void* fn, dim3 grid, dim3 block, void** params, size_t smem, cudaStream_t);
+// A launch with attributes: the cluster size of the configuration, the
+// whole grid resident (the cooperative flag changes nothing here).
+template <class A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*fn)(A), A args) {
+    void* params[] = {&args};
+    return launch_emul(fn, cfg->grid, cfg->block, params, cfg->dynamicSmemBytes,
+                       cluster_dim(cfg));
+}

@@ -16,6 +16,10 @@ cudaError_t cudaLaunchCooperativeKernel(void* fn, dim3 grid, dim3 block, void** 
 // How many blocks the stand-in device holds at once (one per "SM").
 extern "C" void host_set_sms(int n) { EMUL_SMS = n; }
 
+// Whether the last block of every thread block cluster lags behind the
+// others (cuda_runtime.h, EMUL_LAG).
+extern "C" void host_set_lag(int on) { EMUL_LAG = on != 0; }
+
 // One warp computes D (16 x 16) = A (16 x 16) . B (16 x 16) as two
 // m16n8k16 products, its fragments taken as the kernels take them:
 // amode 0 ldmatrix from bf16 rows of A, 1 packed from float32 rows of A

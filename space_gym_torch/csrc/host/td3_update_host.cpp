@@ -13,3 +13,7 @@ cudaError_t cudaLaunchCooperativeKernel(void* fn, dim3 grid, dim3 block, void** 
 
 // How many blocks the stand-in device holds at once (one per "SM").
 extern "C" void host_set_sms(int n) { EMUL_SMS = n; }
+
+// Whether the last block of every thread block cluster lags behind the
+// others (cuda_runtime.h, EMUL_LAG).
+extern "C" void host_set_lag(int on) { EMUL_LAG = on != 0; }

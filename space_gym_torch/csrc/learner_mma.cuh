@@ -25,7 +25,9 @@
 // that the eight rows of an ldmatrix fall on distinct banks, at no cost in
 // shared memory.  The weight gradients copy dz2 into the ring as bf16 first
 // and write their (H, H) partial sums with evict-first stores (slot_sum4
-// reads them back the same way).
+// reads them back the same way); in a cluster a block computes its rows of
+// the cluster's sum, the other blocks' operands staged 16 samples at a time
+// (MTile::wgrad).
 //
 // Warps: the (TS, H) output is cut into pieces of 32 rows x 64 columns, one a
 // warp (2 x 8 tiles of m16n8, 64 float32 accumulators a thread).
@@ -130,6 +132,10 @@ __device__ void staged(bf16* ring, int stage, int nch, Load load, Step step) {
         step(c, ring + (c % NS) * stage);
     }
 }
+
+template <int H>
+__device__ void wgrad_cluster(float* x, bf16* ring, int cn, int crank, const float* A,
+                              const float* Bm, float* out, bool first);
 
 template <int H>
 struct MTile {
@@ -283,63 +289,175 @@ struct MTile {
             }
         }
     }
-    // out (+)= A^T . Bm over the tile's samples, (H, H) in the block's slot.
-    // Where the ring holds TS rows (H >= 256), Bm (bf16 values already) is
-    // copied there first as bf16 rows in the forward stages' layout, and its
+    // 16 bf16 values of dz2 (float32 rows r of Bm, columns 8c..8c+7) to chunk
+    // c of row r of a forward stage st
+    __device__ static void stage_chunk(const float* Bm, int r, int c, int rs, bf16* st) {
+        const float4 x0 = *reinterpret_cast<const float4*>(Bm + ix(r, c * 8));
+        const float4 x1 = *reinterpret_cast<const float4*>(Bm + ix(r, c * 8) + 4);
+        *reinterpret_cast<uint4*>(st + fchunk(rs, c)) =
+            make_uint4(pack_bf16(x0.x, x0.y), pack_bf16(x0.z, x0.w), pack_bf16(x1.x, x1.y),
+                       pack_bf16(x1.z, x1.w));
+    }
+    // acc += the warp's rows i0 + r0.. of A^T . Bm over this block's TS samples
+    __device__ void wgrad_local(const Bufs& S, const float* A, const float* Bm, int i0) {
+        constexpr bool RING = NS * KR >= TS;
+#pragma unroll 2
+        for (int k = 0; k < TS; k += 16) {
+            unsigned a[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; mt++)
+                frag_a_cols(A, At{}, i0 + r0 + mt * 16, k, g, q, a[mt]);
+            if constexpr (RING) {
+                step_b<true>(a, S.ring, k);
+            } else {
+#pragma unroll
+                for (int nt = 0; nt < 8; nt++) {
+                    unsigned b0, b1;
+                    frag_b_rows(Bm, At{}, k, c0 + nt * 8, g, q, b0, b1);
+#pragma unroll
+                    for (int mt = 0; mt < 2; mt++) mma_bf16(acc[mt][nt], a[mt], b0, b1);
+                }
+            }
+        }
+    }
+    // the warp's rows i0 + r0.. of a weight gradient to out (+=), evict-first:
+    // read once more, by the Adam stage or the next tile
+    __device__ void wgrad_store(float* out, int i0, bool first) const {
+#pragma unroll
+        for (int mt = 0; mt < 2; mt++)
+#pragma unroll
+            for (int nt = 0; nt < 8; nt++)
+#pragma unroll
+                for (int h = 0; h < 2; h++) {
+                    const int row = i0 + r0 + mt * 16 + g + 8 * h, col = c0 + nt * 8 + 2 * q;
+                    float2* p = reinterpret_cast<float2*>(out + (size_t)row * H + col);
+                    float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+                    if (!first) {
+                        float2 o = *p;
+                        v.x += o.x;
+                        v.y += o.y;
+                    }
+                    __stcs(p, v);
+                }
+    }
+    // out (+)= A^T . Bm over the tile's samples, (H, H) in the slot.  Where
+    // the ring holds TS rows (H >= 256), Bm (bf16 values already) is copied
+    // there first as bf16 rows in the forward stages' layout, and its
     // fragments come by ldmatrix.trans, once per k step for all four row
     // blocks i0 instead of packed from float32 for each.  Needs a block
     // barrier before (and the ring free); the next product's staging starts
     // with one.
+    // In a cluster of cn > 1 blocks (learner_tiles.cuh, gemm_wgrad) this block
+    // computes the rows [crank H / cn, (crank + 1) H / cn) of the cluster's
+    // gradient over the samples of all its blocks, in rank order, in passes of
+    // TS rows (a warp's 32 rows x 64 columns each): its own samples as above,
+    // another block's 16 at a time staged into the exchange rows S.x (dz2 from
+    // that block's ring as bf16 rows of a forward stage, or packed from its
+    // Bm; the pass's TS columns of its h1, float32) and read from there as
+    // from the ring.  A cluster barrier before and after.
     __device__ void wgrad(const Bufs& S, const float* A, const float* Bm, float* out, bool first) {
         constexpr bool RING = NS * KR >= TS;
         if constexpr (RING) {
-            for (int idx = threadIdx.x; idx < TS * (H / 8); idx += NT) {
-                const int r = idx / (H / 8), c = idx % (H / 8);
-                const float4 x0 = *reinterpret_cast<const float4*>(Bm + ix(r, c * 8));
-                const float4 x1 = *reinterpret_cast<const float4*>(Bm + ix(r, c * 8) + 4);
-                *reinterpret_cast<uint4*>(S.ring + fchunk(r, c)) =
-                    make_uint4(pack_bf16(x0.x, x0.y), pack_bf16(x0.z, x0.w), pack_bf16(x1.x, x1.y),
-                               pack_bf16(x1.z, x1.w));
-            }
+            for (int idx = threadIdx.x; idx < TS * (H / 8); idx += NT)
+                stage_chunk(Bm, idx / (H / 8), idx % (H / 8), idx / (H / 8), S.ring);
             __syncthreads();
         }
-        for (int i0 = 0; i0 < H; i0 += TS) {
-            zero();
-#pragma unroll 2
-            for (int k = 0; k < TS; k += 16) {
-                unsigned a[2][4];
+        if (S.cn == 1) {
+            for (int i0 = 0; i0 < H; i0 += TS) {
+                zero();
+                wgrad_local(S, A, Bm, i0);
+                wgrad_store(out, i0, first);
+            }
+            return;
+        }
+        wgrad_cluster<H>(S.x, S.ring, S.cn, S.crank, A, Bm, out, first);
+    }
+    // The cluster's part of wgrad (S.cn > 1), on this tile's accumulators:
+    // the other blocks' samples staged 16 at a time through S.x, the next
+    // piece's loads issued into registers before this piece's products, which
+    // hide their latency.
+    __device__ __forceinline__ void wgrad_cluster_body(const Bufs& S, const float* A,
+                                                       const float* Bm, float* out, bool first) {
+        constexpr bool RING = NS * KR >= TS;
+        constexpr int XA = TS + 4;                        // the staged h1's row stride
+        constexpr int KP = TS / 16;                       // pieces of 16 samples a block
+        constexpr int NB = (2 * H + NT - 1) / NT;         // 16-byte chunks of dz2 a thread
+        constexpr int NA = (4 * TS + NT - 1) / NT;        // float4 of h1 a thread
+        struct AtX {
+            __device__ int operator()(int s, int m) const { return s * XA + m; }
+        };
+        bf16* xb = reinterpret_cast<bf16*>(xrows<H>(S));  // 16 samples of dz2, bf16
+        float* xa = xrows<H>(S) + 8 * H;                  // 16 samples of h1, TS columns
+        const int rr = H / S.cn, R0 = S.crank * rr, np = (S.cn - 1) * KP;
+        const int tid = threadIdx.x;
+        uint4 pb[NB];
+        float4 pa[NA];
+        // piece j: samples 16 (j % KP).. of the (j / KP)-th other block in rank
+        // order, h1's columns [p0, p0 + TS)
+        auto fetch = [&](int j, int p0) {
+            const int c = j / KP + (j / KP >= S.crank), k0 = (j % KP) * 16;
+            const float* Ac = peer(A, c);
 #pragma unroll
-                for (int mt = 0; mt < 2; mt++)
-                    frag_a_cols(A, At{}, i0 + r0 + mt * 16, k, g, q, a[mt]);
+            for (int i = 0; i < NB; i++) {
+                const int idx = tid + i * NT;
+                if (idx >= 2 * H) break;
                 if constexpr (RING) {
-                    step_b<true>(a, S.ring, k);
+                    pb[i] = reinterpret_cast<const uint4*>(peer(S.ring, c))[k0 * H / 8 + idx];
                 } else {
-#pragma unroll
-                    for (int nt = 0; nt < 8; nt++) {
-                        unsigned b0, b1;
-                        frag_b_rows(Bm, At{}, k, c0 + nt * 8, g, q, b0, b1);
-#pragma unroll
-                        for (int mt = 0; mt < 2; mt++) mma_bf16(acc[mt][nt], a[mt], b0, b1);
-                    }
+                    const float* b = peer(Bm, c) + ix(k0 + idx / (H / 8), idx % (H / 8) * 8);
+                    const float4 x0 = *reinterpret_cast<const float4*>(b);
+                    const float4 x1 = *reinterpret_cast<const float4*>(b + 4);
+                    pb[i] = make_uint4(pack_bf16(x0.x, x0.y), pack_bf16(x0.z, x0.w),
+                                       pack_bf16(x1.x, x1.y), pack_bf16(x1.z, x1.w));
                 }
             }
 #pragma unroll
-            for (int mt = 0; mt < 2; mt++)
+            for (int i = 0; i < NA; i++) {
+                const int idx = tid + i * NT;
+                if (idx >= 4 * TS) break;
+                pa[i] = *reinterpret_cast<const float4*>(Ac + ix(k0 + idx / (TS / 4),
+                                                                 p0 + idx % (TS / 4) * 4));
+            }
+        };
+        // the fetched piece into the staging area: dz2 as rows of a forward stage
+        auto place = [&]() {
 #pragma unroll
-                for (int nt = 0; nt < 8; nt++)
+            for (int i = 0; i < NB; i++) {
+                const int idx = tid + i * NT;
+                if (idx >= 2 * H) break;
+                const int at = RING ? idx * 8 : fchunk(idx / (H / 8), idx % (H / 8));
+                *reinterpret_cast<uint4*>(xb + at) = pb[i];
+            }
 #pragma unroll
-                    for (int h = 0; h < 2; h++) {
-                        const int row = i0 + r0 + mt * 16 + g + 8 * h, col = c0 + nt * 8 + 2 * q;
-                        float2* p = reinterpret_cast<float2*>(out + (size_t)row * H + col);
-                        float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-                        if (!first) {
-                            float2 o = *p;
-                            v.x += o.x;
-                            v.y += o.y;
-                        }
-                        __stcs(p, v);    // evict-first: read once, by the Adam stage
-                    }
+            for (int i = 0; i < NA; i++) {
+                const int idx = tid + i * NT;
+                if (idx >= 4 * TS) break;
+                *reinterpret_cast<float4*>(xa + idx / (TS / 4) * XA + idx % (TS / 4) * 4) = pa[i];
+            }
+        };
+        cluster_sync();
+        for (int p0 = R0; p0 < R0 + rr; p0 += TS) {
+            const bool on = p0 + r0 < R0 + rr;            // the warp has rows in this pass
+            zero();
+            fetch(0, p0);
+            for (int j = 0; j <= np; j++) {
+                if (j == S.crank * KP && on) wgrad_local(S, A, Bm, p0);   // its own, in rank order
+                if (j == np) break;
+                __syncthreads();                          // the staging area is free
+                place();
+                if (j + 1 < np) fetch(j + 1, p0);
+                __syncthreads();
+                if (on) {
+                    unsigned a[2][4];
+#pragma unroll
+                    for (int mt = 0; mt < 2; mt++)
+                        frag_a_cols(xa, AtX{}, r0 + mt * 16, 0, g, q, a[mt]);
+                    step_b<true>(a, xb, 0);
+                }
+            }
+            if (on) wgrad_store(out, p0, first);
         }
+        cluster_sync();
     }
 
     // f(s, col, c_pair) over the thread's accumulator pairs: rows s, columns col, col + 1
@@ -498,6 +616,21 @@ struct MTile {
         });
     }
 };
+
+// MTile::wgrad's cluster part, a function of its own with accumulators of
+// its own, so that its registers do not weigh on the stages around it.
+template <int H>
+__device__ __noinline__ void wgrad_cluster(float* x, bf16* ring, int cn, int crank,
+                                           const float* A, const float* Bm, float* out,
+                                           bool first) {
+    Bufs S;
+    S.x = x;
+    S.ring = ring;
+    S.cn = cn;
+    S.crank = crank;
+    MTile<H> t;
+    t.wgrad_cluster_body(S, A, Bm, out, first);
+}
 
 // The tile type of a mode: float32 products on the CUDA cores, or bf16
 // products on the tensor cores.

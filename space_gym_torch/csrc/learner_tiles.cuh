@@ -6,6 +6,10 @@
 // (a critic's forward and backward against a given target, the critics' Adam
 // stage, the actor's backward from its head gradients).
 //
+// In a launch of thread block clusters (sac_update.cuh) a cluster sums its
+// blocks' gradients on chip and writes one slot: the weight gradients
+// (gemm_wgrad, MTile::wgrad) and the exchange rows (xflush) below.
+//
 // The stages are templates over the tile type, which brings its products and
 // their stores as members and the layout of the activation buffers as
 // `ix(s, j)`: Tile<H> here (float32 multiply-adds on the CUDA cores, the
@@ -65,12 +69,27 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ void put(float* p, float v, bool first) { *p = first ? v : *p + v; }
 
+// The thread block cluster of the launch: its barrier (every thread of every
+// block; what a block wrote to its shared memory before it is visible to the
+// others after it) and the address of `p` in the shared memory of block
+// `rank` of the cluster.  A launch without clusters is one of clusters of one.
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+template <class T>
+__device__ __forceinline__ T* peer(T* p, int rank) {
+    return cg::this_cluster().map_shared_rank(p, rank);
+}
+
 // The activation buffers every stage works in: A and Bm (TS, H), the weight
 // chunk wch (KC, H) or the ring of bf16 weight stages, and xin (W, TS), the
-// first layer's feature-major input.
+// first layer's feature-major input; with the block's place in its thread
+// block cluster (cn blocks, this one of rank crank) and, where cn > 1, x: the
+// exchange rows through which the cluster sums its gradients (`xflush`) and
+// stages another block's operands (the weight gradients).
 struct Bufs {
     float *A, *Bm, *wch, *xin;
     bf16* ring;
+    float* x = nullptr;
+    int cn = 1, crank = 0;
 };
 
 // One thread's 8 x 8 tile of a (TS, H) output: rows ty*8 + i, columns
@@ -196,38 +215,69 @@ __device__ void gemm_ks(Tile<H>& t, const float* xin, const float* Wg, int Kdim,
     }
 }
 
-// out (+)= A^T . Bm over the tile's samples: a weight gradient.  A and Bm are
-// (TS, H) in shared memory, out is (H, H) in this block's partial slot.
-// Needs a block barrier before; reads shared memory only.
+// acc += A^T . Bm over the TS samples of A and Bm ((TS, H) in shared memory,
+// this block's or another's of the cluster): rows i0.. of a weight gradient.
 template <int H>
-__device__ void gemm_wgrad(Tile<H>& t, const float* A, const float* Bm, float* out, bool first) {
+__device__ void wgrad_rows(Tile<H>& t, const float* A, const float* Bm, int i0) {
     constexpr int TS = Tile<H>::TS;
-    for (int i0 = t.ty * 8; i0 < H; i0 += TS) {
-        t.zero();
 #pragma unroll 4
-        for (int s = 0; s < TS; s++) {
-            float4 a0 = *reinterpret_cast<const float4*>(A + s * H + i0);
-            float4 a1 = *reinterpret_cast<const float4*>(A + s * H + i0 + 4);
-            float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            t.fma_row(a, *reinterpret_cast<const float4*>(Bm + s * H + t.tx * 4),
-                      *reinterpret_cast<const float4*>(Bm + s * H + H / 2 + t.tx * 4));
-        }
+    for (int s = 0; s < TS; s++) {
+        float4 a0 = *reinterpret_cast<const float4*>(A + s * H + i0);
+        float4 a1 = *reinterpret_cast<const float4*>(A + s * H + i0 + 4);
+        float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        t.fma_row(a, *reinterpret_cast<const float4*>(Bm + s * H + t.tx * 4),
+                  *reinterpret_cast<const float4*>(Bm + s * H + H / 2 + t.tx * 4));
+    }
+}
+
+// The thread's 8 rows i0.. of a weight gradient to out (+=).
+template <int H>
+__device__ void wgrad_store(const Tile<H>& t, float* out, int i0, bool first) {
 #pragma unroll
-        for (int i = 0; i < 8; i++) {
+    for (int i = 0; i < 8; i++) {
 #pragma unroll
-            for (int hf = 0; hf < 2; hf++) {
-                float4* p = reinterpret_cast<float4*>(out + (size_t)(i0 + i) * H + hf * (H / 2)
-                                                      + t.tx * 4);
-                float4 v = make_float4(t.acc[i][hf * 4], t.acc[i][hf * 4 + 1],
-                                       t.acc[i][hf * 4 + 2], t.acc[i][hf * 4 + 3]);
-                if (!first) {
-                    float4 o = *p;
-                    v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
-                }
-                *p = v;
+        for (int hf = 0; hf < 2; hf++) {
+            float4* p = reinterpret_cast<float4*>(out + (size_t)(i0 + i) * H + hf * (H / 2)
+                                                  + t.tx * 4);
+            float4 v = make_float4(t.acc[i][hf * 4], t.acc[i][hf * 4 + 1],
+                                   t.acc[i][hf * 4 + 2], t.acc[i][hf * 4 + 3]);
+            if (!first) {
+                float4 o = *p;
+                v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
             }
+            *p = v;
         }
     }
+}
+
+// out (+)= A^T . Bm over the tile's samples: a weight gradient.  A and Bm are
+// (TS, H) in shared memory, out is (H, H) in the slot.  Needs a block barrier
+// before; reads shared memory only.  In a cluster of cn > 1 blocks the sum
+// runs over the samples of all of them, in rank order, reading the others'
+// A and Bm where they lie, and this block computes and writes only its rows
+// [crank H / cn, (crank + 1) H / cn) of the cluster's gradient; a cluster
+// barrier before (every block's A and Bm complete) and after (none is read
+// any more).
+template <int H>
+__device__ void gemm_wgrad(Tile<H>& t, const Bufs& S, const float* A, const float* Bm, float* out,
+                           bool first) {
+    constexpr int TS = Tile<H>::TS;
+    if (S.cn == 1) {
+        for (int i0 = t.ty * 8; i0 < H; i0 += TS) {
+            t.zero();
+            wgrad_rows<H>(t, A, Bm, i0);
+            wgrad_store<H>(t, out, i0, first);
+        }
+        return;
+    }
+    const int rr = H / S.cn, r0 = S.crank * rr;
+    cluster_sync();
+    for (int i0 = r0 + t.ty * 8; i0 < r0 + rr; i0 += TS) {
+        t.zero();
+        for (int c = 0; c < S.cn; c++) wgrad_rows<H>(t, peer(A, c), peer(Bm, c), i0);
+        wgrad_store<H>(t, out, i0, first);
+    }
+    cluster_sync();
 }
 
 // dst = relu(acc + bias), rounded in bf mode; also to `gdst` where given.
@@ -305,9 +355,9 @@ __device__ void Tile<H>::first(const Bufs& S, const float* w1, const bf16*, int 
     gemm_ks<H>(*this, S.xin, w1, Kdim, od, bf, S.wch);
 }
 template <int H>
-__device__ void Tile<H>::wgrad(const Bufs&, const float* A, const float* Bm, float* out,
+__device__ void Tile<H>::wgrad(const Bufs& S, const float* A, const float* Bm, float* out,
                                bool first) {
-    gemm_wgrad<H>(*this, A, Bm, out, first);
+    gemm_wgrad<H>(*this, S, A, Bm, out, first);
 }
 template <int H>
 __device__ void Tile<H>::relu(const float* bias, float* dst, int bf, float* gdst) const {
@@ -397,11 +447,12 @@ __device__ float tile_sum(const float* x, int n = TS) {
     X(M_FIRST, "first layer") X(M_RELU1, "ReLU 1") X(M_W2, "W2 product")          \
     X(M_RELU2, "ReLU 2") X(M_DOTS, "row dots") X(M_DQ, "dq (masks)")              \
     X(M_W3B2, "w3, b2 loop") X(M_W2GRAD, "W2 weight gradient")                    \
-    X(M_BWD, "dz2 . W2^T") X(M_DZ1, "dz1") X(M_W1B1, "W1, b1 loop")
+    X(M_BWD, "dz2 . W2^T") X(M_DZ1, "dz1") X(M_W1B1, "W1, b1 loop")             \
+    X(M_XCHG, "cluster exchange")
 #define SG_ACTOR_BACK_MARKS(X)                                                     \
     X(A_STASH, "stash reload") X(A_HEAD, "head, b2 loop")                         \
     X(A_W2GRAD, "W2 weight gradient") X(A_BWD, "dz2 . W2^T") X(A_DZ1, "dz1")     \
-    X(A_W1B1, "W1, b1 loop")
+    X(A_W1B1, "W1, b1 loop") X(A_XCHG, "cluster exchange")
 #define SG_MARK_ID(id, name) id,
 #define SG_MARK_NAME(id, name) name,
 #define SG_SITE_ID(id, name, marks) id,
@@ -598,6 +649,83 @@ __device__ __forceinline__ void adam_scalars(float tstep, float lr, float& a_lr,
     c_eps = ADAM_EPS * sb2;
 }
 
+// ------------------------------------------------------- cluster exchange --
+// In a cluster of cn > 1 blocks a stage writes the gradient rows that are not
+// an H x H product (first layers, biases, w3, heads) and its misc sums to its
+// exchange rows instead of the slot: S.x holds XM misc floats, then rows of H
+// floats in the slot's own order of the stage's group of rows.  xflush adds
+// the cluster's blocks' rows [r0, r0 + nrows) and misc values [0, nm) in rank
+// order into the cluster's slot, dst(i, j) the place of elements j..j+3 of
+// group row i (16-byte aligned) and dstm(i) that of misc value i: a block
+// takes the columns [crank H / cn, (crank + 1) H / cn) of every row, rank 0
+// the misc values.  It starts
+// with a cluster barrier (every block's rows complete) and ends with one (no
+// block reads them any more), so a block may write its rows again right
+// after it.  xrows and xfloats give the layout.
+// The tensor cores' weight gradient stages another block's samples in the
+// rows from 0 on (xstaged floats, learner_mma.cuh): where that leaves the rows
+// from od + 1 on alone (xmerge), the rows written before it (b2, w3, the
+// heads) wait there and go with the first layer's in one flush, else they go
+// in a flush before it.
+constexpr int XM = 8;
+template <int H>
+__device__ float* xrows(const Bufs& S) { return S.x + XM; }
+template <int H>
+__host__ __device__ constexpr size_t xstaged() {
+    constexpr int TS = 8 * row_groups(H);
+    return (size_t)8 * H + 16 * (TS + 4);
+}
+template <int H>
+__host__ __device__ constexpr size_t xfloats(int rows) {
+    // the group's rows, or the staging, whichever is larger
+    const size_t group = (size_t)rows * H;
+    return XM + (group > xstaged<H>() ? group : xstaged<H>());
+}
+template <int H, class T>
+__device__ bool xmerge(int od) {
+    return !T::MMA || xstaged<H>() <= (size_t)(od + 1) * H;
+}
+
+template <int H, class Dst, class DstM>
+__device__ __noinline__ void xflush(Bufs S, int r0, int nrows, Dst dst, int nm, DstM dstm,
+                                    bool first) {
+    constexpr int U = 4;      // float4 sums a thread gathers before it stores them
+    cluster_sync();
+    const int w4 = H / 4 / S.cn, j0 = S.crank * 4 * w4, n4 = nrows * w4;
+    const float* rows = xrows<H>(S);
+    for (int base = threadIdx.x; base < n4; base += U * blockDim.x) {
+        float4 v[U];
+#pragma unroll
+        for (int u = 0; u < U; u++) {
+            const int idx = base + u * blockDim.x;
+            v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (idx >= n4) continue;
+            const size_t o = (size_t)(r0 + idx / w4) * H + j0 + idx % w4 * 4;
+            for (int c = 0; c < S.cn; c++) {
+                const float4 x = *reinterpret_cast<const float4*>(peer(rows, c) + o);
+                v[u].x += x.x; v[u].y += x.y; v[u].z += x.z; v[u].w += x.w;
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < U; u++) {
+            const int idx = base + u * blockDim.x;
+            if (idx >= n4) continue;
+            float4* d = reinterpret_cast<float4*>(dst(r0 + idx / w4, j0 + idx % w4 * 4));
+            if (!first) {
+                const float4 o = *d;
+                v[u].x += o.x; v[u].y += o.y; v[u].z += o.z; v[u].w += o.w;
+            }
+            *d = v[u];
+        }
+    }
+    if (S.crank == 0 && (int)threadIdx.x < nm) {
+        float v = 0.f;
+        for (int c = 0; c < S.cn; c++) v += peer(S.x, c)[threadIdx.x];
+        put(dstm(threadIdx.x), v, first);
+    }
+    cluster_sync();
+}
+
 // ---------------------------------------------------------------- forward --
 // An actor's operands: its rows of `w` (wh: the NH rows of head^T) and `vec`
 // (bh: the head's biases in the misc row); w1b and w2b its W1 and W2 in the
@@ -666,6 +794,8 @@ __device__ void critic_forward(T& t, const Bufs& S, const CriticRefs& cr, int od
 // lsum are (TS,) scratch.  The obs rows go through the rounded product, the
 // action rows, the bias and dq x w3 stay float32.  Only the tile's first nv
 // samples are real: the others get dq = 0 and no loss, so they add nothing.
+// In a cluster (S.cn > 1) the rows [0, n1 + 3) and pm's two values go through
+// the exchange rows (xflush; pm[0] and pm[2] as misc values 0 and 1).
 template <int H, class T>
 __device__ void critic_grad(T& t, const Bufs& S, const CriticRefs& cr, const float* tq,
                             float* q, float* dq, float* lsum, float* pc, float* pm, int od, int B,
@@ -673,6 +803,10 @@ __device__ void critic_grad(T& t, const Bufs& S, const CriticRefs& cr, const flo
     constexpr int TS = Tile<H>::TS, NT = Tile<H>::NT;
     const int n1 = od + 2, tid = threadIdx.x;
     const float invb = (float)(1.0 / B);
+    const bool xc = S.cn > 1;
+    float* gr = xc ? xrows<H>(S) : pc;    // where the rows [0, n1 + 3) go
+    const bool gfirst = xc || first;
+    auto in_slot = [=](int i, int j) { return pc + (size_t)i * H + j; };
     critic_forward<H>(t, S, cr, od, bf, q);
     __syncthreads();
     if (tid < TS) {
@@ -693,18 +827,24 @@ __device__ void critic_grad(T& t, const Bufs& S, const CriticRefs& cr, const flo
             gb2 += dz;
             S.Bm[T::ix(s, j)] = rnd(dz, bf);
         }
-        put(pc + (size_t)(n1 + 2) * H + j, gw3, first);
-        put(pc + (size_t)(n1 + 1) * H + j, gb2, first);
+        put(gr + (size_t)(n1 + 2) * H + j, gw3, gfirst);
+        put(gr + (size_t)(n1 + 1) * H + j, gb2, gfirst);
     }
     if (tid < 32) {
         float gb3 = tile_sum<TS>(dq), ls = tile_sum<TS>(lsum);
         if (tid == 0) {
-            put(pm, gb3, first);
-            put(pm + 2, ls, first);
+            put(xc ? S.x : pm, gb3, gfirst);
+            put(xc ? S.x + 1 : pm + 2, ls, gfirst);
         }
     }
     __syncthreads();
     phase(M_W3B2);
+    auto misc = [=](int i) { return pm + 2 * i; };
+    const bool merge = xmerge<H, T>(od);
+    if (xc && !merge) {
+        xflush<H>(S, n1 + 1, 2, in_slot, 2, misc, first);
+        phase(M_XCHG);
+    }
     t.wgrad(S, S.A, S.Bm, pc + (size_t)(n1 + 3) * H, first);
     phase(M_W2GRAD);
     t.bwd(S, S.Bm, cr.w2t, cr.w2b, bf);
@@ -714,14 +854,18 @@ __device__ void critic_grad(T& t, const Bufs& S, const CriticRefs& cr, const flo
     phase(M_DZ1);
     // W1 and b1 gradients: obs rows through the rounded product, action
     // rows and bias in float32
-    t.w1grad(S, pc, n1, od, bf, first);
+    t.w1grad(S, gr, n1, od, bf, gfirst);
     __syncthreads();
     phase(M_W1B1);
+    if (xc) {
+        xflush<H>(S, 0, merge ? n1 + 3 : n1 + 1, in_slot, merge ? 2 : 0, misc, first);
+        phase(M_XCHG);
+    }
 }
 
-// Adam on both critics from the partial slots summed in index order, and with
-// POLYAK the targets' polyak step from the new weights; the whole grid takes
-// part.  A slot holds critic 0's CS = n1 + 3 + H rows, critic 1's, and a row
+// Adam on both critics from the nslots partial slots summed in index order,
+// and with POLYAK the targets' polyak step from the new weights; the whole
+// grid takes part.  A slot holds critic 0's CS = n1 + 3 + H rows, critic 1's, and a row
 // with the two b3 gradients [0, 2) and the two loss sums [2, 4); the critic
 // loss of update k goes to losses[2 k].  The new W2 goes to the transposed
 // copy `wt`; in bf16 mode (BF) the new W1 obs rows and W2 of the critics, and
@@ -730,7 +874,7 @@ __device__ void critic_grad(T& t, const Bufs& S, const CriticRefs& cr, const flo
 // Without POLYAK (TD3, whose targets move only on delayed updates) neither
 // the targets nor their shadow rows are written here.
 template <int H, class LY, bool POLYAK, bool BF = false, class Args>
-__device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c_eps) {
+__device__ void critic_apply(const Args& g, int k, int grid, int nslots, float a_lr, float c_eps) {
     const int n1 = g.od + 2, CS = n1 + 3 + H, prows = 2 * CS + 1;
     const float tau = g.tau, omt = 1.0f - g.tau;
     const size_t slot = (size_t)prows * H;
@@ -755,7 +899,7 @@ __device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c
         for (int e = 4 * (blockIdx.x * blockDim.x + threadIdx.x); e < total;
              e += 4 * grid * blockDim.x) {
             int c = e / (CS * H), lr = (e / H) % CS, j = e % H;
-            float4 gr = slot_sum4(g.partials + (size_t)(c * CS + lr) * H + j, grid, slot);
+            float4 gr = slot_sum4(g.partials + (size_t)(c * CS + lr) * H + j, nslots, slot);
             float *wp, *mp, *vp, *tp;
             where(c, lr, j, wp, mp, vp, tp);
             const float4 wn = adam4(wp, mp, vp, gr, a_lr, c_eps);
@@ -787,7 +931,7 @@ __device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c
             int c = e / (CS * H), lr = (e / H) % CS, j = e % H;
             const float* p = g.partials + (size_t)(c * CS + lr) * H + j;
             float gr = 0.f;
-            for (int b = 0; b < grid; b++) gr += p[b * slot];
+            for (int b = 0; b < nslots; b++) gr += p[b * slot];
             apply(c, lr, j, gr);
         }
     }
@@ -796,7 +940,7 @@ __device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c
         int c = threadIdx.x;
         if (c < 2) {
             float gr = 0.f;
-            for (int b = 0; b < grid; b++) gr += pm[b * slot + c];
+            for (int b = 0; b < nslots; b++) gr += pm[b * slot + c];
             size_t o = (size_t)LY::V_MISC * H + LY::M_CB3 + c;
             float wn = adam_elem(g.vec + o, g.mvec + o, g.vvec + o, gr, a_lr, c_eps);
             if (POLYAK) {
@@ -805,7 +949,7 @@ __device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c
             }
         } else {
             float ls = 0.f;
-            for (int b = 0; b < grid; b++) ls += pm[b * slot + 2] + pm[b * slot + 3];
+            for (int b = 0; b < nslots; b++) ls += pm[b * slot + 2] + pm[b * slot + 3];
             g.losses[k * 2] = ls;
         }
     }
@@ -819,13 +963,21 @@ __device__ void critic_apply(const Args& g, int k, int grid, float a_lr, float c
 // W2 and w2b its bf16 shadow (the tile type reads one of them).  Gradient
 // rows in part: [0, od) W1, od b1, od+1 b2, [od+2, od+2+NH)
 // head^T, [od+2+NH, od+2+NH+H) W2; the row after them takes the head's bias
-// gradients [0, NH).  Ends with a block barrier.
+// gradients [0, NH).  In a cluster (S.cn > 1) the rows [0, od+2+NH) and the
+// first nm values of that last row go through the exchange rows (xflush;
+// the caller has put those from NH on in the misc values).  Ends with a block
+// barrier.
 template <int H, int NH, class T>
 __device__ void actor_backward(T& t, const Bufs& S, const float* gh, const float* stash,
                                const float* wh, const float* w2t, float* part, int od, int bf,
-                               bool first, const bf16* w2b = nullptr) {
+                               bool first, int nm, const bf16* w2b = nullptr) {
     constexpr int TS = Tile<H>::TS, NT = Tile<H>::NT;
     const int tid = threadIdx.x;
+    const bool xc = S.cn > 1;
+    float* gr = xc ? xrows<H>(S) : part;    // where the rows [0, od + 2 + NH) go
+    const bool gfirst = xc || first;
+    float* pm = part + (size_t)(od + 2 + NH + H) * H;
+    auto in_slot = [=](int i, int j) { return part + (size_t)i * H + j; };
     // the actor's activations back into the two buffers
     for (int idx = tid; idx < TS * H / 4; idx += NT) {
         int o = T::ix(idx / (H / 4), idx % (H / 4) * 4);
@@ -855,18 +1007,23 @@ __device__ void actor_backward(T& t, const Bufs& S, const float* gh, const float
             S.Bm[T::ix(s, j)] = rnd(dz, bf);
         }
 #pragma unroll
-        for (int e = 0; e < NH; e++) put(part + (size_t)(od + 2 + e) * H + j, gwh[e], first);
-        put(part + (size_t)(od + 1) * H + j, gb2, first);
+        for (int e = 0; e < NH; e++) put(gr + (size_t)(od + 2 + e) * H + j, gwh[e], gfirst);
+        put(gr + (size_t)(od + 1) * H + j, gb2, gfirst);
     }
     if (tid < 32) {
-        float* pm = part + (size_t)(od + 2 + NH + H) * H;
         for (int e = 0; e < NH; e++) {
             float v = tile_sum<TS>(gh + e * TS);
-            if (tid == 0) put(pm + e, v, first);
+            if (tid == 0) put((xc ? S.x : pm) + e, v, gfirst);
         }
     }
     __syncthreads();
     phase(A_HEAD);
+    auto misc = [=](int i) { return pm + i; };
+    const bool merge = xmerge<H, T>(od);
+    if (xc && !merge) {
+        xflush<H>(S, od + 1, 1 + NH, in_slot, nm, misc, first);
+        phase(A_XCHG);
+    }
     t.wgrad(S, S.A, S.Bm, part + (size_t)(od + 2 + NH) * H, first);
     phase(A_W2GRAD);
     t.bwd(S, S.Bm, w2t, w2b, bf);
@@ -874,9 +1031,96 @@ __device__ void actor_backward(T& t, const Bufs& S, const float* gh, const float
     t.masked_inplace(S.A);      // dz1
     __syncthreads();
     phase(A_DZ1);
-    t.w1grad(S, part, od, od, bf, first);
+    t.w1grad(S, gr, od, od, bf, gfirst);
     __syncthreads();
     phase(A_W1B1);
+    if (xc) {
+        xflush<H>(S, 0, merge ? od + 2 + NH : od + 1, in_slot, merge ? nm : 0, misc, first);
+        phase(A_XCHG);
+    }
+}
+
+// ------------------------------------------------------------------ host --
+// The launch of a learner kernel of nt threads a block: out[0] the grid,
+// out[1] the dynamic shared memory, out[2] the cluster size C.  kern1 is the
+// kernel's instantiation without clusters, which C = 1 launches, and kernx
+// the one with them; smem1 is the kernel's shared memory alone, smemx with
+// the exchange rows that a cluster of C > 1 needs.  The grid of C = 1 is
+// min(n_tiles, resident blocks); a cluster size C of 8, 4 or 2 (at most
+// cmax; the first that passes) is taken where the card holds enough clusters
+// of C blocks for a grid, a multiple of C, that gives no block more tiles
+// than that, whose
+// clusters' blocks all hold as many tiles (so they take the same cluster
+// barriers), where H / C is a multiple of 32 (a warp's rows of a weight
+// gradient) and where smemx fits.  -2: the shared memory does not fit.
+template <class K>
+int plan_launch(K kern1, K kernx, int nt, int H, size_t smem1, size_t smemx, int n_tiles,
+                int cmax, int* out) {
+    int dev = 0, sms = 0, optin = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (smem1 > (size_t)optin) return -2;
+    const bool room = smemx <= (size_t)optin && cmax > 1;
+    e = cudaFuncSetAttribute(kern1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+    if (e == cudaSuccess && room)
+        e = cudaFuncSetAttribute(kernx, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smemx);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern1, nt, smem1);
+    if (e != cudaSuccess) return (int)e;
+    const int resident = per_sm * sms;
+    if (resident < 1) return -2;
+    int grid = n_tiles < resident ? n_tiles : resident, C = 1;
+    const int most = (n_tiles + grid - 1) / grid;   // tiles a block at C = 1
+    for (int c = 8; c > 1 && room; c /= 2) {
+        if (c > cmax || H % (32 * c)) continue;
+        cudaLaunchAttribute at[1];
+        at[0].id = cudaLaunchAttributeClusterDimension;
+        at[0].val.clusterDim.x = c;
+        at[0].val.clusterDim.y = 1;
+        at[0].val.clusterDim.z = 1;
+        // gridDim, blockDim, dynamicSmemBytes, stream, attrs, numAttrs
+        cudaLaunchConfig_t cfg = {dim3(c), dim3(nt), smemx, nullptr, at, 1};
+        int clusters = 0;
+        if (cudaOccupancyMaxActiveClusters(&clusters, kernx, &cfg) != cudaSuccess) {
+            cudaGetLastError();
+            continue;
+        }
+        const int gc = clusters * c < n_tiles / c * c ? clusters * c : n_tiles / c * c;
+        if (gc < c || (n_tiles + gc - 1) / gc > most || (n_tiles % gc) % c) continue;
+        grid = gc;
+        C = c;
+        break;
+    }
+    out[0] = grid;
+    out[1] = (int)(C > 1 ? smemx : smem1);
+    out[2] = C;
+    return 0;
+}
+
+// A planned launch: cooperative (the grid barriers), kern1(args) where C = 1,
+// else kernx(args) in clusters of C blocks.
+template <class A>
+int launch_planned(void (*kern1)(A), void (*kernx)(A), A args, int grid, int C, int nt,
+                   size_t smem, cudaStream_t stream) {
+    cudaError_t e;
+    if (C == 1) {
+        void* params[] = {&args};
+        e = cudaLaunchCooperativeKernel((void*)kern1, dim3(grid), dim3(nt), params, smem, stream);
+    } else {
+        cudaLaunchAttribute at[2];
+        at[0].id = cudaLaunchAttributeClusterDimension;
+        at[0].val.clusterDim.x = C;
+        at[0].val.clusterDim.y = 1;
+        at[0].val.clusterDim.z = 1;
+        at[1].id = cudaLaunchAttributeCooperative;
+        at[1].val.cooperative = 1;
+        cudaLaunchConfig_t cfg = {dim3(grid), dim3(nt), smem, stream, at, 2};
+        e = cudaLaunchKernelEx(&cfg, kernx, args);
+    }
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
 }
 
 }  // namespace tiles

@@ -16,10 +16,12 @@
 // products (16 per sample and update), about 5.8e11 operations per launch at
 // K=32, B=8192, H=256: at the tensor cores' bf16 rate that is 0.6 ms, and the
 // launch moves only about 58 MB of its own operands.  Between those two
-// bounds sit the costs of doing it in one cooperative launch: the per-block
-// gradient slots (about 72 MB written and read back per critic stage, 37 MB
-// per actor stage), the weights read from L2 by every block for every product
-// (416 weight-reading products x 128 blocks x 128 KB of bf16, about 7 GB), and
+// bounds sit the costs of doing it in one cooperative launch: the gradient
+// slots (one per cluster of two blocks at the training shape: 66 x 562 KB,
+// about 37 MB written per critic stage and read back by the Adam stage, half
+// that per actor stage, and read back and written again where a block holds a
+// second tile), the weights read from L2 by every block for every product
+// (416 weight-reading products x 132 blocks x 128 KB of bf16, about 7 GB), and
 // four grid barriers per update.
 //
 // Design.  The batch is spread over the SMs: a thread block owns tiles of TS
@@ -49,11 +51,29 @@
 // --phase-clock, PERF.md section 5): the gradient slots, written by the
 // weight gradients and read back by the Adam stages (both with evict-first
 // hints, so that the weights and moments stay in L2), and the weight-reading
-// products, each of the 128 blocks streaming the same weights from L2, take
-// most of an update; ReLU stores, first layers and the column loops most of
-// the rest; the grid barriers a few percent.  So wgmma pays only once the
-// slots and the L2 traffic are cut (a reduction across a cluster before the
-// slot is written, multicast of the weight stages).
+// products, each block streaming the same weights from L2, take most of an
+// update; ReLU stores, first layers and the column loops most of the rest;
+// the grid barriers a few percent.  So wgmma pays only once the slots and the
+// L2 traffic are cut: the reduction across a cluster below cuts the first,
+// multicast of the weight stages would cut the second.
+//
+// Clusters.  The grid is min(n_tiles, resident blocks), 132 at the training
+// shape (learner_tiles.cuh, plan_launch), launched in thread block clusters
+// of C blocks where the card holds enough clusters of C for a grid that gives
+// no block more tiles, whose clusters' blocks hold as many tiles each, and
+// where the exchange rows fit: C = 2 at the training shape on an H100 80GB
+// HBM3 (it holds 15 clusters of 8 and 30 of 4, 120 blocks, which would give
+// blocks a third tile).  A cluster writes one slot, partials[blockIdx / C], and the Adam
+// stages sum grid / C slots.  Its blocks sum their gradients on chip through
+// distributed shared memory: an H x H weight gradient is computed by each
+// block for its rows [rank H / C, (rank + 1) H / C) only, over the samples of
+// every block of the cluster, reading the others' activations and dz2 where
+// they lie; the other gradient rows and sums go through exchange rows in
+// shared memory, each block adding its columns of them over the cluster's
+// blocks (xflush).  Sums in rank order, no atomics.  C = 1 (no room, or a
+// grid the rules refuse) is the launch without clusters, with its bits, of an
+// instantiation of its own (the template flag CL false) from which the
+// cluster code drops out.
 //
 // Order across the batch: gradients are sums over all B samples, and the
 // actor phase must see the critics that the critic phase updated.  So the
@@ -61,10 +81,10 @@
 // after each: critic tiles -> critic Adam + polyak -> actor tiles -> actor
 // and temperature Adam.
 //
-// Deterministic sums: a block writes the gradient of its own tiles to its own
-// slot of `partials` (no atomics); the Adam stage sums the slots in index
-// order; mma.sync sums in a fixed order.  The result is a function of the
-// inputs and of the grid size only.
+// Deterministic sums: a cluster writes the gradient of its blocks' tiles to
+// its own slot of `partials` (no atomics), its blocks' parts in rank order;
+// the Adam stage sums the slots in index order; mma.sync sums in a fixed
+// order.  The result is a function of the inputs, the grid size and C.
 //
 // The critics' first-layer bias is added plainly (the TPU kernels fold it
 // into a weight row for the launch's duration); w, vec and the moments come
@@ -77,8 +97,9 @@
 // before it computes this one.  A block with more tiles than one (a batch
 // with more tiles than resident blocks) loads the others in turn into the
 // second buffer, in each phase, as K4 does, and starts the next update's copy
-// after its last actor tile instead.  Both kernels take the same grid and add
-// a block's tiles into its slot in the same order, so they give the same bits.
+// after its last actor tile instead.  Both kernels take the same grid and
+// cluster size and add a block's tiles into its slot in the same order, so
+// they give the same bits.
 //
 // Partial tiles: a batch, or a ring's lanes, that TS does not divide ends in
 // a partial tile (learner_tiles.cuh, load_tile).  Its samples past the end are
@@ -135,7 +156,7 @@ struct Args {
     const int* row_idx;    // (K * rpb,) ring rows, unused when rpb == 0
     const float* noise;    // (K, 4, B)
     float* losses;         // (K, 2)
-    float* partials;       // (grid, prows, H) per-block gradient sums
+    float* partials;       // (grid / C, prows, H) gradient sums, one slot a cluster of C blocks
     float* wt;             // (3, H, H) transposed W2 of critic 0, critic 1, actor (float32 mode)
     float* stash;          // (n_tiles, 2, TS, H) the actor's activations
     bf16* wb;              // (5 (IN1 + H), H) bf16 shadow of w's first 5 (IN1 + H) rows (bf16 mode)
@@ -230,6 +251,7 @@ __device__ Smem carve(float* base, int W) {
         s.nz[i] = base; base += 4 * TS;
     }
     if (!FOLD) { s.xs[1] = s.xs[0]; s.nz[1] = s.nz[0]; }
+    s.x = base;    // the exchange rows, there in a launch of clusters only
     return s;
 }
 
@@ -417,25 +439,27 @@ __device__ void actor_tile(const Args& g, const Smem& S, const float* xs, const 
         }
     }
     if (tid < 32) {
-        float* pm = part + (size_t)(od + 6 + H) * H;
+        // in a cluster, misc values 4 and 5 of actor_backward's exchange
+        float* pm = S.cn > 1 ? S.x : part + (size_t)(od + 6 + H) * H;
         float ls = tile_sum<TS>(lsum), lp = tile_sum<TS>(logp, nv);
         if (tid == 0) {
-            put(pm + 4, ls, first);
-            put(pm + 5, lp, first);
+            put(pm + 4, ls, first || S.cn > 1);
+            put(pm + 5, lp, first || S.cn > 1);
         }
     }
     phase(K_ACTOR, SITE_KERNEL);
     phase_site(SITE_ACTOR_BACK);
     actor_backward<H, NHEAD>(t, S, gh, stash, g.w + (size_t)L::R_AWH * H,
                              g.wt ? g.wt + (size_t)2 * H * H : nullptr, part, od, bf, first,
-                             shadow<H>(g, L::R_AW2));
+                             NHEAD + 2, shadow<H>(g, L::R_AW2));
 }
 
-// Adam on the actor and on the temperature from the summed partial slots; the
-// new W2 to the transposed copy, or in bf16 mode W1 and W2 to the shadow, a
-// thread four neighbouring elements (slot_sum4, adam4).
+// Adam on the actor and on the temperature from the nslots partial slots
+// summed in index order; the new W2 to the transposed copy, or in bf16 mode
+// W1 and W2 to the shadow, a thread four neighbouring elements (slot_sum4,
+// adam4).
 template <int H, bool BF>
-__device__ void actor_apply(const Args& g, int k, int grid, float a_lr, float c_eps) {
+__device__ void actor_apply(const Args& g, int k, int grid, int nslots, float a_lr, float c_eps) {
     using L = Lay<H>;
     const int od = g.od, AS = od + 6 + H;
     const int prows = 2 * (od + 2 + 3 + H) + 1;
@@ -457,7 +481,7 @@ __device__ void actor_apply(const Args& g, int k, int grid, float a_lr, float c_
         for (int e = 4 * (blockIdx.x * blockDim.x + threadIdx.x); e < total;
              e += 4 * grid * blockDim.x) {
             int lr = e / H, j = e % H;
-            float4 gr = slot_sum4(g.partials + (size_t)lr * H + j, grid, slot);
+            float4 gr = slot_sum4(g.partials + (size_t)lr * H + j, nslots, slot);
             float *wp, *mp, *vp;
             where(lr, j, wp, mp, vp);
             const float4 wn = adam4(wp, mp, vp, gr, a_lr, c_eps);
@@ -470,7 +494,7 @@ __device__ void actor_apply(const Args& g, int k, int grid, float a_lr, float c_
             int lr = e / H, j = e % H;
             const float* p = g.partials + (size_t)lr * H + j;
             float gr = 0.f;
-            for (int b = 0; b < grid; b++) gr += p[b * slot];
+            for (int b = 0; b < nslots; b++) gr += p[b * slot];
             float *wp, *mp, *vp;
             where(lr, j, wp, mp, vp);
             float wn = adam_elem(wp, mp, vp, gr, a_lr, c_eps);
@@ -481,7 +505,7 @@ __device__ void actor_apply(const Args& g, int k, int grid, float a_lr, float c_
         const float* pm = g.partials + (size_t)AS * H;
         int c = threadIdx.x;
         float gr = 0.f;
-        for (int b = 0; b < grid; b++) gr += pm[b * slot + c];
+        for (int b = 0; b < nslots; b++) gr += pm[b * slot + c];
         if (c == 4) {
             g.losses[k * 2 + 1] = gr;
         } else {
@@ -500,7 +524,7 @@ __device__ void actor_apply(const Args& g, int k, int grid, float a_lr, float c_
 }
 
 // ---------------------------------------------------------------- kernel --
-template <int H, bool FOLD, bool BF>
+template <int H, bool FOLD, bool BF, bool CL>
 __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
     using L = Lay<H>;
     using T = TileOf<H, BF>;
@@ -515,7 +539,12 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
     const int n_tiles = tiles::n_tiles(g.lanes, g.rpb, TS);
     const int n1 = g.od + 2, prows = 2 * (n1 + 3 + H) + 1;
     Smem S = carve<H, FOLD, BF>(smem_base, g.W);
-    float* part = g.partials + (size_t)blockIdx.x * prows * H;
+    // the cluster's slot: one a cluster of C blocks (CL false: no clusters,
+    // C = 1, and the stages' cluster code drops out of the instantiation)
+    const int C = CL ? (int)cg::this_cluster().num_blocks() : 1;
+    S.cn = C;
+    S.crank = CL ? (int)cg::this_cluster().block_rank() : 0;
+    float* part = g.partials + (size_t)(blockIdx.x / C) * prows * H;
     // K5: does this block hold more tiles than its resident one?
     const bool more = FOLD && (int)blockIdx.x + G < n_tiles;
     phase(-1, SITE_KERNEL);  // starts the clock
@@ -584,7 +613,7 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
         }
         grid.sync();
         phase(K_SYNC_C, SITE_KERNEL);
-        critic_apply<H, L, true, BF>(g, k, G, a_lr, c_eps);
+        critic_apply<H, L, true, BF>(g, k, G, G / C, a_lr, c_eps);
         phase(K_CRITIC_ADAM, SITE_KERNEL);
         grid.sync();
         phase(K_SYNC_CA, SITE_KERNEL);
@@ -610,7 +639,7 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
         }
         grid.sync();
         phase(K_SYNC_A, SITE_KERNEL);
-        actor_apply<H, BF>(g, k, G, a_lr, c_eps);
+        actor_apply<H, BF>(g, k, G, G / C, a_lr, c_eps);
         phase(K_ACTOR_ADAM, SITE_KERNEL);
         grid.sync();
         phase(K_SYNC_AA, SITE_KERNEL);
@@ -619,63 +648,53 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
 
 // ------------------------------------------------------------------ host --
 // Plan errors: -1 width not built, -2 shared memory does not fit; launch
-// errors: -4 not the planned grid, -5 no scratch for the mode (wt in float32,
-// wb in bf16).  Other non-zero codes are cudaError_t.  K4 and K5 plan the same
-// grid, min(n_tiles, resident blocks).
+// errors: -4 not the planned grid or cluster size, -5 no scratch for the mode
+// (wt in float32, wb in bf16).  Other non-zero codes are cudaError_t.  K4
+// and K5 plan the same grid and cluster size (learner_tiles.cuh,
+// plan_launch), each on K5's shared memory, so that they give the same bits.
 template <int H, bool FOLD, bool BF>
-int plan(int W, int n_tiles, int* out) {
-    size_t smem = smem_floats<H, FOLD, BF>(W) * sizeof(float);
-    int dev = 0, sms = 0, optin = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (smem > (size_t)optin) return -2;
-    e = cudaFuncSetAttribute(sac_update_kernel<H, FOLD, BF>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sac_update_kernel<H, FOLD, BF>,
-                                                      Tile<H>::NT, smem);
-    if (e != cudaSuccess) return (int)e;
-    int resident = per_sm * sms;
-    if (resident < 1) return -2;
-    out[0] = n_tiles < resident ? n_tiles : resident;
-    out[1] = (int)smem;
-    return 0;
+int plan(int W, int od, int n_tiles, int cmax, int* out) {
+    const size_t smem1 = smem_floats<H, FOLD, BF>(W) * sizeof(float);
+    const size_t x = xfloats<H>(od + 2 + NHEAD) * sizeof(float);
+    // clusters where K5's shared memory, the larger, leaves room for the exchange
+    const size_t fold = smem_floats<H, true, BF>(W) * sizeof(float);
+    int err = plan_launch(sac_update_kernel<H, FOLD, BF, false>,
+                          sac_update_kernel<H, FOLD, BF, true>, Tile<H>::NT, H, smem1, fold + x,
+                          n_tiles, cmax, out);
+    if (err == 0 && out[2] > 1) out[1] = (int)(smem1 + x);
+    return err;
 }
 
 template <int H, bool FOLD, bool BF>
-int launch(Args g, int grid, cudaStream_t stream) {
-    int out[2];
-    int err = plan<H, FOLD, BF>(g.W, n_tiles(g.lanes, g.rpb, Tile<H>::TS), out);
+int launch(Args g, int grid, int cluster, cudaStream_t stream) {
+    int out[3];
+    int err = plan<H, FOLD, BF>(g.W, g.od, n_tiles(g.lanes, g.rpb, Tile<H>::TS), cluster, out);
     if (err != 0) return err;
-    if (grid != out[0]) return -4;
+    if (grid != out[0] || cluster != out[2]) return -4;
     if ((BF && !g.wb) || (!BF && !g.wt)) return -5;
-    void* params[] = {&g};
-    cudaError_t e = cudaLaunchCooperativeKernel((void*)sac_update_kernel<H, FOLD, BF>, dim3(grid),
-                                                dim3(Tile<H>::NT), params, (size_t)out[1], stream);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    return launch_planned(sac_update_kernel<H, FOLD, BF, false>,
+                          sac_update_kernel<H, FOLD, BF, true>, g, grid, cluster, Tile<H>::NT,
+                          (size_t)out[1], stream);
 }
 
 template <bool FOLD, bool BF>
-int plan_any(int H, int W, int n_tiles, int* out) {
+int plan_any(int H, int W, int od, int n_tiles, int cmax, int* out) {
     switch (H) {
-        case 128: return plan<128, FOLD, BF>(W, n_tiles, out);
-        case 256: return plan<256, FOLD, BF>(W, n_tiles, out);
-        case 384: return plan<384, FOLD, BF>(W, n_tiles, out);
-        case 512: return plan<512, FOLD, BF>(W, n_tiles, out);
+        case 128: return plan<128, FOLD, BF>(W, od, n_tiles, cmax, out);
+        case 256: return plan<256, FOLD, BF>(W, od, n_tiles, cmax, out);
+        case 384: return plan<384, FOLD, BF>(W, od, n_tiles, cmax, out);
+        case 512: return plan<512, FOLD, BF>(W, od, n_tiles, cmax, out);
     }
     return -1;
 }
 
 template <bool FOLD, bool BF>
-int launch_any(int H, const Args& g, int grid, cudaStream_t stream) {
+int launch_any(int H, const Args& g, int grid, int cluster, cudaStream_t stream) {
     switch (H) {
-        case 128: return launch<128, FOLD, BF>(g, grid, stream);
-        case 256: return launch<256, FOLD, BF>(g, grid, stream);
-        case 384: return launch<384, FOLD, BF>(g, grid, stream);
-        case 512: return launch<512, FOLD, BF>(g, grid, stream);
+        case 128: return launch<128, FOLD, BF>(g, grid, cluster, stream);
+        case 256: return launch<256, FOLD, BF>(g, grid, cluster, stream);
+        case 384: return launch<384, FOLD, BF>(g, grid, cluster, stream);
+        case 512: return launch<512, FOLD, BF>(g, grid, cluster, stream);
     }
     return -1;
 }
@@ -685,25 +704,28 @@ int launch_any(int H, const Args& g, int grid, cudaStream_t stream) {
 // The phase clock's entry points (a -DSG_PHASE_CLOCK build only).
 SG_PHASE_ENTRIES(sac, SG_SITES)
 
-// The two C entry points of one library: `NAME_plan(H, W, n_tiles, bf, out)`
-// gives the grid size and the shared-memory bytes of a mode, `NAME(...)`
-// launches: bf (mm_bf16) 0 the float32 products on the CUDA cores, reading
-// the transposed copy `wt`; 1 the bf16 products on the tensor cores, reading
-// the shadow `wb`.  The scratch of the other mode may be null.
+// The two C entry points of one library: `NAME_plan(H, W, od, n_tiles, bf,
+// cmax, out)` gives the grid size, the shared-memory bytes and the cluster
+// size (at most cmax) of a mode, `NAME(...)` launches with them (partials:
+// one slot a cluster): bf (mm_bf16) 0 the float32 products on the CUDA
+// cores, reading the transposed copy `wt`; 1 the bf16 products on the tensor
+// cores, reading the shadow `wb`.  The scratch of the other mode may be null.
 #define SAC_UPDATE_ENTRY(NAME, FOLD)                                                          \
-    extern "C" int NAME##_plan(int H, int W, int n_tiles, int bf, int* out) {                 \
-        return bf ? sac::plan_any<FOLD, true>(H, W, n_tiles, out)                             \
-                  : sac::plan_any<FOLD, false>(H, W, n_tiles, out);                           \
+    extern "C" int NAME##_plan(int H, int W, int od, int n_tiles, int bf, int cmax,           \
+                               int* out) {                                                    \
+        return bf ? sac::plan_any<FOLD, true>(H, W, od, n_tiles, cmax, out)                   \
+                  : sac::plan_any<FOLD, false>(H, W, od, n_tiles, cmax, out);                 \
     }                                                                                         \
     extern "C" int NAME(float* w, float* vec, float* mw, float* vw, float* mvec, float* vvec, \
                         const float* data, const int* row_idx, const float* noise,            \
                         float* losses, float* partials, float* wt, float* stash,              \
                         __nv_bfloat16* wb, int H, int K, int B, int W, int lanes, int rpb,    \
-                        int od, int grid, int bf, int has_floor, float gamma, float tau,      \
-                        float lr, float te, float count0, float logfloor, void* stream) {     \
+                        int od, int grid, int cluster, int bf, int has_floor, float gamma,    \
+                        float tau, float lr, float te, float count0, float logfloor,          \
+                        void* stream) {                                                       \
         sac::Args g{w, vec, mw, vw, mvec, vvec, data, row_idx, noise, losses, partials, wt,   \
                     stash, wb, K, B, W, lanes, rpb, od, bf, has_floor, gamma, tau, lr, te,    \
                     count0, logfloor};                                                        \
-        return bf ? sac::launch_any<FOLD, true>(H, g, grid, (cudaStream_t)stream)             \
-                  : sac::launch_any<FOLD, false>(H, g, grid, (cudaStream_t)stream);           \
+        return bf ? sac::launch_any<FOLD, true>(H, g, grid, cluster, (cudaStream_t)stream)    \
+                  : sac::launch_any<FOLD, false>(H, g, grid, cluster, (cudaStream_t)stream);  \
     }

@@ -46,9 +46,11 @@
 // other updates the actor tiles run the forward only, park nothing and need no
 // barrier after them: the next update's critic tiles read nothing they write.
 //
-// Deterministic sums: a block writes the gradients of its own tiles to its own
-// slot of `partials` and its actor-loss sums to its own column of `alp`; the
-// Adam stages and the end of the launch sum them in index order, no atomics.
+// Deterministic sums: a cluster of C blocks writes the gradients of its
+// blocks' tiles to its own slot of `partials`, summed on chip in rank order
+// (the clusters and the plan as in sac_update.cuh), and a block its
+// actor-loss sums to its own column of `alp`; the Adam stages and the end of
+// the launch sum them in index order, no atomics.
 //
 // Partial tiles: a batch, or a ring's lanes, that TS does not divide ends in a
 // partial tile (learner_tiles.cuh, load_tile); its samples past the end are
@@ -102,7 +104,7 @@ struct Args {
     const int* row_idx;    // (K * rpb,) ring rows, unused when rpb == 0
     const float* noise;    // (K, 2, B) target-smoothing normals
     float* losses;         // (K, 2)
-    float* partials;       // (grid, prows, H) per-block gradient sums
+    float* partials;       // (grid / C, prows, H) gradient sums, one slot a cluster of C blocks
     float* wt;             // (3, H, H) transposed W2 of critic 0, critic 1, actor (float32 mode)
     float* stash;          // (n_tiles, 2, TS, H) the actor's activations
     float* alp;            // (K, grid) per-block actor-loss sums
@@ -151,7 +153,8 @@ __device__ Smem carve(float* base, int W) {
     s.nz = base; base += AH * TS;
     s.xin = base; base += W * TS;
     s.sm = base; base += NSMALL * TS;
-    s.mask = reinterpret_cast<unsigned*>(base);
+    s.mask = reinterpret_cast<unsigned*>(base); base += 2 * TS * (H / 32) + 32;
+    s.x = base;    // the exchange rows, there in a launch of clusters only
     return s;
 }
 
@@ -331,18 +334,19 @@ __device__ void actor_tile(const Args& g, const Smem& S, float* part, float* sta
     phase(D_DOTS, SITE_DLDA);
     phase_site(SITE_ACTOR_BACK);
     actor_backward<H, AH>(t, S, gh, stash, g.w + (size_t)L::R_AWH * H,
-                          g.wt ? g.wt + (size_t)2 * H * H : nullptr, part, od, bf, first,
+                          g.wt ? g.wt + (size_t)2 * H * H : nullptr, part, od, bf, first, AH,
                           shadow<H>(g, L::R_AW2));
 }
 
-// The delayed stage: Adam on the actor from the summed partial slots, then the
+// The delayed stage: Adam on the actor from the nslots partial slots summed in
+// index order, then the
 // polyak step of the target actor and of the target critics from the new
 // weights; the whole grid takes part.  The new actor W2 goes to the
 // transposed copy, or in bf16 mode the new W1 obs rows and W2 of the actor,
 // the target actor and the target critics to the shadow, the actor's part a
 // thread four neighbouring elements (slot_sum4, adam4).
 template <int H, bool BF>
-__device__ void actor_apply(const Args& g, int grid, float a_lr, float c_eps) {
+__device__ void actor_apply(const Args& g, int grid, int nslots, float a_lr, float c_eps) {
     using L = Lay<H>;
     const int od = g.od, AS = od + 2 + AH + H;
     const int prows = 2 * (od + 2 + 3 + H) + 1;
@@ -372,7 +376,7 @@ __device__ void actor_apply(const Args& g, int grid, float a_lr, float c_eps) {
     if constexpr (BF) {
         for (int e = 4 * gtid; e < AS * H; e += 4 * gsz) {
             int lr = e / H, j = e % H;
-            float4 gr = slot_sum4(g.partials + (size_t)lr * H + j, grid, slot);
+            float4 gr = slot_sum4(g.partials + (size_t)lr * H + j, nslots, slot);
             float *wp, *mp, *vp, *tp;
             int row, trow;
             where(lr, j, wp, mp, vp, tp, row, trow);
@@ -393,7 +397,7 @@ __device__ void actor_apply(const Args& g, int grid, float a_lr, float c_eps) {
             int lr = e / H, j = e % H;
             const float* p = g.partials + (size_t)lr * H + j;
             float gr = 0.f;
-            for (int b = 0; b < grid; b++) gr += p[b * slot];
+            for (int b = 0; b < nslots; b++) gr += p[b * slot];
             float *wp, *mp, *vp, *tp;
             int row, trow;
             where(lr, j, wp, mp, vp, tp, row, trow);
@@ -406,7 +410,7 @@ __device__ void actor_apply(const Args& g, int grid, float a_lr, float c_eps) {
         const float* pm = g.partials + (size_t)AS * H;
         int c = threadIdx.x;
         float gr = 0.f;
-        for (int b = 0; b < grid; b++) gr += pm[b * slot + c];
+        for (int b = 0; b < nslots; b++) gr += pm[b * slot + c];
         size_t o = (size_t)L::V_MISC * H + M_ABH + c;
         float wn = adam_elem(g.vec + o, g.mvec + o, g.vvec + o, gr, a_lr, c_eps);
         size_t ot = (size_t)L::V_MISC * H + M_TABH + c;
@@ -442,7 +446,7 @@ __device__ void actor_apply(const Args& g, int grid, float a_lr, float c_eps) {
 }
 
 // ---------------------------------------------------------------- kernel --
-template <int H, bool BF>
+template <int H, bool BF, bool CL>
 __global__ void __launch_bounds__(Tile<H>::NT, 1) td3_update_kernel(Args g) {
     using L = Lay<H>;
     using T = TileOf<H, BF>;
@@ -457,7 +461,12 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) td3_update_kernel(Args g) {
     const int n_tiles = tiles::n_tiles(g.lanes, g.rpb, TS);
     const int n1 = g.od + 2, prows = 2 * (n1 + 3 + H) + 1;
     Smem S = carve<H, BF>(smem_base, g.W);
-    float* part = g.partials + (size_t)blockIdx.x * prows * H;
+    // the cluster's slot: one a cluster of C blocks (CL false: no clusters,
+    // C = 1, and the stages' cluster code drops out of the instantiation)
+    const int C = CL ? (int)cg::this_cluster().num_blocks() : 1;
+    S.cn = C;
+    S.crank = CL ? (int)cg::this_cluster().block_rank() : 0;
+    float* part = g.partials + (size_t)(blockIdx.x / C) * prows * H;
     phase(-1, SITE_KERNEL);  // starts the clock
 
     if (BF) {
@@ -498,7 +507,7 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) td3_update_kernel(Args g) {
         }
         grid.sync();
         phase(K_SYNC_C, SITE_KERNEL);
-        critic_apply<H, L, false, BF>(g, k, G, a_lr, c_eps);
+        critic_apply<H, L, false, BF>(g, k, G, G / C, a_lr, c_eps);
         phase(K_CRITIC_ADAM, SITE_KERNEL);
         grid.sync();
         phase(K_SYNC_CA, SITE_KERNEL);
@@ -517,7 +526,7 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) td3_update_kernel(Args g) {
             phase(K_SYNC_A, SITE_KERNEL);
             applied++;
             adam_scalars((float)(g.count_a0 + applied), g.lr, a_lr, c_eps);
-            actor_apply<H, BF>(g, G, a_lr, c_eps);
+            actor_apply<H, BF>(g, G, G / C, a_lr, c_eps);
             phase(K_ACTOR_APPLY, SITE_KERNEL);
             grid.sync();
             phase(K_SYNC_AA, SITE_KERNEL);
@@ -535,62 +544,47 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) td3_update_kernel(Args g) {
 
 // ------------------------------------------------------------------ host --
 // Plan errors: -1 width not built, -2 shared memory does not fit; launch
-// errors: -4 not the planned grid, -5 no scratch for the mode (wt in float32,
-// wb in bf16).  Other non-zero codes are cudaError_t.
+// errors: -4 not the planned grid or cluster size, -5 no scratch for the
+// mode (wt in float32, wb in bf16).  Other non-zero codes are cudaError_t.
+// The grid and the cluster size: learner_tiles.cuh, plan_launch.
 template <int H, bool BF>
-int plan(int W, int n_tiles, int* out) {
-    size_t smem = smem_floats<H, BF>(W) * sizeof(float);
-    int dev = 0, sms = 0, optin = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (smem > (size_t)optin) return -2;
-    e = cudaFuncSetAttribute(td3_update_kernel<H, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, td3_update_kernel<H, BF>,
-                                                      Tile<H>::NT, smem);
-    if (e != cudaSuccess) return (int)e;
-    int resident = per_sm * sms;
-    if (resident < 1) return -2;
-    out[0] = n_tiles < resident ? n_tiles : resident;
-    out[1] = (int)smem;
-    return 0;
+int plan(int W, int od, int n_tiles, int cmax, int* out) {
+    const size_t smem1 = smem_floats<H, BF>(W) * sizeof(float);
+    // the largest group of exchange rows: a critic's n1 + 3
+    const size_t smemx = smem1 + xfloats<H>(od + 5) * sizeof(float);
+    return plan_launch(td3_update_kernel<H, BF, false>, td3_update_kernel<H, BF, true>,
+                       Tile<H>::NT, H, smem1, smemx, n_tiles, cmax, out);
 }
 
 template <int H, bool BF>
-int launch(Args g, int grid, cudaStream_t stream) {
-    int out[2];
-    int err = plan<H, BF>(g.W, n_tiles(g.lanes, g.rpb, Tile<H>::TS), out);
+int launch(Args g, int grid, int cluster, cudaStream_t stream) {
+    int out[3];
+    int err = plan<H, BF>(g.W, g.od, n_tiles(g.lanes, g.rpb, Tile<H>::TS), cluster, out);
     if (err != 0) return err;
-    if (grid != out[0]) return -4;
+    if (grid != out[0] || cluster != out[2]) return -4;
     if ((BF && !g.wb) || (!BF && !g.wt)) return -5;
-    void* params[] = {&g};
-    cudaError_t e = cudaLaunchCooperativeKernel((void*)td3_update_kernel<H, BF>, dim3(grid),
-                                                dim3(Tile<H>::NT), params, (size_t)out[1], stream);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    return launch_planned(td3_update_kernel<H, BF, false>, td3_update_kernel<H, BF, true>, g,
+                          grid, cluster, Tile<H>::NT, (size_t)out[1], stream);
 }
 
 template <bool BF>
-int plan_any(int H, int W, int n_tiles, int* out) {
+int plan_any(int H, int W, int od, int n_tiles, int cmax, int* out) {
     switch (H) {
-        case 128: return plan<128, BF>(W, n_tiles, out);
-        case 256: return plan<256, BF>(W, n_tiles, out);
-        case 384: return plan<384, BF>(W, n_tiles, out);
-        case 512: return plan<512, BF>(W, n_tiles, out);
+        case 128: return plan<128, BF>(W, od, n_tiles, cmax, out);
+        case 256: return plan<256, BF>(W, od, n_tiles, cmax, out);
+        case 384: return plan<384, BF>(W, od, n_tiles, cmax, out);
+        case 512: return plan<512, BF>(W, od, n_tiles, cmax, out);
     }
     return -1;
 }
 
 template <bool BF>
-int launch_any(int H, const Args& g, int grid, cudaStream_t stream) {
+int launch_any(int H, const Args& g, int grid, int cluster, cudaStream_t stream) {
     switch (H) {
-        case 128: return launch<128, BF>(g, grid, stream);
-        case 256: return launch<256, BF>(g, grid, stream);
-        case 384: return launch<384, BF>(g, grid, stream);
-        case 512: return launch<512, BF>(g, grid, stream);
+        case 128: return launch<128, BF>(g, grid, cluster, stream);
+        case 256: return launch<256, BF>(g, grid, cluster, stream);
+        case 384: return launch<384, BF>(g, grid, cluster, stream);
+        case 512: return launch<512, BF>(g, grid, cluster, stream);
     }
     return -1;
 }
@@ -600,27 +594,29 @@ int launch_any(int H, const Args& g, int grid, cudaStream_t stream) {
 // The phase clock's entry points (a -DSG_PHASE_CLOCK build only).
 SG_PHASE_ENTRIES(td3, TD3_SITES)
 
-// The two C entry points: `sg_td3_update_plan(H, W, n_tiles, bf, out)` gives
-// the grid size and the shared-memory bytes of a mode, `sg_td3_update(...)`
-// launches: bf (mm_bf16) 0 the float32 products on the CUDA cores, reading the
-// transposed copy `wt`; 1 the bf16 products on the tensor cores, reading the
-// shadow `wb`.  The scratch of the other mode may be null.
+// The two C entry points: `sg_td3_update_plan(H, W, od, n_tiles, bf, cmax,
+// out)` gives the grid size, the shared-memory bytes and the cluster size (at
+// most cmax) of a mode, `sg_td3_update(...)` launches with them (partials:
+// one slot a cluster): bf (mm_bf16) 0 the float32 products on the CUDA cores,
+// reading the transposed copy `wt`; 1 the bf16 products on the tensor cores,
+// reading the shadow `wb`.  The scratch of the other mode may be null.
 #define TD3_UPDATE_ENTRY()                                                                     \
-    extern "C" int sg_td3_update_plan(int H, int W, int n_tiles, int bf, int* out) {           \
-        return bf ? td3::plan_any<true>(H, W, n_tiles, out)                                    \
-                  : td3::plan_any<false>(H, W, n_tiles, out);                                  \
+    extern "C" int sg_td3_update_plan(int H, int W, int od, int n_tiles, int bf, int cmax,     \
+                                      int* out) {                                              \
+        return bf ? td3::plan_any<true>(H, W, od, n_tiles, cmax, out)                          \
+                  : td3::plan_any<false>(H, W, od, n_tiles, cmax, out);                        \
     }                                                                                          \
     extern "C" int sg_td3_update(float* w, float* vec, float* mw, float* vw, float* mvec,      \
                                  float* vvec, const float* data, const int* row_idx,           \
                                  const float* noise, float* losses, float* partials,           \
                                  float* wt, float* stash, float* alp, __nv_bfloat16* wb,       \
                                  int H, int K, int B, int W, int lanes, int rpb, int od,       \
-                                 int grid, int bf, int count0, int count_a0, int delay,        \
-                                 float gamma, float tau, float lr, float sstd, float sclip,    \
-                                 void* stream) {                                               \
+                                 int grid, int cluster, int bf, int count0, int count_a0,      \
+                                 int delay, float gamma, float tau, float lr, float sstd,      \
+                                 float sclip, void* stream) {                                  \
         td3::Args g{w, vec, mw, vw, mvec, vvec, data, row_idx, noise, losses, partials, wt,    \
                     stash, alp, wb, K, B, W, lanes, rpb, od, bf, count0, count_a0, delay,      \
                     gamma, tau, lr, sstd, sclip};                                              \
-        return bf ? td3::launch_any<true>(H, g, grid, (cudaStream_t)stream)                    \
-                  : td3::launch_any<false>(H, g, grid, (cudaStream_t)stream);                  \
+        return bf ? td3::launch_any<true>(H, g, grid, cluster, (cudaStream_t)stream)           \
+                  : td3::launch_any<false>(H, g, grid, cluster, (cudaStream_t)stream);         \
     }

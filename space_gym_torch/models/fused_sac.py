@@ -31,7 +31,10 @@ kernel-layout state is two matrices and their Adam moments:
                    14 misc [a_bh(0:4) | c_b3(4:6) | t_b3(6:8) | log_alpha(8)]
 
 On a CUDA device the kernels update `w`, `vec` and the moments IN PLACE: the
-returned FusedState shares the tensors it was given.
+returned FusedState shares the tensors it was given.  A launch adds 1 to
+`sac_update` or `sac_update_fold` and the gradient slots it writes (one a
+cluster of blocks in each update's critic and actor stages) to
+`learner.slots_written` (utils/profiling.py).
 """
 from __future__ import annotations
 
@@ -62,6 +65,14 @@ LOG2 = 0.6931471805599453
 # and K5's tile buffers would pass the 227 KB a block may have, and a smaller
 # tile is not built (the tensor-core pieces are 32 samples).
 KERNEL_TILE = {128: 128, 256: 64, 384: 32, 512: 32}
+
+
+# The largest thread block cluster the kernels' plan considers: clusters of
+# 8, 4 or 2 blocks sum their gradients on chip and write one slot a cluster
+# (csrc/learner_tiles.cuh, plan_launch).  The launches' `cluster_max`
+# defaults to it; 1 takes the instantiation without clusters, which checks of
+# that path pass.
+CLUSTER_MAX = 8
 
 
 def n_tiles(lanes: int, rpb: int, ts: int) -> int:
@@ -538,12 +549,14 @@ def _build_width(h: int):
 
     # ------------------------------------------------------- entry points --
     def _kernel_call(f: FusedState, data, row_idx, noises, *, obs_dim, gamma, tau, lr,
-                     target_entropy, alpha_floor=0.0, block=2048, mm_bf16=True, fold=False):
+                     target_entropy, alpha_floor=0.0, block=2048, mm_bf16=True, fold=False,
+                     cluster_max=CLUSTER_MAX):
         """Shared launcher of both data modes (`_data_mode`) and both kernels.
         `block` is checked as the JAX kernels check it; the CUDA kernels tile
         the batch, or each ring row, by KERNEL_TILE[H] samples per thread
         block whatever it is, the last tile of a row partial where that does
-        not divide it.
+        not divide it.  On a card the launch takes thread block clusters of
+        at most `cluster_max` blocks (`plan`).
         Returns (FusedState', critic_losses (K,), actor_losses (K,))."""
         K, B = noises.shape[0], noises.shape[1]
         if tuple(noises.shape) != (K, B, 2, 2):
@@ -561,29 +574,24 @@ def _build_width(h: int):
         if f.w.device.type != "cuda":
             raise ValueError(f"unsupported device {f.w.device}")
         closs, aloss = _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, fold,
-                               **hyper)
+                               cluster_max, **hyper)
         return f._replace(count=int(f.count) + K), closs, aloss
 
-    def _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, fold, *, obs_dim,
-                gamma, tau, lr, target_entropy, alpha_floor):
+    def _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, fold, cluster_max, *,
+                obs_dim, gamma, tau, lr, target_entropy, alpha_floor):
         """Check what the kernel takes, allocate its scratch, launch it."""
         ts, state, row_idx = _kernel_operands(f, data, row_idx, noises, VROWS)
         dev = f.w.device
         tiles = n_tiles(lanes, rpb, ts)
         lib, name = _lib(fold)
         with torch.cuda.device(dev):
-            plan = (ctypes.c_int * 2)()
-            err = getattr(lib, name + "_plan")(H, W, tiles, int(bool(mm_bf16)), plan)
-            if err != 0:
-                raise RuntimeError(
-                    f"{name}: {_PLAN_ERRORS.get(err, 'CUDA error')} (code {err}) at H={H}, "
-                    f"W={W}, {tiles} tiles of {ts} samples")
-            grid = plan[0]
+            grid, _, cluster = plan(H, W, obs_dim, tiles, mm_bf16, fold, cluster_max)
             # (K, 4, B): rows 0:2 the critic's normals, 2:4 the actor's
             noise = noises.reshape(K, B, 4).transpose(1, 2).contiguous()
             n1 = obs_dim + 2
             prows = 2 * (n1 + 3 + H) + 1
-            partials = torch.empty((grid, prows, H), dtype=torch.float32, device=dev)
+            # one gradient slot a cluster of `cluster` blocks
+            partials = torch.empty((grid // cluster, prows, H), dtype=torch.float32, device=dev)
             # the products' weights: in float32 mode the transposed W2 copies, in
             # bf16 mode the bf16 shadow of the first 5 (IN1 + H) rows of `w`
             wt = wb = None
@@ -599,7 +607,7 @@ def _build_width(h: int):
                 row_idx.data_ptr() if row_idx is not None else None, noise.data_ptr(),
                 losses.data_ptr(), partials.data_ptr(), wt.data_ptr() if wt is not None else None,
                 stash.data_ptr(), wb.data_ptr() if wb is not None else None,
-                H, K, B, W, lanes, rpb, obs_dim, grid, int(bool(mm_bf16)),
+                H, K, B, W, lanes, rpb, obs_dim, grid, cluster, int(bool(mm_bf16)),
                 int(alpha_floor > 0),
                 gamma, tau, lr, target_entropy, float(f.count),
                 math.log(alpha_floor) if alpha_floor > 0 else 0.0, stream)
@@ -607,6 +615,8 @@ def _build_width(h: int):
             raise RuntimeError(f"{name} kernel launch failed: "
                                f"{_PLAN_ERRORS.get(err, 'CUDA error')} (code {err})")
         profiling.launch("sac_update_fold" if fold else "sac_update")
+        # a slot a cluster in each update's critic and actor stages
+        profiling.add({"learner.slots_written": 2 * K * (grid // cluster)})
         return losses[:, 0], losses[:, 1]
 
     def fused_update_k_wmat(f: FusedState, ring, row_idx, noises, **kw):
@@ -659,9 +669,24 @@ def _build_width(h: int):
 _PLAN_ERRORS = {
     -1: "hidden width not built",
     -2: "the kernel's shared memory does not fit one SM",
-    -4: "the grid is not the planned one",
+    -4: "the grid or the cluster is not the planned one",
     -5: "no scratch for the products' weights of this mode",
 }
+
+
+def plan(h: int, W: int, obs_dim: int, tiles: int, mm_bf16: bool, fold: bool = False,
+         cluster_max: int = CLUSTER_MAX):
+    """(grid, shared-memory bytes, cluster size) of a launch of K4 (or K5)
+    on the current CUDA device: clusters of at most cluster_max blocks
+    (csrc/learner_tiles.cuh, plan_launch).  Raises where it cannot launch."""
+    lib, name = _lib(fold)
+    out = (ctypes.c_int * 3)()
+    err = getattr(lib, name + "_plan")(h, W, obs_dim, tiles, int(bool(mm_bf16)), cluster_max,
+                                       out)
+    if err != 0:
+        raise RuntimeError(f"{name}: {_PLAN_ERRORS.get(err, 'CUDA error')} (code {err}) at "
+                           f"H={h}, W={W}, {tiles} tiles of {KERNEL_TILE.get(h)} samples")
+    return out[0], out[1], out[2]
 
 
 @functools.cache
@@ -672,13 +697,13 @@ def _lib(fold: bool):
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = getattr(lib, "sg_" + name)
     # six state tensors, data, row_idx, noise, losses, partials, wt, stash, wb; H, K, B, W,
-    # lanes, rpb, obs_dim, grid, mm_bf16, has_floor; gamma, tau, lr, target_entropy, count0,
-    # log_floor; stream
-    fn.argtypes = [p] * 14 + [i] * 10 + [fl] * 6 + [p]
+    # lanes, rpb, obs_dim, grid, cluster, mm_bf16, has_floor; gamma, tau, lr,
+    # target_entropy, count0, log_floor; stream
+    fn.argtypes = [p] * 14 + [i] * 11 + [fl] * 6 + [p]
     fn.restype = i
     plan = getattr(lib, "sg_" + name + "_plan")
-    # H, W, n_tiles, mm_bf16 -> grid, smem
-    plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    # H, W, obs_dim, n_tiles, mm_bf16, largest cluster -> grid, smem, cluster
+    plan.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
     plan.restype = i
     return lib, "sg_" + name
 

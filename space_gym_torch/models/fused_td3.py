@@ -38,7 +38,8 @@ returned FusedState shares the tensors it was given.
 Counts (utils/profiling.py): each call of the entry points, on either
 device, adds its K updates to `td3.critic_updates` and its delayed ones
 (`applied_steps`) to `td3.actor_updates`; a launch of K6 adds 1 to
-`td3_update`.
+`td3_update` and the gradient slots it writes (one a cluster of blocks in
+each critic stage and each delayed actor stage) to `learner.slots_written`.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import cuda_build, profiling
+from .fused_sac import CLUSTER_MAX
 from .fused_sac import (KERNEL_TILE, _BF16Dot, _BF16Round, _PLAN_ERRORS, _adam,  # noqa: F401
                         _critic_leaves, _data_mode, _gathered, _kernel_operands, _pad_x, _sd,
                         n_tiles)
@@ -384,11 +386,13 @@ def _build_width(h: int):
 
     # ------------------------------------------------------- entry points --
     def _kernel_call(f: FusedState, data, row_idx, noises, *, obs_dim, gamma, tau, lr,
-                     smooth_std=0.2, smooth_clip=0.5, policy_delay=2, block=2048, mm_bf16=True):
+                     smooth_std=0.2, smooth_clip=0.5, policy_delay=2, block=2048, mm_bf16=True,
+                     cluster_max=CLUSTER_MAX):
         """Shared launcher of both data modes (fused_sac._data_mode).  `block`
         is checked as the JAX kernel checks it; K6 tiles the batch, or each
         ring row, by KERNEL_TILE[H] samples per thread block whatever it is,
-        the last tile of a row partial where that does not divide it.  noises:
+        the last tile of a row partial where that does not divide it; on a
+        card in thread block clusters of at most `cluster_max` blocks (`plan`).  noises:
         (K, B, 2).  Adds the K critic updates and the delayed actor updates
         to the counts `td3.critic_updates` and `td3.actor_updates`.  Returns
         (FusedState', critic_losses (K,), actor_losses (K,))."""
@@ -411,7 +415,7 @@ def _build_width(h: int):
             out = fused_init(packed, adam)
         elif f.w.device.type == "cuda":
             closs, aloss = _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16,
-                                   **hyper)
+                                   cluster_max, **hyper)
             out = f._replace(count=count + K, count_a=int(f.count_a) + n_act)
         else:
             raise ValueError(f"unsupported device {f.w.device}")
@@ -419,24 +423,19 @@ def _build_width(h: int):
         profiling.add({"td3.critic_updates": K, "td3.actor_updates": n_act})
         return out, closs, aloss
 
-    def _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, *, obs_dim, gamma, tau,
-                lr, smooth_std, smooth_clip, policy_delay):
+    def _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, cluster_max, *, obs_dim,
+                gamma, tau, lr, smooth_std, smooth_clip, policy_delay):
         """Check what the kernel takes, allocate its scratch, launch it."""
         ts, state, row_idx = _kernel_operands(f, data, row_idx, noises, VROWS)
         dev = f.w.device
         tiles = n_tiles(lanes, rpb, ts)
         lib = _lib()
         with torch.cuda.device(dev):
-            plan = (ctypes.c_int * 2)()
-            err = lib.sg_td3_update_plan(H, W, tiles, int(bool(mm_bf16)), plan)
-            if err != 0:
-                raise RuntimeError(
-                    f"sg_td3_update: {_PLAN_ERRORS.get(err, 'CUDA error')} (code {err}) at "
-                    f"H={H}, W={W}, {tiles} tiles of {ts} samples")
-            grid = plan[0]
+            grid, _, cluster = plan(H, W, obs_dim, tiles, mm_bf16, cluster_max)
             noise = noises.transpose(1, 2).contiguous()          # (K, 2, B)
             prows = 2 * (obs_dim + 2 + 3 + H) + 1
-            partials = torch.empty((grid, prows, H), dtype=torch.float32, device=dev)
+            # one gradient slot a cluster of `cluster` blocks
+            partials = torch.empty((grid // cluster, prows, H), dtype=torch.float32, device=dev)
             # the products' weights: in float32 mode the transposed W2 copies, in
             # bf16 mode the bf16 shadow of the first 6 (IN1 + H) rows of `w`
             wt = wb = None
@@ -453,13 +452,16 @@ def _build_width(h: int):
                 row_idx.data_ptr() if row_idx is not None else None, noise.data_ptr(),
                 losses.data_ptr(), partials.data_ptr(), wt.data_ptr() if wt is not None else None,
                 stash.data_ptr(), alp.data_ptr(), wb.data_ptr() if wb is not None else None,
-                H, K, B, W, lanes, rpb, obs_dim, grid, int(bool(mm_bf16)),
+                H, K, B, W, lanes, rpb, obs_dim, grid, cluster, int(bool(mm_bf16)),
                 int(f.count), int(f.count_a), policy_delay,
                 gamma, tau, lr, smooth_std, smooth_clip, stream)
         if err != 0:
             raise RuntimeError(f"sg_td3_update kernel launch failed: "
                            f"{_PLAN_ERRORS.get(err, 'CUDA error')} (code {err})")
         profiling.launch("td3_update")
+        # a slot a cluster in each critic stage and each delayed actor stage
+        n_act = applied_steps(int(f.count), K, policy_delay)
+        profiling.add({"learner.slots_written": (K + n_act) * (grid // cluster)})
         return losses[:, 0], losses[:, 1]
 
     def fused_update_k_wmat(f: FusedState, ring, row_idx, noises, **kw):
@@ -510,18 +512,31 @@ def _build_width(h: int):
     return ns
 
 
+def plan(h: int, W: int, obs_dim: int, tiles: int, mm_bf16: bool,
+         cluster_max: int = CLUSTER_MAX):
+    """(grid, shared-memory bytes, cluster size) of a launch of K6 on the
+    current CUDA device: clusters of at most cluster_max blocks
+    (csrc/learner_tiles.cuh, plan_launch).  Raises where it cannot launch."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().sg_td3_update_plan(h, W, obs_dim, tiles, int(bool(mm_bf16)), cluster_max, out)
+    if err != 0:
+        raise RuntimeError(f"sg_td3_update: {_PLAN_ERRORS.get(err, 'CUDA error')} (code {err}) "
+                           f"at H={h}, W={W}, {tiles} tiles of {KERNEL_TILE.get(h)} samples")
+    return out[0], out[1], out[2]
+
+
 @functools.cache
 def _lib():
     """The ctypes library of K6 with its two entry points typed."""
     lib = cuda_build.load("td3_update")
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # six state tensors, data, row_idx, noise, losses, partials, wt, stash, alp, wb; H, K, B,
-    # W, lanes, rpb, obs_dim, grid, mm_bf16, count0, count_a0, policy_delay; gamma, tau, lr,
-    # smooth_std, smooth_clip; stream
-    lib.sg_td3_update.argtypes = [p] * 15 + [i] * 12 + [fl] * 5 + [p]
+    # W, lanes, rpb, obs_dim, grid, cluster, mm_bf16, count0, count_a0, policy_delay; gamma,
+    # tau, lr, smooth_std, smooth_clip; stream
+    lib.sg_td3_update.argtypes = [p] * 15 + [i] * 13 + [fl] * 5 + [p]
     lib.sg_td3_update.restype = i
-    # H, W, n_tiles, mm_bf16 -> grid, smem
-    lib.sg_td3_update_plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    # H, W, obs_dim, n_tiles, mm_bf16, largest cluster -> grid, smem, cluster
+    lib.sg_td3_update_plan.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
     lib.sg_td3_update_plan.restype = i
     return lib
 

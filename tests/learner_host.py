@@ -20,6 +20,7 @@ costs seconds to tens of seconds, so cases stay at K <= 3 and a few tiles.
 """
 import ctypes
 import functools
+import hashlib
 import math
 import os
 import shutil
@@ -51,17 +52,19 @@ def _build(name: str, out_dir: str):
                    check=True, capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(out)
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    plan_types = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]   # H, W, n_tiles, bf -> grid, smem
+    # H, W, obs_dim, n_tiles, bf, cmax -> grid, smem, cluster size
+    plan_types = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    lib.host_set_lag.argtypes = [i]
     if name == "sac_update":
         lib.host_mma_tile.argtypes = [p, p, p, i, i]
         lib.host_mma_tile.restype = i
         for fn in ("sg_sac_update", "sg_sac_update_fold"):
-            getattr(lib, fn).argtypes = [p] * 14 + [i] * 10 + [fl] * 6 + [p]
+            getattr(lib, fn).argtypes = [p] * 14 + [i] * 11 + [fl] * 6 + [p]
             getattr(lib, fn).restype = i
             getattr(lib, fn + "_plan").argtypes = plan_types
             getattr(lib, fn + "_plan").restype = i
     else:
-        lib.sg_td3_update.argtypes = [p] * 15 + [i] * 12 + [fl] * 5 + [p]
+        lib.sg_td3_update.argtypes = [p] * 15 + [i] * 13 + [fl] * 5 + [p]
         lib.sg_td3_update.restype = i
         lib.sg_td3_update_plan.argtypes = plan_types
         lib.sg_td3_update_plan.restype = i
@@ -108,10 +111,20 @@ def _modes(B, data, row_idx):
     return (B, 0) if row_idx is None else (data.shape[2], B // data.shape[2])
 
 
+def digest(f, losses) -> str:
+    """SHA-256 (16 hex digits) of what a launch wrote: the state and the losses."""
+    h = hashlib.sha256()
+    for t in (*f[:6], losses):
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 # ------------------------------------------------------------ K4 and K5 --
-def sac_launch(lib, h, f, data, row_idx, noises, obs_dim, fold, bf, sms, alpha_floor=0.0):
+def sac_launch(lib, h, f, data, row_idx, noises, obs_dim, fold, bf, sms, alpha_floor=0.0,
+               cmax=fused_sac.CLUSTER_MAX, planned=None):
     """What fused_sac._launch does on the card, on CPU tensors: scratch
-    poisoned with NaN, state copied, the host library called."""
+    poisoned with NaN, state copied, the host library called; clusters of at
+    most cmax blocks.  `planned` (a list) receives the plan's (grid, C)."""
     name = "sg_sac_update_fold" if fold else "sg_sac_update"
     lib.host_set_sms(sms)
     K, B = noises.shape[:2]
@@ -119,14 +132,16 @@ def sac_launch(lib, h, f, data, row_idx, noises, obs_dim, fold, bf, sms, alpha_f
     ts = fused_sac.KERNEL_TILE[h]
     lanes, rpb = _modes(B, data, row_idx)
     n_tiles = fused_sac.n_tiles(lanes, rpb, ts)
-    plan = (ctypes.c_int * 2)()
-    err = getattr(lib, name + "_plan")(h, W, n_tiles, int(bf), plan)
+    plan = (ctypes.c_int * 3)()
+    err = getattr(lib, name + "_plan")(h, W, obs_dim, n_tiles, int(bf), cmax, plan)
     if err:
         return err, None, None
-    grid = plan[0]
+    grid, cluster = plan[0], plan[2]
+    if planned is not None:
+        planned.append((grid, cluster))
     nan = float("nan")
     noise = noises.reshape(K, B, 4).transpose(1, 2).contiguous()
-    partials = torch.full((grid, 2 * (obs_dim + 5 + h) + 1, h), nan)
+    partials = torch.full((grid // cluster, 2 * (obs_dim + 5 + h) + 1, h), nan)
     # the products' weights: the transposed copies in float32, the bf16 shadow
     wt = None if bf else torch.full((3, h, h), nan)
     wb = torch.full((5 * (128 + h), h), nan, dtype=torch.bfloat16) if bf else None
@@ -138,8 +153,8 @@ def sac_launch(lib, h, f, data, row_idx, noises, obs_dim, fold, bf, sms, alpha_f
         *[t.data_ptr() for t in state], data.data_ptr(), ri.data_ptr() if rpb else None,
         noise.data_ptr(), losses.data_ptr(), partials.data_ptr(),
         None if wt is None else wt.data_ptr(), stash.data_ptr(),
-        None if wb is None else wb.data_ptr(), h, K, B, W, lanes, rpb, obs_dim, grid, int(bf),
-        int(alpha_floor > 0), SAC_HYPER["gamma"], SAC_HYPER["tau"], SAC_HYPER["lr"],
+        None if wb is None else wb.data_ptr(), h, K, B, W, lanes, rpb, obs_dim, grid, cluster,
+        int(bf), int(alpha_floor > 0), SAC_HYPER["gamma"], SAC_HYPER["tau"], SAC_HYPER["lr"],
         SAC_HYPER["target_entropy"], float(f.count),
         math.log(alpha_floor) if alpha_floor > 0 else 0.0, None)
     w, vec, mw, vw, mvec, vvec = state
@@ -170,9 +185,12 @@ def sac_case(h, obs_dim, K, B, lanes, seed):
     return ns, packed, adam, data, row_idx, batches, noises, hyper
 
 
-def check_sac(lib, h, obs_dim, K, B, lanes, bf, sms, alpha_floor):
+def check_sac(lib, h, obs_dim, K, B, lanes, bf, sms, alpha_floor, cmax=fused_sac.CLUSTER_MAX,
+              planned=None):
     """K4 and K5 on one case against the plain version, K5 against K4 bit for
-    bit, and (K > 1) K launches of one update against one launch of K."""
+    bit, and (K > 1) K launches of one update against one launch of K; in
+    clusters of at most cmax blocks.  Returns K4's digest; `planned` receives
+    the plans' (grid, C)."""
     ns, packed, adam, data, row_idx, batches, noises, hyper = sac_case(
         h, obs_dim, K, B, lanes, seed=h + obs_dim)
     want_p, want_ad, want_cl, want_al = ns.update_k_reference(
@@ -181,7 +199,7 @@ def check_sac(lib, h, obs_dim, K, B, lanes, bf, sms, alpha_floor):
     results = []
     for fold in (False, True):
         err, f1, losses = sac_launch(lib, h, f0, data, row_idx, noises, obs_dim, fold, bf, sms,
-                                     alpha_floor)
+                                     alpha_floor, cmax, planned)
         assert err == 0
         results.append((f1, losses))
         got_p, got_ad = ns.fused_unpack(f1)
@@ -219,29 +237,77 @@ def check_sac(lib, h, obs_dim, K, B, lanes, bf, sms, alpha_floor):
             d = data if lanes else data[k:k + 1]
             ri = row_idx[k * rpb:(k + 1) * rpb] if lanes else None
             err, f1, lk = sac_launch(lib, h, f1, d, ri, noises[k:k + 1], obs_dim, False, bf,
-                                     sms, alpha_floor)
+                                     sms, alpha_floor, cmax)
             assert err == 0 and torch.equal(lk[0], results[0][1][k])
         assert all(torch.equal(x, y) for x, y in zip(f1[:6], results[0][0][:6]))
+    return digest(*results[0])
+
+
+def sac_clusters(lib, h, obs_dim, K, B, lanes, bf, sms, cmax, want_c, want_digest):
+    """check_sac in clusters of at most cmax blocks: the plan takes want_c,
+    and where given the digest of K4's outputs is want_digest (with C = 1
+    that of the launch without clusters, recorded from it before clusters
+    existed; the inputs pass through PyTorch on one thread, as the tests'
+    `one_torch_thread` runs it, whose sums the digest depends on)."""
+    planned = []
+    got = check_sac(lib, h, obs_dim, K, B, lanes, bf, sms, 0.0, cmax, planned)
+    assert {c for _, c in planned} == {want_c}
+    if want_digest:
+        assert got == want_digest
+
+
+def lagging_bits(lib, launch, want_c):
+    """The digest of launch() (err, state, losses), run as it comes and with
+    the last block of every cluster lagging behind the others
+    (csrc/host/cuda_runtime.h, EMUL_LAG): the two must agree, since a block
+    that rewrote its exchange rows while another still read them would give
+    the lagging block other sums.  `launch` takes `planned`, which must see
+    clusters of want_c > 1 blocks."""
+    assert want_c > 1
+    planned, got = [], []
+    for lag in (0, 1):
+        lib.host_set_lag(lag)
+        try:
+            err, f1, losses = launch(planned)
+        finally:
+            lib.host_set_lag(0)
+        assert err == 0
+        got.append(digest(f1, losses))
+    assert {c for _, c in planned} == {want_c}
+    assert got[0] == got[1], "a lagging block changes the bits"
+
+
+def sac_lagging(lib, h, obs_dim, K, B, lanes, bf, sms, cmax, want_c):
+    """K4 gives the same bits with the last block of each cluster lagging."""
+    ns, packed, adam, data, row_idx, batches, noises, hyper = sac_case(
+        h, obs_dim, K, B, lanes, seed=h + obs_dim)
+    f0 = ns.fused_init(packed, adam)
+    lagging_bits(lib, lambda planned: sac_launch(lib, h, f0, data, row_idx, noises, obs_dim,
+                                                 False, bf, sms, 0.0, cmax, planned), want_c)
 
 
 # ----------------------------------------------------------------- K6 --
-def td3_launch(lib, h, f, data, row_idx, noises, obs_dim, bf, sms, delay):
+def td3_launch(lib, h, f, data, row_idx, noises, obs_dim, bf, sms, delay,
+               cmax=fused_td3.CLUSTER_MAX, planned=None):
     """What fused_td3._launch does on the card, on CPU tensors: scratch
-    poisoned with NaN, state copied, the host library called."""
+    poisoned with NaN, state copied, the host library called; clusters of at
+    most cmax blocks.  `planned` (a list) receives the plan's (grid, C)."""
     lib.host_set_sms(sms)
     K, B = noises.shape[:2]
     W = data.shape[1]
     ts = fused_td3.KERNEL_TILE[h]
     lanes, rpb = _modes(B, data, row_idx)
     n_tiles = fused_td3.n_tiles(lanes, rpb, ts)
-    plan = (ctypes.c_int * 2)()
-    err = lib.sg_td3_update_plan(h, W, n_tiles, int(bf), plan)
+    plan = (ctypes.c_int * 3)()
+    err = lib.sg_td3_update_plan(h, W, obs_dim, n_tiles, int(bf), cmax, plan)
     if err:
         return err, None, None
-    grid = plan[0]
+    grid, cluster = plan[0], plan[2]
+    if planned is not None:
+        planned.append((grid, cluster))
     nan = float("nan")
     noise = noises.transpose(1, 2).contiguous()
-    partials = torch.full((grid, 2 * (obs_dim + 5 + h) + 1, h), nan)
+    partials = torch.full((grid // cluster, 2 * (obs_dim + 5 + h) + 1, h), nan)
     # the products' weights: the transposed copies in float32, the bf16 shadow
     wt = None if bf else torch.full((3, h, h), nan)
     wb = torch.full((6 * (128 + h), h), nan, dtype=torch.bfloat16) if bf else None
@@ -254,8 +320,8 @@ def td3_launch(lib, h, f, data, row_idx, noises, obs_dim, bf, sms, delay):
         *[t.data_ptr() for t in state], data.data_ptr(), ri.data_ptr() if rpb else None,
         noise.data_ptr(), losses.data_ptr(), partials.data_ptr(),
         None if wt is None else wt.data_ptr(), stash.data_ptr(), alp.data_ptr(),
-        None if wb is None else wb.data_ptr(), h, K, B, W, lanes, rpb, obs_dim, grid, int(bf),
-        f.count, f.count_a, delay, TD3_HYPER["gamma"], TD3_HYPER["tau"], TD3_HYPER["lr"],
+        None if wb is None else wb.data_ptr(), h, K, B, W, lanes, rpb, obs_dim, grid, cluster,
+        int(bf), f.count, f.count_a, delay, TD3_HYPER["gamma"], TD3_HYPER["tau"], TD3_HYPER["lr"],
         TD3_HYPER["smooth_std"], TD3_HYPER["smooth_clip"], None)
     w, vec, mw, vw, mvec, vvec = state
     return err, fused_td3.FusedState(
@@ -289,12 +355,15 @@ def td3_case(h, obs_dim, K, B, lanes, delay, warm, seed):
     return ns, packed, adam, data, row_idx, batches, noises, hyper
 
 
-def check_td3(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm):
+def check_td3(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm, cmax=fused_td3.CLUSTER_MAX,
+              planned=None):
     """K6 on one case against the plain version, twice for equal bits, the
     counts and the delay, and K launches of one update against one launch of
-    K.  In bf16 mode that last check also finds a stale shadow row: a launch
-    builds the shadow anew, so the weights a delayed update moves must reach
-    their shadow rows for one launch of K to give the same bits."""
+    K; in clusters of at most cmax blocks.  In bf16 mode that last check also
+    finds a stale shadow row: a launch builds the shadow anew, so the weights
+    a delayed update moves must reach their shadow rows for one launch of K to
+    give the same bits.  Returns the digest; `planned` receives the plans'
+    (grid, C)."""
     ns, packed, adam, data, row_idx, batches, noises, hyper = td3_case(
         h, obs_dim, K, B, lanes, delay, warm, seed=h + obs_dim)
     want_p, want_ad, want_cl, want_al = ns.update_k_reference(
@@ -302,7 +371,8 @@ def check_td3(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm):
     f0 = ns.fused_init(packed, adam)
     runs = []
     for _ in range(2):
-        err, f1, losses = td3_launch(lib, h, f0, data, row_idx, noises, obs_dim, bf, sms, delay)
+        err, f1, losses = td3_launch(lib, h, f0, data, row_idx, noises, obs_dim, bf, sms, delay,
+                                     cmax, planned)
         assert err == 0
         runs.append((f1, losses))
     assert all(torch.equal(a, b) for a, b in zip(runs[0][0][:6], runs[1][0][:6]))
@@ -348,7 +418,29 @@ def check_td3(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm):
     for k in range(K):
         d = data if lanes else data[k:k + 1]
         ri = row_idx[k * rpb:(k + 1) * rpb] if lanes else None
-        err, f2, lk = td3_launch(lib, h, f2, d, ri, noises[k:k + 1], obs_dim, bf, sms, delay)
+        err, f2, lk = td3_launch(lib, h, f2, d, ri, noises[k:k + 1], obs_dim, bf, sms, delay,
+                                 cmax)
         assert err == 0 and torch.equal(lk[0], losses[k])
     assert all(torch.equal(x, y) for x, y in zip(f2[:6], f1[:6]))
     assert (f2.count, f2.count_a) == (f1.count, f1.count_a)
+    return digest(f1, losses)
+
+
+def td3_clusters(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm, cmax, want_c, want_digest):
+    """check_td3 in clusters of at most cmax blocks: the plan takes want_c,
+    and where given the digest of K6's outputs is want_digest (with C = 1
+    that of the launch without clusters, recorded as sac_clusters says)."""
+    planned = []
+    got = check_td3(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm, cmax, planned)
+    assert {c for _, c in planned} == {want_c}
+    if want_digest:
+        assert got == want_digest
+
+
+def td3_lagging(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm, cmax, want_c):
+    """K6 gives the same bits with the last block of each cluster lagging."""
+    ns, packed, adam, data, row_idx, batches, noises, hyper = td3_case(
+        h, obs_dim, K, B, lanes, delay, warm, seed=h + obs_dim)
+    f0 = ns.fused_init(packed, adam)
+    lagging_bits(lib, lambda planned: td3_launch(lib, h, f0, data, row_idx, noises, obs_dim, bf,
+                                                 sms, delay, cmax, planned), want_c)

@@ -399,6 +399,66 @@ def test_cuda_sac_update_bf16_mode_and_floor():
 
 
 @pytest.mark.cuda
+def test_cuda_learner_kernels_in_clusters_at_the_training_shape():
+    """K4, K5 and K6 at the training cells' shape (B=8192 from a 2048-row ring
+    of 2048 lanes, H=256, bf16) in the thread block clusters the plan takes:
+    clusters of more than one block, no block with more tiles than without
+    them, `learner.slots_written` one slot a cluster and stage, K4 = K5 bit
+    for bit, and each held to the plain version as the bf16 tests hold it."""
+    _need_card()
+    h, K, B, lanes, od = 256, 2, 8192, 2048, 13
+    W, ts = replay_cols(od, 2)[-1], fused_sac.KERNEL_TILE[h]
+    tiles = fused_sac.n_tiles(lanes, B // lanes, ts)
+    for plan in (lambda **kw: fused_sac.plan(h, W, od, tiles, True, **kw),
+                 lambda **kw: fused_sac.plan(h, W, od, tiles, True, fold=True, **kw),
+                 lambda **kw: fused_td3.plan(h, W, od, tiles, True, **kw)):
+        grid, _, c = plan()
+        assert c > 1 and grid % c == 0
+        grid0, _, c0 = plan(cluster_max=1)
+        assert c0 == 1 and -(-tiles // grid) <= -(-tiles // grid0)
+    grid, _, c = fused_sac.plan(h, W, od, tiles, True)
+
+    ns, _, packed, adam, ring, row_idx, batches, noises = _sac_case(h, K, B, lanes, rows=2048)
+    hyper = dict(SAC_HYPER, obs_dim=od, mm_bf16=True)
+    want_p, _, want_cl, _ = ns.update_k_reference(packed, adam, batches, noises, **hyper)
+    outs = []
+    for fold in (False, True):
+        before = profiling.counts().get("learner.slots_written", 0)
+        f1, cl, _ = ns.fused_update_k_wmat(ns.fused_init(packed, adam), ring, row_idx, noises,
+                                           fold=fold, **hyper)
+        torch.cuda.synchronize()
+        assert profiling.counts()["learner.slots_written"] - before == 2 * K * grid // c
+        outs.append((f1, cl.clone()))
+        got_p, _ = ns.fused_unpack(f1)
+        assert torch.allclose(cl, want_cl, rtol=1e-3)
+        for f in ("a_w1", "a_w2", "c_w1", "c_w2", "t_w2"):
+            d = (getattr(got_p, f) - getattr(want_p, f)).abs()
+            assert d.max().item() <= K * 2.5 * SAC_HYPER["lr"], f
+            assert (d <= 1e-4).float().mean().item() > 0.99, f
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][0][:6], outs[1][0][:6]))
+    assert torch.equal(outs[0][1], outs[1][1]), "K5 = K4, bit for bit"
+
+    ns, packed, adam, ring, row_idx, batches, noises, hyper = _td3_case(h, K, B, lanes, warm=1,
+                                                                        delay=2, rows=2048)
+    want_p, want_ad, want_cl, _ = ns.update_k_reference(packed, adam, batches, noises,
+                                                        mm_bf16=True, **hyper)
+    before = profiling.counts().get("learner.slots_written", 0)
+    f1, cl, _ = ns.fused_update_k_wmat(ns.fused_init(packed, adam), ring, row_idx, noises,
+                                       mm_bf16=True, **hyper)
+    torch.cuda.synchronize()
+    n_act = fused_td3.applied_steps(1, K, 2)
+    assert n_act == 1
+    assert profiling.counts()["learner.slots_written"] - before == (K + n_act) * grid // c
+    got_p, got_ad = ns.fused_unpack(f1)
+    assert (got_ad.count, got_ad.count_a) == (want_ad.count, want_ad.count_a)
+    assert torch.allclose(cl, want_cl, rtol=1e-3)
+    for f in ("a_w1", "a_w2", "c_w1", "c_w2", "t_w2"):
+        d = (getattr(got_p, f) - getattr(want_p, f)).abs()
+        assert d.max().item() <= K * 2.5 * TD3_HYPER["lr"], f
+        assert (d <= 1e-4).float().mean().item() > 0.99, f
+
+
+@pytest.mark.cuda
 def test_cuda_learner_kernels_use_the_tensor_cores():
     """K4, K5 and K6 run their bf16-mode products on the tensor cores: HMMA
     instructions in the SASS of their libraries."""

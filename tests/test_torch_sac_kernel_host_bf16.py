@@ -1,11 +1,13 @@
 """K4 and K5 (csrc/sac_update.cuh) built for the host, bf16 mode: the
 products on the emulated tensor cores (MTile), held to the plain version with
-bf16-rounded products (tests/learner_host.py says how).  The float32 mode and
+bf16-rounded products (tests/learner_host.py says how), also in clusters of 1,
+2 and 4 blocks (the bits of 1 those of the launch without clusters; those of
+2 also with the last block of each cluster lagging).  The float32 mode and
 the fragments are in tests/test_torch_sac_kernel_host.py.
 """
 import pytest
 
-from .learner_host import check_sac, host_library
+from .learner_host import check_sac, host_library, sac_clusters, sac_lagging
 from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -29,3 +31,38 @@ CASES = [
 def test_host_built_kernels_match_the_plain_version(host_lib, h, obs_dim, K, B, lanes, bf, sms,
                                                     alpha_floor):
     check_sac(host_lib, h, obs_dim, K, B, lanes, bf, sms, alpha_floor)
+
+
+# h, obs_dim, K, B, ring lanes, mm_bf16, blocks resident, the largest cluster, the
+# cluster size the plan takes, the digest of K4's outputs (C = 1: the launch's
+# without clusters)
+CLUSTER_CASES = [
+    (256, 13, 1, 128, 64, True, 2, 1, 1, "a2b724619ddcccb0"),
+    (256, 13, 2, 128, 64, True, 2, 2, 2, None),      # and K launches of one update
+    (256, 13, 1, 256, 0, True, 4, 4, 4, None),
+    (128, 13, 1, 256, 128, True, 2, 4, 1, "9d5093505a28688d"),     # no room: no cluster
+    (256, 7, 1, 256, 64, True, 4, 2, 2, None),       # b2, w3 and heads flushed apart
+]
+
+
+@pytest.mark.parametrize("h,obs_dim,K,B,lanes,bf,sms,cmax,want_c,want", CLUSTER_CASES)
+def test_host_built_kernels_in_clusters(host_lib, h, obs_dim, K, B, lanes, bf, sms, cmax, want_c,
+                                        want):
+    sac_clusters(host_lib, h, obs_dim, K, B, lanes, bf, sms, cmax, want_c, want)
+
+
+# h, obs_dim, K, B, ring lanes, mm_bf16, blocks resident, the largest cluster, the
+# cluster size the plan takes
+LAG_CASES = [
+    (256, 13, 1, 128, 64, True, 2, 2, 2),
+    (256, 7, 1, 256, 64, True, 4, 2, 2),       # b2, w3 and heads flushed apart
+]
+
+
+@pytest.mark.parametrize("h,obs_dim,K,B,lanes,bf,sms,cmax,want_c", LAG_CASES)
+def test_host_built_kernels_in_clusters_with_a_lagging_block(
+        host_lib, h, obs_dim, K, B, lanes, bf, sms, cmax, want_c):
+    """The last block of each cluster lagging behind the others gives the
+    same bits: no block rewrites its exchange rows while another still
+    reads them."""
+    sac_lagging(host_lib, h, obs_dim, K, B, lanes, bf, sms, cmax, want_c)
