@@ -165,14 +165,14 @@ import time
 import numpy as np
 import torch
 
+# The H100 SXM's peaks and the learner kernels' work counts are the
+# benchmark's (benchmark/roofline.py); the bound of a kernel is the larger
+# of bytes/BW and ops/FLOPS.
+from benchmark.roofline import (BF16_OPS_PER_S, F32_OPS_PER_S, HBM_BYTES_PER_S, sac_work,
+                                td3_products, td3_work)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "build", "reports")  # ptxas reports; gitignored
-
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 (non-tensor)
-# rate; the bound of a kernel is the larger of bytes/BW and ops/FLOPS.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 # Integer operations of one uniform from the in-kernel generators
 # (csrc/rng.cuh): threefry2x32 is 20 rounds of add, rotate, xor, 5 key
 # injections of 3 adds, the index add and 4 for the float; Philox4x32-10 is 10
@@ -1455,7 +1455,7 @@ def check_learner_kernel(dev, name, inputs, K, B, lanes, modes, block=2048, **kw
     kernel's own options.
     Returns ({mm_bf16: max abs error over w and vec}, the results by
     (mm_bf16, data mode))."""
-    from space_gym_torch.models.fused_sac import KERNEL_TILE
+    from space_gym_torch.models.learner_kernels import KERNEL_TILE
 
     ns, packed, adam, ring, row_idx, batches, noises, hyper = inputs
     h = packed.a_w2.shape[0]
@@ -1604,66 +1604,6 @@ def check_k6(dev):
         for bf, v in e.items():
             errs[bf] = max(errs.get(bf, 0.0), v)
     return errs
-
-
-def sac_work(h, K, B, W, od, bf):
-    """(bytes, {rate: operations}) one launch must move and do.  Multiply-adds
-    per sample and update: 16 (1, H) x (H, H) products (critic phase 9: actor,
-    two targets, two critics forward, two weight gradients, two input
-    gradients; actor phase 7); the obs rows of the eleven first-layer products
-    (forward and weight gradient), 11 od H; heads, q, their gradients and the
-    action gradient, 28 H; and in float32 whatever the mode the action rows of
-    the first layers and the dq x w3 products, 20 H.  Two operations per
-    multiply-add, and about 12 per trainable element and update for Adam and
-    polyak.  With mm_bf16 the products that the Pallas body sends through its
-    bf16 `dot` count at the tensor cores' bf16 rate, the rest at float32.
-    Bytes: each sampled row and the normals read once, the six state tensors
-    read and written once, the losses written."""
-    dotted = 16 * h * h + 11 * od * h + 28 * h
-    plain32 = 20 * h
-    trainable = 3 * h * h + 3 * (od + 2) * h + 9 * h + 16
-    f32_ops = 2 * plain32 * K * B + 12 * trainable * K
-    dot_ops = 2 * dotted * K * B
-    ops = {"bf16": dot_ops, "f32": f32_ops} if bf else {"bf16": 0, "f32": f32_ops + dot_ops}
-    wrows = 128 + h + 4 * (128 + h) + 8
-    byts = 4 * (K * B * W + K * 4 * B + 2 * 3 * (wrows + 16) * h + 2 * K + K * B // SAC_LANES)
-    return byts, ops
-
-
-def td3_products(K, n_act):
-    """(1, H) x (H, H) products per sample of one K6 launch with `n_act`
-    delayed updates: 9 in the critic stage (target actor, two target critics,
-    two critics forward, two weight and two input gradients), 2 in the actor
-    stage (actor and critic 0 forward), 3 more on a delayed update (critic 0's
-    input gradient, the actor's weight and input gradients)."""
-    return 11 * K + 3 * n_act
-
-
-def td3_work(h, K, B, W, od, bf, n_act):
-    """(bytes, {rate: operations}) one K6 launch with `n_act` delayed updates
-    must move and do, counted from csrc/td3_update.cuh.  Multiply-adds per
-    sample: td3_products() H x H products; the obs rows of the first layers,
-    od H each: 7 in the critic stage (target actor, two target critics, two
-    critics forward, their two weight gradients), 2 in the actor stage, 1 more
-    when delayed; heads, q, w3 and head gradients, 8 H + 3 H and 6 H more when
-    delayed; and in float32 whatever the mode the action rows and bias sums of
-    the critics' first layers and dq x w3, 16 H + 2 H and 2 H more when
-    delayed.  Two operations per multiply-add; about 10 per element of the
-    critics for Adam on every update, and on a delayed one 10 per element of
-    the actor and 3 per element of both for the polyak steps.  Bytes: each
-    sampled row and the normals read once, the six state tensors read and
-    written once, the losses written."""
-    dotted = (td3_products(K, n_act) * h * h + (9 * K + n_act) * od * h
-              + (11 * K + 6 * n_act) * h)
-    plain32 = (18 * K + 2 * n_act) * h
-    critics = 2 * (h * h + (od + 2) * h + 3 * h + 1)
-    actor = h * h + od * h + 4 * h + 2
-    f32_ops = 2 * plain32 * B + 10 * critics * K + n_act * (10 * actor + 3 * (actor + critics))
-    dot_ops = 2 * dotted * B
-    ops = {"bf16": dot_ops, "f32": f32_ops} if bf else {"bf16": 0, "f32": f32_ops + dot_ops}
-    wrows = 6 * (128 + h) + 8
-    byts = 4 * (K * B * W + K * 2 * B + 2 * 3 * (wrows + 24) * h + 2 * K + K * B // SAC_LANES)
-    return byts, ops
 
 
 def work_bound(work):
@@ -1865,13 +1805,13 @@ def train_path(dev, card, algo, fold=False, n_iters=9, kernel_ms=None):
     W = st.replay.data.shape[1]
     if algo == "sac":
         products = 16 * SAC_K
-        work = lambda bf: sac_work(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, bf)
+        work = lambda bf: sac_work(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, bf, SAC_LANES)
     else:
         # every launch of this path starts from a count that is a multiple of
         # K, so it has K / policy_delay delayed updates
         n_act = fused_td3.applied_steps(0, SAC_K, cfg.policy_delay)
         products = td3_products(SAC_K, n_act)
-        work = lambda bf: td3_work(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, bf, n_act)
+        work = lambda bf: td3_work(SAC_H, SAC_K, SAC_B, W, tr.obs_dim, bf, n_act, SAC_LANES)
     bnd, bnd_f32 = work_bound(work(True)), work_bound(work(False))
     byts, ops = work(False)
     print(f"train path {label} {MAIN_ENV} lanes={SAC_LANES} rollout={SAC_ROLLOUT} K={SAC_K} "
@@ -1992,22 +1932,22 @@ def sac_bits(dev, card):
     on the inputs of check_k4's and check_k6's first cases at H=256, in both
     modes and both data modes, and their ms per launch at the training path's
     shapes by CUDA events; each without thread block clusters (C=1) and with
-    the clusters the plan takes (at most fused_sac.CLUSTER_MAX blocks), C
+    the clusters the plan takes (at most learner_kernels.CLUSTER_MAX blocks), C
     printed beside each line.  Uses the learner kernels alone: run it from
     two checkouts to see which bits a change of their code moved."""
     import hashlib
 
-    from space_gym_torch.models import fused_sac, fused_td3
+    from space_gym_torch.models import learner_kernels as lk
 
-    cmax = fused_sac.CLUSTER_MAX
+    cmax = lk.CLUSTER_MAX
+    kernels = {"K4": lk.SAC, "K5": lk.SAC_FOLD, "K6": lk.TD3}
 
     def planned(name, mode, bf, B, ring, n):
         """The cluster size the plan gives this launch, in clusters of at most n."""
-        lanes, ts = ring.shape[2], fused_sac.KERNEL_TILE[SAC_H]
-        tiles = fused_sac.n_tiles(*((lanes, B // lanes) if mode == "ring" else (B, 0)), ts)
-        if name == "K6":
-            return fused_td3.plan(SAC_H, ring.shape[1], 13, tiles, bf, n)[2]
-        return fused_sac.plan(SAC_H, ring.shape[1], 13, tiles, bf, name == "K5", n)[2]
+        lanes = ring.shape[2]
+        tiles = lk.n_tiles(*((lanes, B // lanes) if mode == "ring" else (B, 0)),
+                           lk.KERNEL_TILE[SAC_H])
+        return lk.plan(kernels[name], SAC_H, ring.shape[1], 13, tiles, bf, n)[2]
 
     def digest(name, out, mode, bf, c):
         h = hashlib.sha256()
@@ -2328,10 +2268,12 @@ def phase_clock(dev, card):
     turns by CUDA events (the marks' barriers cost a little)."""
     import ctypes
 
-    from space_gym_torch.models import fused_sac, fused_td3
+    from space_gym_torch.models import fused_sac, fused_td3, learner_kernels
     from space_gym_torch.utils import cuda_build
 
     labels = {"sac_update": "K4", "sac_update_fold": "K5", "td3_update": "K6"}
+    kernels = {"sac_update": learner_kernels.SAC, "sac_update_fold": learner_kernels.SAC_FOLD,
+               "td3_update": learner_kernels.TD3}
     env_names = [v[0] for v in ENV_CLOCKED.values()]
     procs = clocked_builds([*labels, *env_names])
     reports = {n: text for n, (_, text) in cuda_build.build_all([*labels, *env_names]).items()}
@@ -2343,70 +2285,55 @@ def phase_clock(dev, card):
     env_phase_clock(dev, card, procs, reports)
     sac_in = sac_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES)
     td3_in = td3_inputs(dev, SAC_H, SAC_K, SAC_B, SAC_LANES, delay=2, warm=2)
-    real = {"sac": fused_sac._lib, "td3": fused_td3._lib}
-    # per kernel: what its module's _lib gives for the clocked build, and the call
+    # per kernel: the clocked build, and a launch from a library (None: the plain build)
     clocked, calls = {}, {}
     for name in labels:
         lib, proc = procs[name]
-        handle = clocked_library(labels[name], lib, proc)
-        if name == "td3_update":
-            fns, clocked[name] = ("sg_td3_update", "sg_td3_update_plan"), handle
-            ref = real["td3"]()
-        else:
-            ref, fn = real["sac"](name == "sac_update_fold")
-            fns, clocked[name] = (fn, fn + "_plan"), (handle, fn)
-        for fn in fns:
-            getattr(handle, fn).argtypes = getattr(ref, fn).argtypes
-            getattr(handle, fn).restype = getattr(ref, fn).restype
-        handle.sg_phase_name.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+        clocked[name] = clocked_library(labels[name], lib, proc)
+        clocked[name].sg_phase_name.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
         ns, packed, adam, ring, row_idx, batches, noises, hyper = (
             td3_in if name == "td3_update" else sac_in)
-        kw = {} if name == "td3_update" else dict(fold=name == "sac_update_fold")
-        # a fresh state, and a call that updates it in place
-        calls[name] = (lambda ns=ns, packed=packed, adam=adam: ns.fused_init(packed, adam),
-                       lambda f, ns=ns, ring=ring, row_idx=row_idx, noises=noises, hyper=hyper,
-                       kw=kw: ns.fused_update_k_wmat(f, ring, row_idx, noises, block=2048,
-                                                     mm_bf16=True, **kw, **hyper))
+        hp = {k: v for k, v in hyper.items() if k != "obs_dim"}
 
-    def use(name, clock):
-        """Point the kernel's module at the clocked build, or back."""
-        if name == "td3_update":
-            fused_td3._lib = (lambda h=clocked[name]: h) if clock else real["td3"]
-        else:
-            fused_sac._lib = (lambda fold, h=clocked[name]: h) if clock else real["sac"]
+        def call(f, lib, kernel=kernels[name], ring=ring, row_idx=row_idx, noises=noises,
+                 od=hyper["obs_dim"], hp=hp):
+            if kernel is learner_kernels.TD3:
+                scalars = fused_td3.kernel_scalars(f.count, f.count_a, **hp)
+            else:
+                scalars = fused_sac.kernel_scalars(f.count, **hp)
+            learner_kernels.launch(kernel, f, ring, row_idx, noises, scalars, obs_dim=od,
+                                   mm_bf16=True, lib=lib,
+                                   stream=torch.cuda.current_stream().cuda_stream)
+
+        # a fresh state, and a call that updates it in place
+        calls[name] = (lambda ns=ns, packed=packed, adam=adam: ns.fused_init(packed, adam), call)
 
     times = {}
-    try:
+    for name in labels:
+        handle = clocked[name]
+        cyc = (ctypes.c_ulonglong * 256)()
+        handle.sg_phase_read(cyc)
+        fresh, call = calls[name]
+        call(fresh(), handle)
+        torch.cuda.synchronize()
+        if handle.sg_phase_read(cyc) != 0:
+            fail(f"{labels[name]}: the phase clock could not be read")
+        total = sum(cyc)
+        print(f"phase clock {labels[name]} H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16=True, "
+              f"block 0, {total / SAC_K:.0f} SM cycles per update:", flush=True)
+        label = ctypes.create_string_buffer(96)
+        for i in sorted(range(256), key=lambda i: -cyc[i]):
+            if cyc[i]:
+                handle.sg_phase_name(i, label, len(label))
+                print(f"  {100 * cyc[i] / total:5.1f}% {cyc[i] / SAC_K:9.0f} cycles/update  "
+                      f"[{i}] {label.value.decode()}")
+    for clock in (False, True, True, False):
         for name in labels:
-            handle = clocked[name] if name == "td3_update" else clocked[name][0]
-            use(name, True)
-            cyc = (ctypes.c_ulonglong * 256)()
-            handle.sg_phase_read(cyc)
             fresh, call = calls[name]
-            call(fresh())
-            torch.cuda.synchronize()
-            if handle.sg_phase_read(cyc) != 0:
-                fail(f"{labels[name]}: the phase clock could not be read")
-            total = sum(cyc)
-            print(f"phase clock {labels[name]} H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16=True, "
-                  f"block 0, {total / SAC_K:.0f} SM cycles per update:", flush=True)
-            label = ctypes.create_string_buffer(96)
-            for i in sorted(range(256), key=lambda i: -cyc[i]):
-                if cyc[i]:
-                    handle.sg_phase_name(i, label, len(label))
-                    print(f"  {100 * cyc[i] / total:5.1f}% {cyc[i] / SAC_K:9.0f} cycles/update  "
-                          f"[{i}] {label.value.decode()}")
-            use(name, False)
-        for clock in (False, True, True, False):
-            for name in labels:
-                use(name, clock)
-                fresh, call = calls[name]
-                f0 = fresh()
-                times.setdefault((name, clock), []).append(cuda_ms(lambda: call(f0), iters=5,
-                                                                   warmup=2))
-                use(name, False)
-    finally:
-        fused_sac._lib, fused_td3._lib = real["sac"], real["td3"]
+            f0 = fresh()
+            lib = clocked[name] if clock else None
+            times.setdefault((name, clock), []).append(cuda_ms(lambda: call(f0, lib), iters=5,
+                                                               warmup=2))
     for (name, clock), ms in times.items():
         print(f"time {labels[name]} {'with' if clock else 'without'} the phase clock "
               f"H={SAC_H} K={SAC_K} B={SAC_B} ring mm_bf16=True: "

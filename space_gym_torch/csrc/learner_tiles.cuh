@@ -1123,6 +1123,34 @@ int launch_planned(void (*kern1)(A), void (*kernx)(A), A args, int grid, int C, 
     return (int)cudaGetLastError();
 }
 
+// A launch with the grid and cluster size that the kernel's plan gave:
+// plan(n_tiles, cmax, out) is asked again with the cluster size as cmax.
+// Launch errors: -4 not the planned grid or cluster size, -5 no scratch for
+// the mode (wt in float32, wb in bf16).
+template <int H, bool BF, class Plan, class A>
+int launch_checked(Plan plan, void (*kern1)(A), void (*kernx)(A), const A& g, int grid,
+                   int cluster, cudaStream_t stream) {
+    int out[3];
+    const int err = plan(n_tiles(g.lanes, g.rpb, Tile<H>::TS), cluster, out);
+    if (err != 0) return err;
+    if (grid != out[0] || cluster != out[2]) return -4;
+    if ((BF && !g.wb) || (!BF && !g.wt)) return -5;
+    return launch_planned(kern1, kernx, g, grid, cluster, Tile<H>::NT, (size_t)out[1], stream);
+}
+
+// f(std::integral_constant<int, H>()) for a hidden width the learner kernels
+// are built for; -1 for any other.
+template <class F>
+int dispatch_width(int H, F f) {
+    switch (H) {
+        case 128: return f(std::integral_constant<int, 128>());
+        case 256: return f(std::integral_constant<int, 256>());
+        case 384: return f(std::integral_constant<int, 384>());
+        case 512: return f(std::integral_constant<int, 512>());
+    }
+    return -1;
+}
+
 }  // namespace tiles
 
 // The phase clock's two C entry points, for a library built with it:

@@ -648,10 +648,10 @@ __global__ void __launch_bounds__(Tile<H>::NT, 1) sac_update_kernel(Args g) {
 
 // ------------------------------------------------------------------ host --
 // Plan errors: -1 width not built, -2 shared memory does not fit; launch
-// errors: -4 not the planned grid or cluster size, -5 no scratch for the mode
-// (wt in float32, wb in bf16).  Other non-zero codes are cudaError_t.  K4
-// and K5 plan the same grid and cluster size (learner_tiles.cuh,
-// plan_launch), each on K5's shared memory, so that they give the same bits.
+// errors: learner_tiles.cuh, launch_checked.  Other non-zero codes are
+// cudaError_t.  K4 and K5 plan the same grid and cluster size
+// (learner_tiles.cuh, plan_launch), each on K5's shared memory, so that they
+// give the same bits.
 template <int H, bool FOLD, bool BF>
 int plan(int W, int od, int n_tiles, int cmax, int* out) {
     const size_t smem1 = smem_floats<H, FOLD, BF>(W) * sizeof(float);
@@ -665,38 +665,24 @@ int plan(int W, int od, int n_tiles, int cmax, int* out) {
     return err;
 }
 
-template <int H, bool FOLD, bool BF>
-int launch(Args g, int grid, int cluster, cudaStream_t stream) {
-    int out[3];
-    int err = plan<H, FOLD, BF>(g.W, g.od, n_tiles(g.lanes, g.rpb, Tile<H>::TS), cluster, out);
-    if (err != 0) return err;
-    if (grid != out[0] || cluster != out[2]) return -4;
-    if ((BF && !g.wb) || (!BF && !g.wt)) return -5;
-    return launch_planned(sac_update_kernel<H, FOLD, BF, false>,
-                          sac_update_kernel<H, FOLD, BF, true>, g, grid, cluster, Tile<H>::NT,
-                          (size_t)out[1], stream);
-}
-
 template <bool FOLD, bool BF>
 int plan_any(int H, int W, int od, int n_tiles, int cmax, int* out) {
-    switch (H) {
-        case 128: return plan<128, FOLD, BF>(W, od, n_tiles, cmax, out);
-        case 256: return plan<256, FOLD, BF>(W, od, n_tiles, cmax, out);
-        case 384: return plan<384, FOLD, BF>(W, od, n_tiles, cmax, out);
-        case 512: return plan<512, FOLD, BF>(W, od, n_tiles, cmax, out);
-    }
-    return -1;
+    return dispatch_width(H, [&](auto h) {
+        return plan<decltype(h)::value, FOLD, BF>(W, od, n_tiles, cmax, out);
+    });
 }
 
 template <bool FOLD, bool BF>
 int launch_any(int H, const Args& g, int grid, int cluster, cudaStream_t stream) {
-    switch (H) {
-        case 128: return launch<128, FOLD, BF>(g, grid, cluster, stream);
-        case 256: return launch<256, FOLD, BF>(g, grid, cluster, stream);
-        case 384: return launch<384, FOLD, BF>(g, grid, cluster, stream);
-        case 512: return launch<512, FOLD, BF>(g, grid, cluster, stream);
-    }
-    return -1;
+    return dispatch_width(H, [&](auto h) {
+        constexpr int HW = decltype(h)::value;
+        auto plan_hw = [&](int tiles, int cmax, int* out) {
+            return plan<HW, FOLD, BF>(g.W, g.od, tiles, cmax, out);
+        };
+        return launch_checked<HW, BF>(plan_hw, sac_update_kernel<HW, FOLD, BF, false>,
+                                      sac_update_kernel<HW, FOLD, BF, true>, g, grid, cluster,
+                                      stream);
+    });
 }
 
 }  // namespace sac

@@ -17,7 +17,8 @@ the card's L2 and streams only the minibatch tiles:
 Both share the device code of csrc/sac_update.cuh and give the same bits.
 `update_k_reference` is their plain PyTorch version (torch.autograd on the
 packed layout); the entry points take it for tensors on the CPU, and launch
-the kernel or raise for tensors on a CUDA device.  There is no fallback.
+the kernel or raise for tensors on a CUDA device (models/learner_kernels.py,
+the launch that K4, K5 and K6 share).  There is no fallback.
 
 Layout, as in the JAX package: first-layer inputs are padded to IN1=128 rows
 (obs | action | 0); the actor's two heads are one (H, 4) matrix [mean(2) |
@@ -32,13 +33,10 @@ kernel-layout state is two matrices and their Adam moments:
 
 On a CUDA device the kernels update `w`, `vec` and the moments IN PLACE: the
 returned FusedState shares the tensors it was given.  A launch adds 1 to
-`sac_update` or `sac_update_fold` and the gradient slots it writes (one a
-cluster of blocks in each update's critic and actor stages) to
-`learner.slots_written` (utils/profiling.py).
+`sac_update` or `sac_update_fold` (utils/profiling.py).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from types import SimpleNamespace
@@ -47,51 +45,16 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from ..utils import cuda_build, profiling
-from .replay import Transition, pack_slab, replay_cols, unpack_flat
+from . import learner_kernels
+from .learner_kernels import (CLUSTER_MAX, IN1, BF16Dot, BF16Round, adam_step, pack_critic,
+                              pad_first_layer, pad_x, state_dict, unpack_critic)
+from .replay import Transition, pack_slab
 
-IN1 = 128     # padded first-layer input width (obs | action | zeros)
 NHEAD = 4     # actor head columns: [mean(2) | log_std(2)]
 LOG_STD_MIN = -20.0
 LOG_STD_MAX = 2.0
-B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam defaults (eps_root=0)
 LOG2PI = 1.8378770664093453  # log(2*pi)
 LOG2 = 0.6931471805599453
-
-# Samples per thread block of the CUDA kernels, by hidden width (TS in
-# csrc/sac_update.cuh): a block's two (TS, H) float32 activation buffers must
-# fit its shared memory.  These are the widths the kernels are built for: at
-# H=640 two (32, 640) float32 buffers (160 KB), two bf16 weight stages (40 KB)
-# and K5's tile buffers would pass the 227 KB a block may have, and a smaller
-# tile is not built (the tensor-core pieces are 32 samples).
-KERNEL_TILE = {128: 128, 256: 64, 384: 32, 512: 32}
-
-
-# The largest thread block cluster the kernels' plan considers: clusters of
-# 8, 4 or 2 blocks sum their gradients on chip and write one slot a cluster
-# (csrc/learner_tiles.cuh, plan_launch).  The launches' `cluster_max`
-# defaults to it; 1 takes the instantiation without clusters, which checks of
-# that path pass.
-CLUSTER_MAX = 8
-
-
-def n_tiles(lanes: int, rpb: int, ts: int) -> int:
-    """The kernels' tiles of one minibatch: each of its rpb ring rows (one
-    gathered minibatch of lanes = B samples when rpb is 0) cut into
-    ceil(lanes / ts) tiles, the last of a row partial when ts does not divide
-    the lanes (csrc/learner_tiles.cuh, n_tiles)."""
-    return max(rpb, 1) * -(-lanes // ts)
-
-
-def check_kernel_width(h: int):
-    """Raise ValueError unless the CUDA learner kernels are built for width h."""
-    if h not in KERNEL_TILE:
-        raise ValueError(
-            f"the CUDA learner kernels are built for hidden widths {sorted(KERNEL_TILE)}, got "
-            f"{h}: a wider layer does not fit a thread block's shared memory at the smallest "
-            f"tile of 32 samples (two (32, H) float32 activation buffers and the weight stages "
-            f"within 227 KB); run it on the CPU, or unfused")
-
 
 class PackedParams(NamedTuple):
     """SAC learner state in packed layout (all float32)."""
@@ -144,121 +107,12 @@ class FusedState(NamedTuple):
     count: int           # optax-equivalent step count
 
 
-def _sd(x):
-    """A module's parameters, or a mapping of the same names, as a dict."""
-    return dict(x.state_dict()) if isinstance(x, nn.Module) else dict(x)
-
-
 def _actor_leaves(actor):
-    sd = _sd(actor)
+    sd = state_dict(actor)
     return (sd["mlp.layers.0.kernel"], sd["mlp.layers.0.bias"],
             sd["mlp.layers.1.kernel"], sd["mlp.layers.1.bias"],
             sd["mean_head.kernel"], sd["mean_head.bias"],
             sd["log_std_head.kernel"], sd["log_std_head.bias"])
-
-
-def _critic_leaves(critic):
-    sd = _sd(critic)
-    return [tuple(sd[f"{q}.layers.{i}.{n}"] for i in range(3) for n in ("kernel", "bias"))
-            for q in ("q1", "q2")]
-
-
-class _BF16Dot(torch.autograd.Function):
-    """a @ b with both operands rounded to bfloat16 and float32 accumulation,
-    forward and backward: what the kernels' `mm_bf16` products compute."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        a, b = _bf16(a), _bf16(b)
-        ctx.save_for_backward(a, b)
-        return a @ b
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        g = _bf16(g)
-        return g @ b.t(), a.t() @ g
-
-
-class _BF16Round(torch.autograd.Function):
-    """Round to bfloat16 and back; the gradient passes unchanged."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return _bf16(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g
-
-
-def _bf16(x):
-    return x.to(torch.bfloat16).to(torch.float32)
-
-
-def _data_mode(f, data, row_idx, K, B, obs_dim, block, wrows):
-    """Check the shapes of a launch, in either data mode; returns (W, lanes,
-    rpb).  row_idx None: `data` is the packed (K, W, B) minibatch tensor, lanes
-    minor (rpb 0).  row_idx given: `data` is the whole (rows, W, lanes) replay
-    ring and minibatch k is rows row_idx[k*rpb : (k+1)*rpb], every lane of
-    each, rpb = B // lanes.  `block` is the batch tile of the JAX kernels: it
-    must divide the batch, or the lanes of a ring, as there."""
-    W = data.shape[1]
-    if W != replay_cols(obs_dim, 2)[-1]:
-        raise ValueError(f"data has {W} rows, obs_dim {obs_dim} packs "
-                         f"{replay_cols(obs_dim, 2)[-1]}")
-    if row_idx is None:
-        if tuple(data.shape) != (K, W, B):
-            raise ValueError(f"batches must be (K, W, B) = ({K}, {W}, {B}), "
-                             f"got {tuple(data.shape)}")
-        if B % min(block, B):
-            raise ValueError(f"batch {B} not divisible by block {min(block, B)}")
-        lanes, rpb = B, 0
-    else:
-        lanes = data.shape[2]
-        rpb, rem = divmod(B, lanes)
-        if rem:
-            raise ValueError(f"batch {B} must be a multiple of lanes {lanes}")
-        if tuple(row_idx.shape) != (K * rpb,):
-            raise ValueError(f"row_idx {tuple(row_idx.shape)} != ({K * rpb},)")
-        if lanes % min(block, lanes):
-            raise ValueError(f"lanes {lanes} not divisible by block {min(block, lanes)}")
-    h = f.w.shape[1]
-    for name, t in (("w", f.w), ("mw", f.mw), ("vw", f.vw)):
-        if tuple(t.shape) != (wrows, h):
-            raise ValueError(f"{name} must be ({wrows}, {h}), got {tuple(t.shape)}")
-    return W, lanes, rpb
-
-
-def _gathered(data, row_idx, K, B, obs_dim):
-    """The (K, B) Transition minibatches that `data` and `row_idx` name: what
-    the plain version takes."""
-    if row_idx is None:
-        flat = data.transpose(1, 2)
-    else:
-        flat = data[row_idx.long()].transpose(1, 2).reshape(K, B, data.shape[1])
-    return unpack_flat(flat.to(torch.float32), obs_dim, 2)
-
-
-def _kernel_operands(f, data, row_idx, noises, vrows):
-    """Check what the CUDA kernels take; returns (tile samples, the six state
-    tensors in the kernels' order, row_idx as int32).  Any batch or number of
-    lanes: the last tile of a row may be partial."""
-    h = f.w.shape[1]
-    check_kernel_width(h)
-    ts = KERNEL_TILE[h]
-    dev = f.w.device
-    state = (f.w, f.vec, f.mw, f.vw, f.mvec, f.vvec)
-    for t in state + (data, noises):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError("the CUDA kernel takes contiguous float32 tensors on one device")
-    if tuple(f.vec.shape) != (vrows, h):
-        raise ValueError(f"vec must be ({vrows}, {h})")
-    if row_idx is not None:
-        if row_idx.device != dev:
-            raise TypeError("row_idx must be on the state's device")
-        row_idx = row_idx.to(torch.int32).contiguous()
-    return ts, state, row_idx
 
 
 def _build_width(h: int):
@@ -272,27 +126,10 @@ def _build_width(h: int):
     def pack_params(actor, critic, target, log_alpha) -> PackedParams:
         """Modules (or mappings named like their state dicts) -> PackedParams."""
         aw1, ab1, aw2, ab2, awm, abm, aws, abs_ = _actor_leaves(actor)
-
-        def pad1(w):
-            out = torch.zeros((IN1, H), dtype=torch.float32, device=w.device)
-            out[:w.shape[0]] = w
-            return out
-
-        def pack_critic(leaves):
-            (w1a, b1a, w2a, b2a, w3a, b3a), (w1b, b1b, w2b, b2b, w3b, b3b) = leaves
-            return (
-                torch.stack([pad1(w1a), pad1(w1b)]),
-                torch.stack([b1a, b1b]),
-                torch.stack([w2a, w2b]),
-                torch.stack([b2a, b2b]),
-                torch.stack([w3a[:, 0], w3b[:, 0]]),
-                torch.stack([b3a[0], b3b[0]]),
-            )
-
-        cw1, cb1, cw2, cb2, cw3, cb3 = pack_critic(_critic_leaves(critic))
-        tw1, tb1, tw2, tb2, tw3, tb3 = pack_critic(_critic_leaves(target))
+        cw1, cb1, cw2, cb2, cw3, cb3 = pack_critic(critic)
+        tw1, tb1, tw2, tb2, tw3, tb3 = pack_critic(target)
         packed = PackedParams(
-            a_w1=pad1(aw1), a_b1=ab1, a_w2=aw2, a_b2=ab2,
+            a_w1=pad_first_layer(aw1), a_b1=ab1, a_w2=aw2, a_b2=ab2,
             a_wh=torch.cat([awm, aws], dim=1), a_bh=torch.cat([abm, abs_]),
             c_w1=cw1, c_b1=cb1, c_w2=cw2, c_b2=cb2, c_w3=cw3, c_b3=cb3,
             t_w1=tw1, t_b1=tb1, t_w2=tw2, t_b2=tb2, t_w3=tw3, t_b3=tb3,
@@ -312,31 +149,11 @@ def _build_width(h: int):
             "log_std_head.kernel": packed.a_wh[:, action_dim:],
             "log_std_head.bias": packed.a_bh[action_dim:],
         }
-
-        def unpack_critic(w1, b1, w2, b2, w3, b3):
-            out = {}
-            for i, q in enumerate(("q1", "q2")):
-                out.update({
-                    f"{q}.layers.0.kernel": w1[i, :d_c], f"{q}.layers.0.bias": b1[i],
-                    f"{q}.layers.1.kernel": w2[i], f"{q}.layers.1.bias": b2[i],
-                    f"{q}.layers.2.kernel": w3[i][:, None], f"{q}.layers.2.bias": b3[i][None],
-                })
-            return out
-
-        critic = unpack_critic(packed.c_w1, packed.c_b1, packed.c_w2, packed.c_b2,
-                               packed.c_w3, packed.c_b3)
-        target = unpack_critic(packed.t_w1, packed.t_b1, packed.t_w2, packed.t_b2,
-                               packed.t_w3, packed.t_b3)
+        critic = unpack_critic(*(getattr(packed, f) for f in CRITIC_FIELDS), d_c)
+        target = unpack_critic(*(getattr(packed, f) for f in TARGET_FIELDS), d_c)
         return actor, critic, target, packed.log_alpha
 
     # ------------------------------------------------ plain PyTorch version --
-    def _pad_x(obs, act, obs_dim):
-        x = torch.zeros((obs.shape[0], IN1), dtype=torch.float32, device=obs.device)
-        x[:, :obs_dim] = obs[:, :obs_dim]
-        if act is not None:
-            x[:, obs_dim:obs_dim + act.shape[1]] = act
-        return x
-
     def _sample(mean, log_std_raw, noise):
         log_std = torch.clamp(log_std_raw, LOG_STD_MIN, LOG_STD_MAX)
         pre = mean + torch.exp(log_std) * noise
@@ -344,17 +161,6 @@ def _build_width(h: int):
         logp = -0.5 * (noise**2 + 2 * log_std + LOG2PI)
         logp = logp - 2 * (LOG2 - pre - nn.functional.softplus(-2 * pre))
         return a, logp.sum(-1)
-
-    def _adam(g, m, v, lr, t):
-        """One Adam step with the bias corrections folded into two scalars
-        (algebraically lr * (m / bc1) / (sqrt(v / bc2) + EPS)); b**t is
-        exp(t * log b) in float32, as the kernels compute it.  `t` is a
-        float32 tensor."""
-        m = B1 * m + (1 - B1) * g
-        v = B2 * v + (1 - B2) * g * g
-        bc1 = 1.0 - torch.exp(t * math.log(B1))
-        sb2 = torch.sqrt(1.0 - torch.exp(t * math.log(B2)))
-        return -(lr * sb2 / bc1) * m / (torch.sqrt(v) + EPS * sb2), m, v
 
     def update_k_reference(packed: PackedParams, adam: PackedAdam, batches, noises,
                            obs_dim: int, gamma: float, tau: float, lr: float,
@@ -367,8 +173,8 @@ def _build_width(h: int):
         rounds where the kernels round: the operands of the matrix products
         and the post-ReLU activations to bfloat16, accumulation in float32.
         Returns (packed', adam', critic_losses (K,), actor_losses (K,))."""
-        dot = _BF16Dot.apply if mm_bf16 else torch.matmul
-        rnd = _BF16Round.apply if mm_bf16 else (lambda x: x)
+        dot = BF16Dot.apply if mm_bf16 else torch.matmul
+        rnd = BF16Round.apply if mm_bf16 else (lambda x: x)
 
         def layer1(x, w1, b1):
             # the obs columns go through the rounded product, the action
@@ -400,15 +206,15 @@ def _build_width(h: int):
             noise = noises[k].to(torch.float32)
             t = torch.tensor(float(count + 1), dtype=torch.float32, device=noise.device)
             alpha = torch.exp(p.log_alpha)
-            obs = _pad_x(batch.obs, batch.action, obs_dim)
-            obs_only = _pad_x(batch.obs, None, obs_dim)
+            obs = pad_x(batch.obs, batch.action, obs_dim)
+            obs_only = pad_x(batch.obs, None, obs_dim)
 
             # -- critic loss --
             with torch.no_grad():
-                mean, lsr = actor_fwd(p, _pad_x(batch.next_obs, None, obs_dim))
+                mean, lsr = actor_fwd(p, pad_x(batch.next_obs, None, obs_dim))
                 na, nlogp = _sample(mean, lsr, noise[:, 0])
                 q1t, q2t = both([getattr(p, f) for f in TARGET_FIELDS],
-                                _pad_x(batch.next_obs, na, obs_dim))
+                                pad_x(batch.next_obs, na, obs_dim))
                 tq = batch.reward + gamma * batch.discount * (
                     torch.minimum(q1t, q2t) - alpha * nlogp)
 
@@ -418,7 +224,7 @@ def _build_width(h: int):
             cg = torch.autograd.grad(closs, cw)
             upd = {}
             for f, g in zip(CRITIC_FIELDS, cg):
-                u, new_m[f], new_v[f] = _adam(g, new_m[f], new_v[f], lr, t)
+                u, new_m[f], new_v[f] = adam_step(g, new_m[f], new_v[f], lr, t)
                 upd[f] = getattr(p, f) + u
             p = p._replace(**upd)
 
@@ -427,18 +233,18 @@ def _build_width(h: int):
             p2 = p._replace(**dict(zip(ACTOR_FIELDS, aw)))
             mean, lsr = actor_fwd(p2, obs_only)
             a, logp = _sample(mean, lsr, noise[:, 1])
-            q1, q2 = both([getattr(p, f) for f in CRITIC_FIELDS], _pad_x(batch.obs, a, obs_dim))
+            q1, q2 = both([getattr(p, f) for f in CRITIC_FIELDS], pad_x(batch.obs, a, obs_dim))
             aloss = (alpha * logp - torch.minimum(q1, q2)).mean()
             ag = torch.autograd.grad(aloss, aw)
             upd = {}
             for f, g in zip(ACTOR_FIELDS, ag):
-                u, new_m[f], new_v[f] = _adam(g, new_m[f], new_v[f], lr, t)
+                u, new_m[f], new_v[f] = adam_step(g, new_m[f], new_v[f], lr, t)
                 upd[f] = getattr(p, f) + u
             p = p._replace(**upd)
 
             # -- temperature --
             g_la = -(logp.detach().mean() + target_entropy)
-            u, new_m["log_alpha"], new_v["log_alpha"] = _adam(
+            u, new_m["log_alpha"], new_v["log_alpha"] = adam_step(
                 g_la, new_m["log_alpha"], new_v["log_alpha"], lr, t)
             la = p.log_alpha + u
             if alpha_floor > 0:
@@ -551,73 +357,22 @@ def _build_width(h: int):
     def _kernel_call(f: FusedState, data, row_idx, noises, *, obs_dim, gamma, tau, lr,
                      target_entropy, alpha_floor=0.0, block=2048, mm_bf16=True, fold=False,
                      cluster_max=CLUSTER_MAX):
-        """Shared launcher of both data modes (`_data_mode`) and both kernels.
+        """K4 (K5 with `fold`) in either data mode (learner_kernels.dispatch).
         `block` is checked as the JAX kernels check it; the CUDA kernels tile
         the batch, or each ring row, by KERNEL_TILE[H] samples per thread
         block whatever it is, the last tile of a row partial where that does
         not divide it.  On a card the launch takes thread block clusters of
-        at most `cluster_max` blocks (`plan`).
+        at most `cluster_max` blocks (learner_kernels.plan).
         Returns (FusedState', critic_losses (K,), actor_losses (K,))."""
         K, B = noises.shape[0], noises.shape[1]
         if tuple(noises.shape) != (K, B, 2, 2):
             raise ValueError(f"noises must be (K, B, 2, 2), got {tuple(noises.shape)}")
-        W, lanes, rpb = _data_mode(f, data, row_idx, K, B, obs_dim, block, WROWS)
-        hyper = dict(obs_dim=obs_dim, gamma=gamma, tau=tau, lr=lr,
-                     target_entropy=target_entropy, alpha_floor=alpha_floor)
-
-        if f.w.device.type == "cpu":
-            packed, adam = fused_unpack(f)
-            packed, adam, closs, aloss = update_k_reference(
-                packed, adam, _gathered(data, row_idx, K, B, obs_dim), noises,
-                mm_bf16=mm_bf16, **hyper)
-            return fused_init(packed, adam), closs, aloss
-        if f.w.device.type != "cuda":
-            raise ValueError(f"unsupported device {f.w.device}")
-        closs, aloss = _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, fold,
-                               cluster_max, **hyper)
-        return f._replace(count=int(f.count) + K), closs, aloss
-
-    def _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, fold, cluster_max, *,
-                obs_dim, gamma, tau, lr, target_entropy, alpha_floor):
-        """Check what the kernel takes, allocate its scratch, launch it."""
-        ts, state, row_idx = _kernel_operands(f, data, row_idx, noises, VROWS)
-        dev = f.w.device
-        tiles = n_tiles(lanes, rpb, ts)
-        lib, name = _lib(fold)
-        with torch.cuda.device(dev):
-            grid, _, cluster = plan(H, W, obs_dim, tiles, mm_bf16, fold, cluster_max)
-            # (K, 4, B): rows 0:2 the critic's normals, 2:4 the actor's
-            noise = noises.reshape(K, B, 4).transpose(1, 2).contiguous()
-            n1 = obs_dim + 2
-            prows = 2 * (n1 + 3 + H) + 1
-            # one gradient slot a cluster of `cluster` blocks
-            partials = torch.empty((grid // cluster, prows, H), dtype=torch.float32, device=dev)
-            # the products' weights: in float32 mode the transposed W2 copies, in
-            # bf16 mode the bf16 shadow of the first 5 (IN1 + H) rows of `w`
-            wt = wb = None
-            if mm_bf16:
-                wb = torch.empty((5 * (IN1 + H), H), dtype=torch.bfloat16, device=dev)
-            else:
-                wt = torch.empty((3, H, H), dtype=torch.float32, device=dev)
-            stash = torch.empty((tiles, 2, ts, H), dtype=torch.float32, device=dev)
-            losses = torch.empty((K, 2), dtype=torch.float32, device=dev)
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = getattr(lib, name)(
-                *[t.data_ptr() for t in state], data.data_ptr(),
-                row_idx.data_ptr() if row_idx is not None else None, noise.data_ptr(),
-                losses.data_ptr(), partials.data_ptr(), wt.data_ptr() if wt is not None else None,
-                stash.data_ptr(), wb.data_ptr() if wb is not None else None,
-                H, K, B, W, lanes, rpb, obs_dim, grid, cluster, int(bool(mm_bf16)),
-                int(alpha_floor > 0),
-                gamma, tau, lr, target_entropy, float(f.count),
-                math.log(alpha_floor) if alpha_floor > 0 else 0.0, stream)
-        if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: "
-                               f"{_PLAN_ERRORS.get(err, 'CUDA error')} (code {err})")
-        profiling.launch("sac_update_fold" if fold else "sac_update")
-        # a slot a cluster in each update's critic and actor stages
-        profiling.add({"learner.slots_written": 2 * K * (grid // cluster)})
-        return losses[:, 0], losses[:, 1]
+        hyper = dict(gamma=gamma, tau=tau, lr=lr, target_entropy=target_entropy,
+                     alpha_floor=alpha_floor)
+        return learner_kernels.dispatch(
+            learner_kernels.SAC_FOLD if fold else learner_kernels.SAC, build(H), f, data,
+            row_idx, noises, kernel_scalars(f.count, **hyper), dict(count=int(f.count) + K),
+            obs_dim=obs_dim, block=block, mm_bf16=mm_bf16, cluster_max=cluster_max, **hyper)
 
     def fused_update_k_wmat(f: FusedState, ring, row_idx, noises, **kw):
         """K SAC updates on the cached kernel-layout state, sampling the
@@ -666,46 +421,13 @@ def _build_width(h: int):
     return ns
 
 
-_PLAN_ERRORS = {
-    -1: "hidden width not built",
-    -2: "the kernel's shared memory does not fit one SM",
-    -4: "the grid or the cluster is not the planned one",
-    -5: "no scratch for the products' weights of this mode",
-}
-
-
-def plan(h: int, W: int, obs_dim: int, tiles: int, mm_bf16: bool, fold: bool = False,
-         cluster_max: int = CLUSTER_MAX):
-    """(grid, shared-memory bytes, cluster size) of a launch of K4 (or K5)
-    on the current CUDA device: clusters of at most cluster_max blocks
-    (csrc/learner_tiles.cuh, plan_launch).  Raises where it cannot launch."""
-    lib, name = _lib(fold)
-    out = (ctypes.c_int * 3)()
-    err = getattr(lib, name + "_plan")(h, W, obs_dim, tiles, int(bool(mm_bf16)), cluster_max,
-                                       out)
-    if err != 0:
-        raise RuntimeError(f"{name}: {_PLAN_ERRORS.get(err, 'CUDA error')} (code {err}) at "
-                           f"H={h}, W={W}, {tiles} tiles of {KERNEL_TILE.get(h)} samples")
-    return out[0], out[1], out[2]
-
-
-@functools.cache
-def _lib(fold: bool):
-    """(ctypes library, entry point name) of K4 (fold False) or K5."""
-    name = "sac_update_fold" if fold else "sac_update"
-    lib = cuda_build.load(name)
-    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = getattr(lib, "sg_" + name)
-    # six state tensors, data, row_idx, noise, losses, partials, wt, stash, wb; H, K, B, W,
-    # lanes, rpb, obs_dim, grid, cluster, mm_bf16, has_floor; gamma, tau, lr,
-    # target_entropy, count0, log_floor; stream
-    fn.argtypes = [p] * 14 + [i] * 11 + [fl] * 6 + [p]
-    fn.restype = i
-    plan = getattr(lib, "sg_" + name + "_plan")
-    # H, W, obs_dim, n_tiles, mm_bf16, largest cluster -> grid, smem, cluster
-    plan.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
-    plan.restype = i
-    return lib, "sg_" + name
+def kernel_scalars(count, *, gamma, tau, lr, target_entropy, alpha_floor=0.0):
+    """K4's and K5's scalars by name (learner_kernels.SAC): the hyper-
+    parameters, the Adam count before the launch, and the temperature's floor
+    (has_floor, log_floor)."""
+    floor = alpha_floor > 0
+    return dict(has_floor=int(floor), gamma=gamma, tau=tau, lr=lr, target_entropy=target_entropy,
+                count0=float(count), log_floor=math.log(alpha_floor) if floor else 0.0)
 
 
 @functools.lru_cache(maxsize=None)

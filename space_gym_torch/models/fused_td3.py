@@ -20,8 +20,8 @@ What an update is (models/td3.py::_update_once):
 
 `update_k_reference` is the kernel's plain PyTorch version (torch.autograd on
 the packed layout); the entry points take it for tensors on the CPU, and
-launch the kernel or raise for tensors on a CUDA device.  There is no
-fallback.
+launch the kernel or raise for tensors on a CUDA device (the launch that
+K4, K5 and K6 share: models/learner_kernels.py).  There is no fallback.
 
 Kernel layout, as in the JAX package (IN1 = 128 padded first-layer rows):
 
@@ -38,26 +38,22 @@ returned FusedState shares the tensors it was given.
 Counts (utils/profiling.py): each call of the entry points, on either
 device, adds its K updates to `td3.critic_updates` and its delayed ones
 (`applied_steps`) to `td3.actor_updates`; a launch of K6 adds 1 to
-`td3_update` and the gradient slots it writes (one a cluster of blocks in
-each critic stage and each delayed actor stage) to `learner.slots_written`.
+`td3_update`.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
 
-from ..utils import cuda_build, profiling
-from .fused_sac import CLUSTER_MAX
-from .fused_sac import (KERNEL_TILE, _BF16Dot, _BF16Round, _PLAN_ERRORS, _adam,  # noqa: F401
-                        _critic_leaves, _data_mode, _gathered, _kernel_operands, _pad_x, _sd,
-                        n_tiles)
+from ..utils import profiling
+from . import learner_kernels
+from .learner_kernels import (CLUSTER_MAX, IN1, BF16Dot, BF16Round, adam_step, pack_critic,
+                              pad_first_layer, pad_x, state_dict, unpack_critic)
 from .replay import Transition, pack_slab
 
-IN1 = 128     # padded first-layer input width (obs | action | zeros)
 AH = 2        # actor head columns (deterministic: the action only)
 
 
@@ -120,7 +116,7 @@ class FusedState(NamedTuple):
 
 
 def _actor_leaves(actor):
-    sd = _sd(actor)
+    sd = state_dict(actor)
     return (sd["mlp.layers.0.kernel"], sd["mlp.layers.0.bias"],
             sd["mlp.layers.1.kernel"], sd["mlp.layers.1.bias"],
             sd["head.kernel"], sd["head.bias"])
@@ -135,36 +131,19 @@ def applied_steps(count: int, k: int, policy_delay: int) -> int:
 
 def _build_width(h: int):
     """All width-dependent layout constants and functions, closed over the
-    hidden width `h` (see fused_sac._build_width).  `build(256)` is the
+    hidden width `h` (as fused_sac._build_width).  `build(256)` is the
     flagship layout and is re-exported at module level."""
     H = h
 
     # -------------------------------------------------- modules <-> packed --
-    def _pad1(w):
-        out = torch.zeros((IN1, H), dtype=torch.float32, device=w.device)
-        out[:w.shape[0]] = w
-        return out
-
-    def _pack_critic(leaves):
-        (w1a, b1a, w2a, b2a, w3a, b3a), (w1b, b1b, w2b, b2b, w3b, b3b) = leaves
-        return (
-            torch.stack([_pad1(w1a), _pad1(w1b)]),
-            torch.stack([b1a, b1b]),
-            torch.stack([w2a, w2b]),
-            torch.stack([b2a, b2b]),
-            torch.stack([w3a[:, 0], w3b[:, 0]]),
-            torch.stack([b3a[0], b3b[0]]),
-        )
-
     def pack_params(actor, target_actor, critic, target_critic) -> PackedParams:
         """Modules (or mappings named like their state dicts) -> PackedParams."""
         def actor_group(net):
             w1, b1, w2, b2, wh, bh = _actor_leaves(net)
-            return (_pad1(w1), b1, w2, b2, wh, bh)
+            return (pad_first_layer(w1), b1, w2, b2, wh, bh)
 
-        leaves = (actor_group(actor) + actor_group(target_actor)
-                  + _pack_critic(_critic_leaves(critic))
-                  + _pack_critic(_critic_leaves(target_critic)))
+        leaves = (actor_group(actor) + actor_group(target_actor) + pack_critic(critic)
+                  + pack_critic(target_critic))
         return PackedParams(*[x.detach().to(torch.float32).clone() for x in leaves])
 
     def unpack_params(packed: PackedParams, obs_dim: int, action_dim: int = 2):
@@ -177,20 +156,10 @@ def _build_width(h: int):
                     "mlp.layers.1.kernel": w2, "mlp.layers.1.bias": b2,
                     "head.kernel": wh[:, :action_dim], "head.bias": bh[:action_dim]}
 
-        def critic_tree(w1, b1, w2, b2, w3, b3):
-            out = {}
-            for i, q in enumerate(("q1", "q2")):
-                out.update({
-                    f"{q}.layers.0.kernel": w1[i, :d_c], f"{q}.layers.0.bias": b1[i],
-                    f"{q}.layers.1.kernel": w2[i], f"{q}.layers.1.bias": b2[i],
-                    f"{q}.layers.2.kernel": w3[i][:, None], f"{q}.layers.2.bias": b3[i][None],
-                })
-            return out
-
         return (actor_tree(*(getattr(packed, f) for f in ACTOR_FIELDS)),
                 actor_tree(*(getattr(packed, f) for f in TACTOR_FIELDS)),
-                critic_tree(*(getattr(packed, f) for f in CRITIC_FIELDS)),
-                critic_tree(*(getattr(packed, f) for f in TARGET_FIELDS)))
+                unpack_critic(*(getattr(packed, f) for f in CRITIC_FIELDS), d_c),
+                unpack_critic(*(getattr(packed, f) for f in TARGET_FIELDS), d_c))
 
     def adam_init(packed: PackedParams) -> PackedAdam:
         return PackedAdam(m=PackedParams(*[torch.zeros_like(x) for x in packed]),
@@ -208,8 +177,8 @@ def _build_width(h: int):
         rounds where the kernel rounds: the operands of the matrix products
         and the post-ReLU activations to bfloat16, accumulation in float32.
         Returns (packed', adam', critic_losses (K,), actor_losses (K,))."""
-        dot = _BF16Dot.apply if mm_bf16 else torch.matmul
-        rnd = _BF16Round.apply if mm_bf16 else (lambda x: x)
+        dot = BF16Dot.apply if mm_bf16 else torch.matmul
+        rnd = BF16Round.apply if mm_bf16 else (lambda x: x)
 
         def actor_fwd(w1, b1, w2, b2, wh, bh, x):
             h1 = rnd(torch.relu(dot(x[:, :obs_dim], w1[:obs_dim]) + b1))
@@ -239,15 +208,15 @@ def _build_width(h: int):
             def step(n):
                 return torch.tensor(float(n), dtype=torch.float32, device=noise.device)
 
-            obs = _pad_x(batch.obs, batch.action, obs_dim)
-            obs_only = _pad_x(batch.obs, None, obs_dim)
+            obs = pad_x(batch.obs, batch.action, obs_dim)
+            obs_only = pad_x(batch.obs, None, obs_dim)
 
             # -- critic loss (target actor + smoothing) --
             with torch.no_grad():
                 eps = torch.clamp(smooth_std * noise, -smooth_clip, smooth_clip)
                 ta = actor_fwd(*[getattr(p, f) for f in TACTOR_FIELDS],
-                               _pad_x(batch.next_obs, None, obs_dim))
-                nx = _pad_x(batch.next_obs, torch.clamp(ta + eps, -1.0, 1.0), obs_dim)
+                               pad_x(batch.next_obs, None, obs_dim))
+                nx = pad_x(batch.next_obs, torch.clamp(ta + eps, -1.0, 1.0), obs_dim)
                 tw = [getattr(p, f) for f in TARGET_FIELDS]
                 tq = batch.reward + gamma * batch.discount * torch.minimum(
                     critic(tw, 0, nx), critic(tw, 1, nx))
@@ -257,7 +226,7 @@ def _build_width(h: int):
             cg = torch.autograd.grad(closs, cw)
             upd = {}
             for f, g in zip(CRITIC_FIELDS, cg):
-                u, new_m[f], new_v[f] = _adam(g, new_m[f], new_v[f], lr, step(count + 1))
+                u, new_m[f], new_v[f] = adam_step(g, new_m[f], new_v[f], lr, step(count + 1))
                 upd[f] = getattr(p, f) + u
             p = p._replace(**upd)
 
@@ -267,13 +236,13 @@ def _build_width(h: int):
             with torch.set_grad_enabled(do_actor):
                 a = actor_fwd(*aw, obs_only)
                 aloss = -critic([getattr(p, f) for f in CRITIC_FIELDS], 0,
-                                _pad_x(batch.obs, a, obs_dim)).mean()
+                                pad_x(batch.obs, a, obs_dim)).mean()
             if do_actor:
                 # -- delayed: the actor's Adam step and both polyak steps --
                 ag = torch.autograd.grad(aloss, aw)
                 upd = {}
                 for f, g in zip(ACTOR_FIELDS, ag):
-                    u, new_m[f], new_v[f] = _adam(g, new_m[f], new_v[f], lr, step(count_a + 1))
+                    u, new_m[f], new_v[f] = adam_step(g, new_m[f], new_v[f], lr, step(count_a + 1))
                     upd[f] = getattr(p, f) + u
                 p = p._replace(**upd)
                 p = p._replace(**{
@@ -388,81 +357,31 @@ def _build_width(h: int):
     def _kernel_call(f: FusedState, data, row_idx, noises, *, obs_dim, gamma, tau, lr,
                      smooth_std=0.2, smooth_clip=0.5, policy_delay=2, block=2048, mm_bf16=True,
                      cluster_max=CLUSTER_MAX):
-        """Shared launcher of both data modes (fused_sac._data_mode).  `block`
-        is checked as the JAX kernel checks it; K6 tiles the batch, or each
-        ring row, by KERNEL_TILE[H] samples per thread block whatever it is,
-        the last tile of a row partial where that does not divide it; on a
-        card in thread block clusters of at most `cluster_max` blocks (`plan`).  noises:
-        (K, B, 2).  Adds the K critic updates and the delayed actor updates
-        to the counts `td3.critic_updates` and `td3.actor_updates`.  Returns
-        (FusedState', critic_losses (K,), actor_losses (K,))."""
+        """K6 in either data mode (learner_kernels.dispatch).  `block` is
+        checked as the JAX kernel checks it; K6 tiles the batch, or each ring
+        row, by KERNEL_TILE[H] samples per thread block whatever it is, the
+        last tile of a row partial where that does not divide it; on a card
+        in thread block clusters of at most `cluster_max` blocks
+        (learner_kernels.plan).  noises: (K, B, 2).  Adds the K critic
+        updates and the delayed actor updates to the counts
+        `td3.critic_updates` and `td3.actor_updates`.  Returns (FusedState',
+        critic_losses (K,), actor_losses (K,))."""
         K, B = noises.shape[0], noises.shape[1]
         if tuple(noises.shape) != (K, B, AH):
             raise ValueError(f"noises must be (K, B, {AH}), got {tuple(noises.shape)}")
         if int(policy_delay) < 1:
             raise ValueError(f"policy_delay must be at least 1, got {policy_delay}")
-        W, lanes, rpb = _data_mode(f, data, row_idx, K, B, obs_dim, block, WROWS)
-        hyper = dict(obs_dim=obs_dim, gamma=gamma, tau=tau, lr=lr, smooth_std=smooth_std,
-                     smooth_clip=smooth_clip, policy_delay=int(policy_delay))
-
-        count = int(f.count)
+        hyper = dict(gamma=gamma, tau=tau, lr=lr, smooth_std=smooth_std, smooth_clip=smooth_clip,
+                     policy_delay=int(policy_delay))
+        count, count_a = int(f.count), int(f.count_a)
         n_act = applied_steps(count, K, int(policy_delay))
-        if f.w.device.type == "cpu":
-            packed, adam = fused_unpack(f)
-            packed, adam, closs, aloss = update_k_reference(
-                packed, adam, _gathered(data, row_idx, K, B, obs_dim), noises,
-                mm_bf16=mm_bf16, **hyper)
-            out = fused_init(packed, adam)
-        elif f.w.device.type == "cuda":
-            closs, aloss = _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16,
-                                   cluster_max, **hyper)
-            out = f._replace(count=count + K, count_a=int(f.count_a) + n_act)
-        else:
-            raise ValueError(f"unsupported device {f.w.device}")
+        out = learner_kernels.dispatch(
+            learner_kernels.TD3, build(H), f, data, row_idx, noises,
+            kernel_scalars(count, count_a, **hyper), dict(count=count + K, count_a=count_a + n_act),
+            obs_dim=obs_dim, block=block, mm_bf16=mm_bf16, cluster_max=cluster_max, **hyper)
         # the updates made, host integers: no sync (utils/profiling.py)
         profiling.add({"td3.critic_updates": K, "td3.actor_updates": n_act})
-        return out, closs, aloss
-
-    def _launch(f, data, row_idx, noises, K, B, W, lanes, rpb, mm_bf16, cluster_max, *, obs_dim,
-                gamma, tau, lr, smooth_std, smooth_clip, policy_delay):
-        """Check what the kernel takes, allocate its scratch, launch it."""
-        ts, state, row_idx = _kernel_operands(f, data, row_idx, noises, VROWS)
-        dev = f.w.device
-        tiles = n_tiles(lanes, rpb, ts)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            grid, _, cluster = plan(H, W, obs_dim, tiles, mm_bf16, cluster_max)
-            noise = noises.transpose(1, 2).contiguous()          # (K, 2, B)
-            prows = 2 * (obs_dim + 2 + 3 + H) + 1
-            # one gradient slot a cluster of `cluster` blocks
-            partials = torch.empty((grid // cluster, prows, H), dtype=torch.float32, device=dev)
-            # the products' weights: in float32 mode the transposed W2 copies, in
-            # bf16 mode the bf16 shadow of the first 6 (IN1 + H) rows of `w`
-            wt = wb = None
-            if mm_bf16:
-                wb = torch.empty((6 * (IN1 + H), H), dtype=torch.bfloat16, device=dev)
-            else:
-                wt = torch.empty((3, H, H), dtype=torch.float32, device=dev)
-            stash = torch.empty((tiles, 2, ts, H), dtype=torch.float32, device=dev)
-            alp = torch.empty((K, grid), dtype=torch.float32, device=dev)
-            losses = torch.empty((K, 2), dtype=torch.float32, device=dev)
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.sg_td3_update(
-                *[t.data_ptr() for t in state], data.data_ptr(),
-                row_idx.data_ptr() if row_idx is not None else None, noise.data_ptr(),
-                losses.data_ptr(), partials.data_ptr(), wt.data_ptr() if wt is not None else None,
-                stash.data_ptr(), alp.data_ptr(), wb.data_ptr() if wb is not None else None,
-                H, K, B, W, lanes, rpb, obs_dim, grid, cluster, int(bool(mm_bf16)),
-                int(f.count), int(f.count_a), policy_delay,
-                gamma, tau, lr, smooth_std, smooth_clip, stream)
-        if err != 0:
-            raise RuntimeError(f"sg_td3_update kernel launch failed: "
-                           f"{_PLAN_ERRORS.get(err, 'CUDA error')} (code {err})")
-        profiling.launch("td3_update")
-        # a slot a cluster in each critic stage and each delayed actor stage
-        n_act = applied_steps(int(f.count), K, policy_delay)
-        profiling.add({"learner.slots_written": (K + n_act) * (grid // cluster)})
-        return losses[:, 0], losses[:, 1]
+        return out
 
     def fused_update_k_wmat(f: FusedState, ring, row_idx, noises, **kw):
         """K TD3 updates on the cached kernel-layout state, sampling the
@@ -512,33 +431,12 @@ def _build_width(h: int):
     return ns
 
 
-def plan(h: int, W: int, obs_dim: int, tiles: int, mm_bf16: bool,
-         cluster_max: int = CLUSTER_MAX):
-    """(grid, shared-memory bytes, cluster size) of a launch of K6 on the
-    current CUDA device: clusters of at most cluster_max blocks
-    (csrc/learner_tiles.cuh, plan_launch).  Raises where it cannot launch."""
-    out = (ctypes.c_int * 3)()
-    err = _lib().sg_td3_update_plan(h, W, obs_dim, tiles, int(bool(mm_bf16)), cluster_max, out)
-    if err != 0:
-        raise RuntimeError(f"sg_td3_update: {_PLAN_ERRORS.get(err, 'CUDA error')} (code {err}) "
-                           f"at H={h}, W={W}, {tiles} tiles of {KERNEL_TILE.get(h)} samples")
-    return out[0], out[1], out[2]
-
-
-@functools.cache
-def _lib():
-    """The ctypes library of K6 with its two entry points typed."""
-    lib = cuda_build.load("td3_update")
-    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # six state tensors, data, row_idx, noise, losses, partials, wt, stash, alp, wb; H, K, B,
-    # W, lanes, rpb, obs_dim, grid, cluster, mm_bf16, count0, count_a0, policy_delay; gamma,
-    # tau, lr, smooth_std, smooth_clip; stream
-    lib.sg_td3_update.argtypes = [p] * 15 + [i] * 13 + [fl] * 5 + [p]
-    lib.sg_td3_update.restype = i
-    # H, W, obs_dim, n_tiles, mm_bf16, largest cluster -> grid, smem, cluster
-    lib.sg_td3_update_plan.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
-    lib.sg_td3_update_plan.restype = i
-    return lib
+def kernel_scalars(count, count_a, *, gamma, tau, lr, smooth_std, smooth_clip, policy_delay):
+    """K6's scalars by name (learner_kernels.TD3): the critics' and the
+    actor's Adam counts before the launch, the delay and the
+    hyper-parameters."""
+    return dict(count0=int(count), count_a0=int(count_a), policy_delay=int(policy_delay),
+                gamma=gamma, tau=tau, lr=lr, smooth_std=smooth_std, smooth_clip=smooth_clip)
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,7 +24,7 @@ import torch
 from ..engine.core import EnvEngine, PolicyRollout
 from ..parallel.mesh import gather_model, split_model, trainer_state_shardings
 from ..utils import profiling
-from .fused_sac import check_kernel_width
+from .learner_kernels import check_kernel_width
 from .replay import (Transition, global_lanes, replay_add_slab, replay_rows, replay_sample,
                      replay_sample_rows)
 

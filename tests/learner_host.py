@@ -2,8 +2,9 @@
 (tests/test_torch_sac_kernel_host*.py, tests/test_torch_td3_kernel_host*.py):
 csrc/sac_update.cuh (K4, K5) and csrc/td3_update.cuh (K6) compiled by g++
 against the stand-in CUDA headers of csrc/host/ (one fiber per CUDA
-thread, real barriers), called as the wrappers call them on the card, and
-held to the plain version `update_k_reference`.
+thread, real barriers), launched by the card's own launch code
+(models/learner_kernels.py, `launch`: its plan, scratch and C arguments),
+and held to the plain version `update_k_reference`.
 
 The CUDA kernels run only on a card (tests/test_torch_cuda.py).  This build
 says nothing about the card, but it runs the same source, so it catches a
@@ -30,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from space_gym_torch.models import fused_sac, fused_td3
+from space_gym_torch.models import fused_sac, fused_td3, learner_kernels
 from space_gym_torch.models.replay import Transition, pack_slab, replay_cols, unpack_flat
 from space_gym_torch.utils.cuda_build import CSRC
 
@@ -40,8 +41,8 @@ TD3_HYPER = dict(gamma=0.99, tau=0.005, lr=3e-4, smooth_std=0.2, smooth_clip=0.5
 
 @functools.cache
 def _build(name: str, out_dir: str):
-    """csrc/host/<name>_host.cpp compiled into out_dir and loaded, its entry
-    points typed."""
+    """csrc/host/<name>_host.cpp compiled into out_dir and loaded, its own
+    entry points typed (learner_kernels types the kernels' on first use)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
@@ -51,23 +52,15 @@ def _build(name: str, out_dir: str):
                     "-o", out, os.path.join(host, f"{name}_host.cpp")],
                    check=True, capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(out)
-    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # H, W, obs_dim, n_tiles, bf, cmax -> grid, smem, cluster size
-    plan_types = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_set_lag.argtypes = [i]
+    kernels = ((learner_kernels.SAC, learner_kernels.SAC_FOLD) if name == "sac_update"
+               else (learner_kernels.TD3,))
+    for kernel in kernels:  # the tests also call the plans directly
+        learner_kernels.entry_points(lib, kernel)
     if name == "sac_update":
         lib.host_mma_tile.argtypes = [p, p, p, i, i]
         lib.host_mma_tile.restype = i
-        for fn in ("sg_sac_update", "sg_sac_update_fold"):
-            getattr(lib, fn).argtypes = [p] * 14 + [i] * 11 + [fl] * 6 + [p]
-            getattr(lib, fn).restype = i
-            getattr(lib, fn + "_plan").argtypes = plan_types
-            getattr(lib, fn + "_plan").restype = i
-    else:
-        lib.sg_td3_update.argtypes = [p] * 15 + [i] * 13 + [fl] * 5 + [p]
-        lib.sg_td3_update.restype = i
-        lib.sg_td3_update_plan.argtypes = plan_types
-        lib.sg_td3_update_plan.restype = i
     return lib
 
 
@@ -106,11 +99,6 @@ def _data(rng, obs_dim, K, B, lanes):
     return pack_slab(batches, obs_dim, 2), None, batches
 
 
-def _modes(B, data, row_idx):
-    """(lanes, rpb) of a launch on `data`."""
-    return (B, 0) if row_idx is None else (data.shape[2], B // data.shape[2])
-
-
 def digest(f, losses) -> str:
     """SHA-256 (16 hex digits) of what a launch wrote: the state and the losses."""
     h = hashlib.sha256()
@@ -119,46 +107,37 @@ def digest(f, losses) -> str:
     return h.hexdigest()[:16]
 
 
-# ------------------------------------------------------------ K4 and K5 --
-def sac_launch(lib, h, f, data, row_idx, noises, obs_dim, fold, bf, sms, alpha_floor=0.0,
-               cmax=fused_sac.CLUSTER_MAX, planned=None):
-    """What fused_sac._launch does on the card, on CPU tensors: scratch
-    poisoned with NaN, state copied, the host library called; clusters of at
-    most cmax blocks.  `planned` (a list) receives the plan's (grid, C)."""
-    name = "sg_sac_update_fold" if fold else "sg_sac_update"
+# ------------------------------------------------------------ a launch --
+def _nan(shape, dtype, device):
+    """Scratch poisoned with NaN: a launch must write what it reads."""
+    return torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+
+def host_launch(lib, kernel, f, data, row_idx, noises, scalars, obs_dim, bf, sms, cmax, planned):
+    """What the entry points launch on the card (learner_kernels.launch), on
+    CPU tensors: the host library with `sms` blocks resident, the scratch
+    poisoned with NaN, the state copied; clusters of at most cmax blocks.
+    `planned` (a list) receives the plan's (grid, C).  Returns (the copied
+    state, updated, and the losses)."""
     lib.host_set_sms(sms)
-    K, B = noises.shape[:2]
-    W = data.shape[1]
-    ts = fused_sac.KERNEL_TILE[h]
-    lanes, rpb = _modes(B, data, row_idx)
-    n_tiles = fused_sac.n_tiles(lanes, rpb, ts)
-    plan = (ctypes.c_int * 3)()
-    err = getattr(lib, name + "_plan")(h, W, obs_dim, n_tiles, int(bf), cmax, plan)
-    if err:
-        return err, None, None
-    grid, cluster = plan[0], plan[2]
+    f = f._replace(**{n: getattr(f, n).clone() for n in ("w", "vec", "mw", "vw", "mvec", "vvec")})
+    losses, grid, cluster = learner_kernels.launch(
+        kernel, f, data, row_idx, noises, scalars, obs_dim=obs_dim, mm_bf16=bf, cluster_max=cmax,
+        lib=lib, empty=_nan)
     if planned is not None:
         planned.append((grid, cluster))
-    nan = float("nan")
-    noise = noises.reshape(K, B, 4).transpose(1, 2).contiguous()
-    partials = torch.full((grid // cluster, 2 * (obs_dim + 5 + h) + 1, h), nan)
-    # the products' weights: the transposed copies in float32, the bf16 shadow
-    wt = None if bf else torch.full((3, h, h), nan)
-    wb = torch.full((5 * (128 + h), h), nan, dtype=torch.bfloat16) if bf else None
-    stash = torch.full((n_tiles, 2, ts, h), nan)
-    losses = torch.full((K, 2), nan)
-    state = [t.clone().contiguous() for t in (f.w, f.vec, f.mw, f.vw, f.mvec, f.vvec)]
-    ri = row_idx.to(torch.int32).contiguous() if row_idx is not None else None
-    err = getattr(lib, name)(
-        *[t.data_ptr() for t in state], data.data_ptr(), ri.data_ptr() if rpb else None,
-        noise.data_ptr(), losses.data_ptr(), partials.data_ptr(),
-        None if wt is None else wt.data_ptr(), stash.data_ptr(),
-        None if wb is None else wb.data_ptr(), h, K, B, W, lanes, rpb, obs_dim, grid, cluster,
-        int(bf), int(alpha_floor > 0), SAC_HYPER["gamma"], SAC_HYPER["tau"], SAC_HYPER["lr"],
-        SAC_HYPER["target_entropy"], float(f.count),
-        math.log(alpha_floor) if alpha_floor > 0 else 0.0, None)
-    w, vec, mw, vw, mvec, vvec = state
-    return err, fused_sac.FusedState(w, vec, mw, mvec, vw, vvec, f.count + K), losses
+    return f, losses
+
+
+# ------------------------------------------------------------ K4 and K5 --
+def sac_launch(lib, f, data, row_idx, noises, obs_dim, fold, bf, sms, alpha_floor=0.0,
+               cmax=learner_kernels.CLUSTER_MAX, planned=None):
+    """K4 (K5 with `fold`) through host_launch; returns (state', losses)."""
+    kernel = learner_kernels.SAC_FOLD if fold else learner_kernels.SAC
+    scalars = fused_sac.kernel_scalars(f.count, alpha_floor=alpha_floor, **SAC_HYPER)
+    f1, losses = host_launch(lib, kernel, f, data, row_idx, noises, scalars, obs_dim, bf, sms,
+                             cmax, planned)
+    return f1._replace(count=f.count + noises.shape[0]), losses
 
 
 def sac_case(h, obs_dim, K, B, lanes, seed):
@@ -185,8 +164,8 @@ def sac_case(h, obs_dim, K, B, lanes, seed):
     return ns, packed, adam, data, row_idx, batches, noises, hyper
 
 
-def check_sac(lib, h, obs_dim, K, B, lanes, bf, sms, alpha_floor, cmax=fused_sac.CLUSTER_MAX,
-              planned=None):
+def check_sac(lib, h, obs_dim, K, B, lanes, bf, sms, alpha_floor,
+              cmax=learner_kernels.CLUSTER_MAX, planned=None):
     """K4 and K5 on one case against the plain version, K5 against K4 bit for
     bit, and (K > 1) K launches of one update against one launch of K; in
     clusters of at most cmax blocks.  Returns K4's digest; `planned` receives
@@ -198,9 +177,8 @@ def check_sac(lib, h, obs_dim, K, B, lanes, bf, sms, alpha_floor, cmax=fused_sac
     f0 = ns.fused_init(packed, adam)
     results = []
     for fold in (False, True):
-        err, f1, losses = sac_launch(lib, h, f0, data, row_idx, noises, obs_dim, fold, bf, sms,
-                                     alpha_floor, cmax, planned)
-        assert err == 0
+        f1, losses = sac_launch(lib, f0, data, row_idx, noises, obs_dim, fold, bf, sms,
+                                alpha_floor, cmax, planned)
         results.append((f1, losses))
         got_p, got_ad = ns.fused_unpack(f1)
         assert got_ad.count == want_ad.count
@@ -236,9 +214,9 @@ def check_sac(lib, h, obs_dim, K, B, lanes, bf, sms, alpha_floor, cmax=fused_sac
         for k in range(K):
             d = data if lanes else data[k:k + 1]
             ri = row_idx[k * rpb:(k + 1) * rpb] if lanes else None
-            err, f1, lk = sac_launch(lib, h, f1, d, ri, noises[k:k + 1], obs_dim, False, bf,
-                                     sms, alpha_floor, cmax)
-            assert err == 0 and torch.equal(lk[0], results[0][1][k])
+            f1, lk = sac_launch(lib, f1, d, ri, noises[k:k + 1], obs_dim, False, bf, sms,
+                                alpha_floor, cmax)
+            assert torch.equal(lk[0], results[0][1][k])
         assert all(torch.equal(x, y) for x, y in zip(f1[:6], results[0][0][:6]))
     return digest(*results[0])
 
@@ -257,7 +235,7 @@ def sac_clusters(lib, h, obs_dim, K, B, lanes, bf, sms, cmax, want_c, want_diges
 
 
 def lagging_bits(lib, launch, want_c):
-    """The digest of launch() (err, state, losses), run as it comes and with
+    """The digest of launch() (state, losses), run as it comes and with
     the last block of every cluster lagging behind the others
     (csrc/host/cuda_runtime.h, EMUL_LAG): the two must agree, since a block
     that rewrote its exchange rows while another still read them would give
@@ -268,10 +246,9 @@ def lagging_bits(lib, launch, want_c):
     for lag in (0, 1):
         lib.host_set_lag(lag)
         try:
-            err, f1, losses = launch(planned)
+            f1, losses = launch(planned)
         finally:
             lib.host_set_lag(0)
-        assert err == 0
         got.append(digest(f1, losses))
     assert {c for _, c in planned} == {want_c}
     assert got[0] == got[1], "a lagging block changes the bits"
@@ -282,51 +259,20 @@ def sac_lagging(lib, h, obs_dim, K, B, lanes, bf, sms, cmax, want_c):
     ns, packed, adam, data, row_idx, batches, noises, hyper = sac_case(
         h, obs_dim, K, B, lanes, seed=h + obs_dim)
     f0 = ns.fused_init(packed, adam)
-    lagging_bits(lib, lambda planned: sac_launch(lib, h, f0, data, row_idx, noises, obs_dim,
+    lagging_bits(lib, lambda planned: sac_launch(lib, f0, data, row_idx, noises, obs_dim,
                                                  False, bf, sms, 0.0, cmax, planned), want_c)
 
 
 # ----------------------------------------------------------------- K6 --
-def td3_launch(lib, h, f, data, row_idx, noises, obs_dim, bf, sms, delay,
-               cmax=fused_td3.CLUSTER_MAX, planned=None):
-    """What fused_td3._launch does on the card, on CPU tensors: scratch
-    poisoned with NaN, state copied, the host library called; clusters of at
-    most cmax blocks.  `planned` (a list) receives the plan's (grid, C)."""
-    lib.host_set_sms(sms)
-    K, B = noises.shape[:2]
-    W = data.shape[1]
-    ts = fused_td3.KERNEL_TILE[h]
-    lanes, rpb = _modes(B, data, row_idx)
-    n_tiles = fused_td3.n_tiles(lanes, rpb, ts)
-    plan = (ctypes.c_int * 3)()
-    err = lib.sg_td3_update_plan(h, W, obs_dim, n_tiles, int(bf), cmax, plan)
-    if err:
-        return err, None, None
-    grid, cluster = plan[0], plan[2]
-    if planned is not None:
-        planned.append((grid, cluster))
-    nan = float("nan")
-    noise = noises.transpose(1, 2).contiguous()
-    partials = torch.full((grid // cluster, 2 * (obs_dim + 5 + h) + 1, h), nan)
-    # the products' weights: the transposed copies in float32, the bf16 shadow
-    wt = None if bf else torch.full((3, h, h), nan)
-    wb = torch.full((6 * (128 + h), h), nan, dtype=torch.bfloat16) if bf else None
-    stash = torch.full((n_tiles, 2, ts, h), nan)
-    alp = torch.full((K, grid), nan)
-    losses = torch.full((K, 2), nan)
-    state = [t.clone().contiguous() for t in (f.w, f.vec, f.mw, f.vw, f.mvec, f.vvec)]
-    ri = row_idx.to(torch.int32).contiguous() if row_idx is not None else None
-    err = lib.sg_td3_update(
-        *[t.data_ptr() for t in state], data.data_ptr(), ri.data_ptr() if rpb else None,
-        noise.data_ptr(), losses.data_ptr(), partials.data_ptr(),
-        None if wt is None else wt.data_ptr(), stash.data_ptr(), alp.data_ptr(),
-        None if wb is None else wb.data_ptr(), h, K, B, W, lanes, rpb, obs_dim, grid, cluster,
-        int(bf), f.count, f.count_a, delay, TD3_HYPER["gamma"], TD3_HYPER["tau"], TD3_HYPER["lr"],
-        TD3_HYPER["smooth_std"], TD3_HYPER["smooth_clip"], None)
-    w, vec, mw, vw, mvec, vvec = state
-    return err, fused_td3.FusedState(
-        w, vec, mw, mvec, vw, vvec, f.count + K,
-        f.count_a + fused_td3.applied_steps(f.count, K, delay)), losses
+def td3_launch(lib, f, data, row_idx, noises, obs_dim, bf, sms, delay,
+               cmax=learner_kernels.CLUSTER_MAX, planned=None):
+    """K6 through host_launch; returns (state', losses)."""
+    K = noises.shape[0]
+    scalars = fused_td3.kernel_scalars(f.count, f.count_a, policy_delay=delay, **TD3_HYPER)
+    f1, losses = host_launch(lib, learner_kernels.TD3, f, data, row_idx, noises, scalars, obs_dim,
+                             bf, sms, cmax, planned)
+    return f1._replace(count=f.count + K,
+                       count_a=f.count_a + fused_td3.applied_steps(f.count, K, delay)), losses
 
 
 def td3_case(h, obs_dim, K, B, lanes, delay, warm, seed):
@@ -355,8 +301,8 @@ def td3_case(h, obs_dim, K, B, lanes, delay, warm, seed):
     return ns, packed, adam, data, row_idx, batches, noises, hyper
 
 
-def check_td3(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm, cmax=fused_td3.CLUSTER_MAX,
-              planned=None):
+def check_td3(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm,
+              cmax=learner_kernels.CLUSTER_MAX, planned=None):
     """K6 on one case against the plain version, twice for equal bits, the
     counts and the delay, and K launches of one update against one launch of
     K; in clusters of at most cmax blocks.  In bf16 mode that last check also
@@ -371,9 +317,8 @@ def check_td3(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm, cmax=fused_td3
     f0 = ns.fused_init(packed, adam)
     runs = []
     for _ in range(2):
-        err, f1, losses = td3_launch(lib, h, f0, data, row_idx, noises, obs_dim, bf, sms, delay,
-                                     cmax, planned)
-        assert err == 0
+        f1, losses = td3_launch(lib, f0, data, row_idx, noises, obs_dim, bf, sms, delay, cmax,
+                                planned)
         runs.append((f1, losses))
     assert all(torch.equal(a, b) for a, b in zip(runs[0][0][:6], runs[1][0][:6]))
     assert torch.equal(runs[0][1], runs[1][1]), "a second call gives the same bits"
@@ -418,9 +363,8 @@ def check_td3(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm, cmax=fused_td3
     for k in range(K):
         d = data if lanes else data[k:k + 1]
         ri = row_idx[k * rpb:(k + 1) * rpb] if lanes else None
-        err, f2, lk = td3_launch(lib, h, f2, d, ri, noises[k:k + 1], obs_dim, bf, sms, delay,
-                                 cmax)
-        assert err == 0 and torch.equal(lk[0], losses[k])
+        f2, lk = td3_launch(lib, f2, d, ri, noises[k:k + 1], obs_dim, bf, sms, delay, cmax)
+        assert torch.equal(lk[0], losses[k])
     assert all(torch.equal(x, y) for x, y in zip(f2[:6], f1[:6]))
     assert (f2.count, f2.count_a) == (f1.count, f1.count_a)
     return digest(f1, losses)
@@ -442,5 +386,5 @@ def td3_lagging(lib, h, obs_dim, K, B, lanes, bf, sms, delay, warm, cmax, want_c
     ns, packed, adam, data, row_idx, batches, noises, hyper = td3_case(
         h, obs_dim, K, B, lanes, delay, warm, seed=h + obs_dim)
     f0 = ns.fused_init(packed, adam)
-    lagging_bits(lib, lambda planned: td3_launch(lib, h, f0, data, row_idx, noises, obs_dim, bf,
+    lagging_bits(lib, lambda planned: td3_launch(lib, f0, data, row_idx, noises, obs_dim, bf,
                                                  sms, delay, cmax, planned), want_c)

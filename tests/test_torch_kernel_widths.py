@@ -16,7 +16,7 @@ from space_gym_tpu.models import fused_td3 as jax_fused_td3
 
 from space_gym_torch import get_config
 from space_gym_torch.engine import EnvEngine
-from space_gym_torch.models import SACConfig, SACTrainer, TD3Config, TD3Trainer, fused_sac
+from space_gym_torch.models import SACConfig, SACTrainer, TD3Config, TD3Trainer, learner_kernels
 
 from .torch_scenarios import one_torch_thread  # noqa: F401 (autouse)
 
@@ -59,11 +59,11 @@ def test_fused_trainer_on_the_cpu_takes_any_multiple_of_128(algo):
 
 def test_tiles_of_a_launch():
     """ceil(lanes / tile) tiles a ring row (or a gathered minibatch)."""
-    assert fused_sac.n_tiles(8192, 0, 64) == 128
-    assert fused_sac.n_tiles(100, 0, 64) == 2
-    assert fused_sac.n_tiles(2048, 4, 64) == 128
-    assert fused_sac.n_tiles(45, 2, 64) == 2
-    assert fused_sac.n_tiles(2039, 4, 64) == 128
+    assert learner_kernels.n_tiles(8192, 0, 64) == 128
+    assert learner_kernels.n_tiles(100, 0, 64) == 2
+    assert learner_kernels.n_tiles(2048, 4, 64) == 128
+    assert learner_kernels.n_tiles(45, 2, 64) == 2
+    assert learner_kernels.n_tiles(2039, 4, 64) == 128
 
 
 VMEM_CLAIM = 64 * 2**20  # vmem_limit_bytes of both JAX kernels (fused_sac.py, fused_td3.py)
@@ -88,7 +88,7 @@ def test_kernel_widths_against_the_jax_kernels_vmem_claim(mod):
     activation; whether it runs there on its device is not settled by its
     specs."""
     fits = [h for h in range(128, 1024 + 1, 128) if jax_kernel_block_bytes(mod, h) <= VMEM_CLAIM]
-    widths = sorted(fused_sac.KERNEL_TILE)
+    widths = sorted(learner_kernels.KERNEL_TILE)
     mib = {h: round(jax_kernel_block_bytes(mod, h) / 2**20, 1) for h in (512, 640)}
     if mod is jax_fused_td3:
         assert fits == widths
