@@ -662,14 +662,14 @@ def read_launches():
 K3_NAMES = {False: "full_step", "threefry": "full_step_threefry", "philox": "full_step_philox"}
 
 
-def warm_engine(dev, B, tab, sub, ref, rng=False, seed=0):
-    """The main path's engine on GoalContinuous2P-v0 with K3's uniforms from
-    `rng`, B lanes after WARMUP_STEPS of the random policy: (engine,
-    generator, policy, state, obs)."""
+def warm_engine(dev, B, tab, sub, ref, rng=False, seed=0, env_id=MAIN_ENV):
+    """The main path's engine on `env_id` (GoalContinuous2P-v0) with K3's
+    uniforms from `rng`, B lanes after WARMUP_STEPS of the random policy:
+    (engine, generator, policy, state, obs)."""
     from space_gym_torch import get_config
     from space_gym_torch.engine import EnvEngine
 
-    eng = EnvEngine(get_config(MAIN_ENV), tableau=tab, substeps=sub, refine_iters=ref,
+    eng = EnvEngine(get_config(env_id), tableau=tab, substeps=sub, refine_iters=ref,
                     device=dev, in_kernel_rng=rng)
     g = eng.generator(seed)
     policy = eng.random_policy()
@@ -2151,13 +2151,16 @@ def ptxas_summary(text, kernel, targs):
 
 
 # The env kernels the phase clock splits: label -> (library, uniforms of the
-# main path's state, kernel name, template arguments of its Goal 2-planet
-# instantiation before the tableau's)
-ENV_CLOCKED = {"K1": ("fused_step", False, "fused_step_kernel", "ILi2E"),
-               "K2": ("env_step", False, "env_step_kernel", "ILi0ELi2E"),
-               "K3": ("full_step", False, "full_step_kernel", r"I\w+Li0ELi2ELi4ELi2E"),
+# main path's state, kernel name, template arguments of its Goal
+# instantiation before the tableau's, env); K3 on 4 planets too, the
+# goal4p-collect cell's env
+ENV_CLOCKED = {"K1": ("fused_step", False, "fused_step_kernel", "ILi2E", MAIN_ENV),
+               "K2": ("env_step", False, "env_step_kernel", "ILi0ELi2E", MAIN_ENV),
+               "K3": ("full_step", False, "full_step_kernel", r"I\w+Li0ELi2ELi4ELi2E", MAIN_ENV),
+               "K3-4P": ("full_step", False, "full_step_kernel", r"I\w+Li0ELi4ELi16ELi4E",
+                         "GoalContinuous4P-v0"),
                "K3-hw": ("full_step_philox", "philox", "full_step_kernel",
-                         r"I\w+Li0ELi2ELi4ELi2E")}
+                         r"I\w+Li0ELi2ELi4ELi2E", MAIN_ENV)}
 
 
 def env_clock_targets(label, eng, sub, ref, tab, rows, tail):
@@ -2183,14 +2186,20 @@ def env_phase_clock(dev, card, procs, reports, B=MAIN_B, cases=(("bs3", 1, 8), (
     each built with the phase clock (csrc/step_clock.cuh) and launched once
     through its wrapper; every warp's cycles summed by phase, the counts (K1
     and K2: lanes whose events fire; K3: lanes that reached their goal or are
-    done) and of the warp tiles that hold one; registers, spills, residency
-    and waves of the plain and the clocked build; then the two builds timed
-    in turns (profiler).  `reports`: the plain builds' ptxas output."""
+    done, and the lanes whose events fire: deferred to the block's list or
+    refined in place) and of the warp tiles that hold one; registers, spills,
+    residency and waves of the plain and the clocked build; then the two
+    builds timed in turns (profiler).  K3's terminated lanes, which are its
+    lanes whose events fire, are counted from its flags too, so a build
+    without the clock's fire counts prints them.  `reports`: the plain
+    builds' ptxas output."""
     import ctypes
 
-    times = {}
-    for label, (name, rng, kname, targs) in ENV_CLOCKED.items():
-        handle = clocked_library(name, *procs[name])
+    times, handles = {}, {}
+    for label, (name, rng, kname, targs, env_id) in ENV_CLOCKED.items():
+        if name not in handles:
+            handles[name] = clocked_library(name, *procs[name])
+        handle = handles[name]
         handle.sg_k3_phase_read.argtypes = [ctypes.c_void_p]
         handle.sg_k3_phase_name.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
         names, buf = [], ctypes.create_string_buffer(96)
@@ -2199,7 +2208,7 @@ def env_phase_clock(dev, card, procs, reports, B=MAIN_B, cases=(("bs3", 1, 8), (
         n_marks = names.index("lanes")
         cyc = (ctypes.c_ulonglong * len(names))()
         for tab, sub, ref in cases:
-            eng, g, policy, state, obs = warm_engine(dev, B, tab, sub, ref, rng)
+            eng, g, policy, state, obs = warm_engine(dev, B, tab, sub, ref, rng, env_id=env_id)
             full = eng.full
             u = eng.draw_key(g) if rng else torch.rand((B, full.n_uniform_rows), generator=g,
                                                         device=dev)
@@ -2213,7 +2222,7 @@ def env_phase_clock(dev, card, procs, reports, B=MAIN_B, cases=(("bs3", 1, 8), (
             try:
                 module._lib = lambda *a, h=handle: h
                 handle.sg_k3_phase_read(cyc)
-                call()
+                out = call()
                 torch.cuda.synchronize()
                 if handle.sg_k3_phase_read(cyc) != 0:
                     fail(f"{label}: the phase clock could not be read")
@@ -2224,15 +2233,23 @@ def env_phase_clock(dev, card, procs, reports, B=MAIN_B, cases=(("bs3", 1, 8), (
                 c = dict(zip(names[n_marks:], cyc[n_marks:]))
                 w = max(c["warp tiles"], 1)
                 if label.startswith("K3"):
+                    term = out[-1][0].reshape(-1, 32).bool()
                     what = (f"{c['lanes that reached their goal']} reached their goal, "
                             f"{c['lanes done']} done; "
                             f"{c['warp tiles with a lane that reached its goal or is done']} warp "
-                            f"tiles hold such a lane")
+                            f"tiles hold such a lane; {int(term.sum())} terminated by their "
+                            f"flags, in {int(term.any(1).sum())} warp tiles")
+                    if "lanes whose events fire and refine in place" in c:
+                        fired, inplace = c["lanes whose events fire"], c[
+                            "lanes whose events fire and refine in place"]
+                        what += (f"; the clock's lanes whose events fire {fired} in "
+                                 f"{c['warp tiles with a lane whose events fire']} warp tiles: "
+                                 f"{fired - inplace} deferred, {inplace} refined in place")
                 else:
                     what = (f"{c['lanes whose events fire']} lanes whose events fire; "
                             f"{c['warp tiles with a lane whose events fire']} warp tiles hold "
                             f"such a lane")
-                print(f"phase clock {label} {MAIN_ENV} B={B} {tab}x{sub} r{ref} on {card}: "
+                print(f"phase clock {label} {env_id} B={B} {tab}x{sub} r{ref} on {card}: "
                       f"{total} warp-cycles over {c['warp tiles']} warp tiles ({total / w:.0f} a "
                       f"warp tile); {c['lanes']} lanes, {what}", flush=True)
                 for i in sorted(range(n_marks), key=lambda i: -cyc[i]):
@@ -2274,7 +2291,7 @@ def phase_clock(dev, card):
     labels = {"sac_update": "K4", "sac_update_fold": "K5", "td3_update": "K6"}
     kernels = {"sac_update": learner_kernels.SAC, "sac_update_fold": learner_kernels.SAC_FOLD,
                "td3_update": learner_kernels.TD3}
-    env_names = [v[0] for v in ENV_CLOCKED.values()]
+    env_names = sorted({v[0] for v in ENV_CLOCKED.values()})
     procs = clocked_builds([*labels, *env_names])
     reports = {n: text for n, (_, text) in cuda_build.build_all([*labels, *env_names]).items()}
     for n in env_names:  # a library built earlier: the report print_build wrote then

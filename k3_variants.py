@@ -62,7 +62,7 @@ def build(variants, names):
         if proc.returncode != 0:
             cs.fail(f"variant {v} of {name} did not build:\n{text[-4000:]}")
         label = TAIL[name][0] if name in TAIL else "K3"
-        _, _, kernel, targs = cs.ENV_CLOCKED[label]
+        kernel, targs = cs.ENV_CLOCKED[label][2:4]
         for tab in ("bs3", "dp5"):
             tid = f"{targs}Li{cs.TAB_IDS[tab]}E"
             print(f"{v} {name} {tab}: {cs.ptxas_summary(text, kernel, tid)}", flush=True)

@@ -1,7 +1,8 @@
-// The list of deferred lanes of the env kernels K1 (fused_step.cuh) and K2
-// (env_step.cuh): a lane whose events fire saves the bracket of its firing
-// substep (physics.cuh, SgBracket) to its block's list in shared memory, and
-// the block's threads finish the list together after its last tile.
+// The list of deferred lanes of the env kernels K1 (fused_step.cuh), K2
+// (env_step.cuh) and K3 (full_step.cuh): a lane whose events fire saves the
+// bracket of its firing substep (physics.cuh, SgBracket) to its block's list
+// in shared memory, and the block's threads finish the list together after
+// its last tile.
 //
 // Why (PERF.md §5-6): a refinement is refine_iters serial Illinois
 // iterations (a division, a dense output and NP square roots each) on the
@@ -82,27 +83,47 @@ __device__ __forceinline__ bool sg_defer(const SgList<TAB>& L, bool fire, const 
   return true;
 }
 
+// The deferred lanes in the list, after the block's end barrier.
+template <int TAB>
+__device__ __forceinline__ int sg_list_size(const SgList<TAB>& L) {
+  return min(*L.count, SG_LIST_SLOTS);
+}
+
+// The lane of slot s of the list.
+template <int TAB>
+__device__ __forceinline__ int sg_list_lane(const SgList<TAB>& L, int s) {
+  constexpr int NPW = SgList<TAB>::NPW;
+  return __float_as_int(L.words[(6 * NPW + 9) * SG_LIST_SLOTS + s]);
+}
+
+// The bracket of slot s of the list.
+template <int TAB>
+__device__ __forceinline__ void sg_list_take(const SgList<TAB>& L, int s, SgBracket<TAB>& br) {
+  constexpr int NPW = SgList<TAB>::NPW;
+  const float* w = L.words + s;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+#pragma unroll
+    for (int m = 0; m < NPW; ++m) br.Q[c][m] = w[(c * NPW + m) * SG_LIST_SLOTS];
+    br.comp[c] = w[(6 * NPW + c) * SG_LIST_SLOTS];
+  }
+  br.f_lo = w[(6 * NPW + 6) * SG_LIST_SLOTS];
+  br.f_hi = w[(6 * NPW + 7) * SG_LIST_SLOTS];
+  br.bits = (unsigned)__float_as_int(w[(6 * NPW + 8) * SG_LIST_SLOTS]);
+}
+
 // By every thread of the block, after its last tile: the end barrier, then
-// finish(lane, bracket) for every slot of the list, one slot a thread.
+// finish(lane, bracket) for every slot of the list, one slot a thread.  (K3
+// walks its list from its last thread down, beside its resets.)
 template <int TAB, class F>
 __device__ __forceinline__ void sg_finish_list(const SgList<TAB>& L, F finish) {
-  constexpr int NPW = SgList<TAB>::NPW;
   __syncthreads();
   SG_K3_MARK(K3_SYNC);
-  const int n = min(*L.count, SG_LIST_SLOTS);
+  const int n = sg_list_size(L);
   for (int s = threadIdx.x; s < n; s += blockDim.x) {
-    const float* w = L.words + s;
     SgBracket<TAB> br;
-#pragma unroll
-    for (int c = 0; c < 6; ++c) {
-#pragma unroll
-      for (int m = 0; m < NPW; ++m) br.Q[c][m] = w[(c * NPW + m) * SG_LIST_SLOTS];
-      br.comp[c] = w[(6 * NPW + c) * SG_LIST_SLOTS];
-    }
-    br.f_lo = w[(6 * NPW + 6) * SG_LIST_SLOTS];
-    br.f_hi = w[(6 * NPW + 7) * SG_LIST_SLOTS];
-    br.bits = (unsigned)__float_as_int(w[(6 * NPW + 8) * SG_LIST_SLOTS]);
-    finish(__float_as_int(w[(6 * NPW + 9) * SG_LIST_SLOTS]), br);
+    sg_list_take(L, s, br);
+    finish(sg_list_lane(L, s), br);
   }
   SG_K3_MARK(K3_STORES);
 }

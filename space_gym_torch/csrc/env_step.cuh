@@ -114,8 +114,9 @@ __global__ void __launch_bounds__(SG_K2_THREADS) env_step_kernel(const K2Args ar
       SG_K3_MARK(K3_WAIT);
       fire = sg_integrate<NP, TAB>(P.phys, y0, in.px, in.py, in.ae, in.at, yf, br);
     }
-    SG_K3_COUNT_FIRE(live, fire);
     const bool deferred = sg_defer<TAB>(L, fire, br, lane);
+    SG_K3_COUNT(live, false, false);
+    SG_K3_COUNT_FIRE(live, fire, deferred);
     SG_K3_MARK(K3_SYNC);
     if (live) {
       if (!deferred) {

@@ -62,6 +62,26 @@
 //     they need from the operands in memory.  A lane's uniforms are a
 //     function of (key or u, lane, row) only, so which thread runs a lane
 //     does not change a bit;
+//   * the event refinement deferred as in K1 and K2 (csrc/env_lanes.cuh):
+//     about 1.4% of lanes fire on the main path's state, in a third of the
+//     warps, and such a warp spent as long in refine_iters serial Illinois
+//     iterations, one lane in 32 active, as in its substeps (16.4% of K3's
+//     warp-cycles at DP5 x 2 / refine 12, PERF.md §5).  A lane whose events
+//     fire saves its bracket to the block's list and writes nothing
+//     else; since it terminates it is done and joins the list of done lanes.
+//     At the block's end the block's threads finish the deferred lanes, from
+//     the last thread down, one lane a thread: its rows staged again into
+//     the thread's column, the refinement, the rest of the common path.
+//     Its reset, which writes the other outputs, runs from the list of done
+//     lanes, from thread 0 up, so that the two long chains run side by side
+//     on different warps: run one after the other in one thread they made
+//     the block's tail the kernel's critical path (PERF.md §6).  A lane that
+//     finds the list full refines in place.  Every output bit is the same
+//     either way: the bracket holds every value the refinement reads.  The
+//     finish stays on the block's critical path, its tail: on an H100 at
+//     DP5 x 2 / refine 12, the engine's default, the kernel takes 17% less
+//     time, at BS3 x 1 / refine 8, whose memory stalls hid the in-place
+//     refinement, 7% more (PERF.md §6);
 //   * stores are streaming (evict-first), each row of a tile one coalesced
 //     span; the uniform rows are read where a lane takes them.
 // The source of uniforms, the planet count, tile count, column count, task
@@ -71,6 +91,7 @@
 
 #include <cuda_runtime.h>
 
+#include "env_lanes.cuh"
 #include "launch_info.cuh"
 #include "observe_reward.cuh"
 #include "rng.cuh"
@@ -343,7 +364,8 @@ struct StepShape {
   static constexpr int R_Y = 0, R_A = 6, R_P = 8, R_G = R_P + 2 * NP, R_REF = R_G + 2,
                        R_CS = R_REF + 3, R_TI = R_CS + CSR, ROWS = R_TI + IR;
   static constexpr int LIST = 3 * SG_TILE;  // entries of each rare-lane list
-  // dynamic shared memory: two list counts, two lists, the stage
+  // dynamic shared memory after the block's list of deferred lanes
+  // (SgList<TAB>::SMEM bytes): two list counts, two lists, the stage
   static constexpr int SMEM = 2 * 4 + 2 * LIST * 4 + ROWS * SG_TILE * 4;
 };
 
@@ -408,37 +430,75 @@ __device__ __forceinline__ void sg_action(const FullParams& P, const float* a, i
   }
 }
 
-// The common path of one lane, from its input rows `in` (row r at in[r *
-// STRIDE]; the int rows hold their bits): physics, final observation, reward,
-// flags; writes every output of a lane that neither resets nor resamples, and
-// of the others what the rare path leaves (flags, reward, final observation,
-// the step count; a lane that reached its goal without being done also its
-// state, planets, ref, cs, observation and case/flip rows).  Returns 1 where
-// the lane is done, 2 where it reached its goal and is not done, else 0.
-template <int TASK, int NP, int NT, int COLS, int TAB, int STRIDE>
-__device__ __forceinline__ int sg_step_common(const FullParams& P, const FullStepArgs& A,
-                                              const float* in, int lane, size_t n) {
-  using S = StepShape<TASK, NP, NT, COLS>;
-  auto ti = [&](int i) { return __float_as_int(in[(S::R_TI + i) * STRIDE]); };
-  float y0[6], pl[2 * NP], ref[3];
-#pragma unroll
-  for (int c = 0; c < 6; ++c) y0[c] = in[(S::R_Y + c) * STRIDE];
-  const float ae = in[S::R_A * STRIDE], at = in[(S::R_A + 1) * STRIDE];
-#pragma unroll
-  for (int i = 0; i < 2 * NP; ++i) pl[i] = in[(S::R_P + i) * STRIDE];
-  const float gx = in[S::R_G * STRIDE], gy = in[(S::R_G + 1) * STRIDE];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) ref[i] = in[(S::R_REF + i) * STRIDE];
-  const int steps = ti(S::IR - 3);
+// Loads one lane's input rows into its column `in` of the stage (row r at
+// in[r * SG_TILE]; the int rows hold their bits), the action translated.
+template <class S>
+__device__ __forceinline__ void sg_stage_lane(const FullParams& P, const FullStepArgs& A, size_t n,
+                                              int lane, float* in) {
+  sg_each_input_row<S>(A, n, [&](int r, const float* row) { in[r * SG_TILE] = row[lane]; });
+  sg_action(P, A.a, lane, in[S::R_A * SG_TILE], in[(S::R_A + 1) * SG_TILE]);
+}
 
-  // ---- physics ----
-  float px[NP], py[NP], yf[6];
+// The physics of one lane from its staged input rows `in`, up to its first
+// substep whose events fire (sg_integrate): false with yf the state at the
+// step's end, or true with `br` the bracket of that substep.
+template <int TASK, int NP, int NT, int COLS, int TAB>
+__device__ __forceinline__ bool sg_step_integrate(const FullParams& P, const float* in, float* yf,
+                                                  SgBracket<TAB>& br) {
+  using S = StepShape<TASK, NP, NT, COLS>;
+  float y0[6], px[NP], py[NP];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) y0[c] = in[(S::R_Y + c) * SG_TILE];
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
-    px[i] = pl[2 * i];
-    py[i] = pl[2 * i + 1];
+    px[i] = in[(S::R_P + 2 * i) * SG_TILE];
+    py[i] = in[(S::R_P + 2 * i + 1) * SG_TILE];
   }
-  const bool terminated = sg_physics<NP, TAB>(P.phys, y0, px, py, ae, at, yf);
+  return sg_integrate<NP, TAB>(P.phys, y0, px, py, in[S::R_A * SG_TILE],
+                               in[(S::R_A + 1) * SG_TILE], yf, br);
+}
+
+// The rest of the common path of one lane, from its staged input rows `in`
+// and sg_step_integrate's result (`terminated`: its events fired, `br` their
+// bracket, else `yf` the step's end): the refinement, final observation,
+// reward, flags; writes every output of a lane that neither resets nor
+// resamples, and of the others what the rare path leaves (flags, reward,
+// final observation, the step count; a lane that reached its goal without
+// being done also its state, planets, ref, cs, observation and case/flip
+// rows).  Returns 1 where the lane is done, 2 where it reached its goal and
+// is not done, else 0.  `deferred`: run from the block's list at its end,
+// which the phase clock counts apart.
+template <int TASK, int NP, int NT, int COLS, int TAB>
+__device__ __forceinline__ int sg_step_common(const FullParams& P, const FullStepArgs& A,
+                                              const float* in, int lane, size_t n,
+                                              bool terminated, const SgBracket<TAB>& br,
+                                              float* yf, bool deferred) {
+  using S = StepShape<TASK, NP, NT, COLS>;
+  constexpr int T = SG_TILE;
+  auto ti = [&](int i) { return __float_as_int(in[(S::R_TI + i) * T]); };
+  float y0[6], pl[2 * NP], ref[3];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) y0[c] = in[(S::R_Y + c) * T];
+  const float ae = in[S::R_A * T], at = in[(S::R_A + 1) * T];
+#pragma unroll
+  for (int i = 0; i < 2 * NP; ++i) pl[i] = in[(S::R_P + i) * T];
+  const float gx = in[S::R_G * T], gy = in[(S::R_G + 1) * T];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ref[i] = in[(S::R_REF + i) * T];
+  const int steps = ti(S::IR - 3);
+
+  // ---- physics: the refinement where the events fired ----
+  if (terminated) {
+    float px[NP], py[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      px[i] = pl[2 * i];
+      py[i] = pl[2 * i + 1];
+    }
+    sg_refine<NP, TAB>(P.phys, br, px, py, yf);
+  }
+  SG_K3_MARK(deferred ? K3_DEFER : K3_REFINE);
+  yf[2] = sg_wrap_angle(yf[2]);
   const int steps1 = steps + 1;
   const bool truncated = (steps1 >= P.max_episode_steps) && !terminated;
   const bool done = terminated || truncated;
@@ -449,7 +509,7 @@ __device__ __forceinline__ int sg_step_common(const FullParams& P, const FullSte
   bool reached;
   const float rew = sg_reward<TASK, NP>(P, y0, yf, pl, gx, gy, ref, ae, at, reached);
   reached = S::GOAL && reached;
-  SG_K3_MARK(K3_OBSERVE);
+  SG_K3_MARK(deferred ? K3_DEFER : K3_OBSERVE);
 
   // ---- the common outputs ----
 #pragma unroll
@@ -467,7 +527,7 @@ __device__ __forceinline__ int sg_step_common(const FullParams& P, const FullSte
 #pragma unroll
     for (int i = 0; i < 3; ++i) __stcs(A.ro + i * n + lane, ref[i]);
 #pragma unroll
-    for (int i = 0; i < S::CSR; ++i) __stcs(A.cso + i * n + lane, in[(S::R_CS + i) * STRIDE]);
+    for (int i = 0; i < S::CSR; ++i) __stcs(A.cso + i * n + lane, in[(S::R_CS + i) * T]);
 #pragma unroll
     for (int i = 0; i < S::D; ++i) __stcs(A.obs + i * n + lane, fobs[i]);
     __stcs(A.tio + (S::IR - 2) * n + lane, S::GOAL ? (ti(S::IR - 2) > 0 ? 1 : 0) : 0);
@@ -481,7 +541,7 @@ __device__ __forceinline__ int sg_step_common(const FullParams& P, const FullSte
       }
     }
   }
-  SG_K3_MARK(K3_STORES);
+  SG_K3_MARK(deferred ? K3_DEFER : K3_STORES);
   return done ? 1 : (reached ? 2 : 0);
 }
 
@@ -589,8 +649,9 @@ __global__ void __launch_bounds__(SG_TILE, (K3MinBlocks<TASK, NP, TAB>::value))
 #else
   unsigned char* sg_smem = reinterpret_cast<unsigned char*>(host_shared_memory());
 #endif
-  int* count = reinterpret_cast<int*>(sg_smem);  // [2]: lanes that joined each list
-  int* list = count + 2;                          // [2][S::LIST]: done lanes, reached lanes
+  // after the list of deferred lanes (sg_block_list):
+  int* count = reinterpret_cast<int*>(sg_smem + SgList<TAB>::SMEM);  // [2]: lanes in each list
+  int* list = count + 2;  // [2][S::LIST]: done lanes, reached lanes
   // [S::ROWS][T]: the input rows of the tile, each thread's own column only,
   // which holds them out of its registers through physics
   float* stage = reinterpret_cast<float*>(list + 2 * S::LIST);
@@ -606,34 +667,45 @@ __global__ void __launch_bounds__(SG_TILE, (K3MinBlocks<TASK, NP, TAB>::value))
     }
   };
 
-  SG_K3_CLOCK_START();
   if (tid == 0) count[0] = count[1] = 0;
-  __syncthreads();
+  const SgList<TAB> L = sg_block_list<TAB>();  // a barrier
+  SG_K3_CLOCK_START();
   for (int t = blockIdx.x; t < args.tiles; t += G) {
     const int lane = t * T + tid;
     const bool live = (size_t)lane < n;
-    int kind = 0;
+    float yf[6];
+    SgBracket<TAB> br;
+    bool fire = false;
     if (live) {
-      sg_each_input_row<S>(A, n, [&](int r, const float* row) { stage[r * T + tid] = row[lane]; });
-      sg_action(P, A.a, lane, stage[S::R_A * T + tid], stage[(S::R_A + 1) * T + tid]);
+      sg_stage_lane<S>(P, A, n, lane, stage + tid);
+      SG_K3_MARK(K3_WAIT);
+      fire = sg_step_integrate<TASK, NP, NT, COLS, TAB>(P, stage + tid, yf, br);
     }
-    SG_K3_MARK(K3_WAIT);
-    if (live) kind = sg_step_common<TASK, NP, NT, COLS, TAB, T>(P, A, stage + tid, lane, n);
+    // A lane whose events fire hands its bracket to the list, and is
+    // finished at the block's end; one that finds the list full goes on here.
+    const bool deferred = sg_defer<TAB>(L, fire, br, lane);
+    SG_K3_COUNT_FIRE(live, fire, deferred);
+    SG_K3_MARK(K3_SYNC);
+    // A deferred lane is done: it joins the list of done lanes.
+    int kind = deferred ? 1 : 0;
+    if (live && !deferred)
+      kind = sg_step_common<TASK, NP, NT, COLS, TAB>(P, A, stage + tid, lane, n, fire, br, yf,
+                                                     false);
     SG_K3_COUNT(live, kind == 2, kind == 1);
 
     // Join the rare-lane lists (one atomic a warp and list); a lane that
     // finds its list full takes its branch here.
     const unsigned wd = __ballot_sync(0xFFFFFFFFu, kind == 1);
     const unsigned wr = __ballot_sync(0xFFFFFFFFu, kind == 2);
-    int bd = 0, br = 0;
+    int bd = 0, bq = 0;
     if (wl == 0) {
       if (wd) bd = atomicAdd(&count[0], __popc(wd));
-      if (wr) br = atomicAdd(&count[1], __popc(wr));
+      if (wr) bq = atomicAdd(&count[1], __popc(wr));
     }
     bd = __shfl_sync(0xFFFFFFFFu, bd, 0);
-    br = __shfl_sync(0xFFFFFFFFu, br, 0);
+    bq = __shfl_sync(0xFFFFFFFFu, bq, 0);
     const unsigned below = (1u << wl) - 1u;
-    const int pos = kind == 1 ? bd + __popc(wd & below) : br + __popc(wr & below);
+    const int pos = kind == 1 ? bd + __popc(wd & below) : bq + __popc(wr & below);
     if (kind != 0 && pos < S::LIST) {
       list[(kind - 1) * S::LIST + pos] = lane;
       kind = 0;
@@ -642,11 +714,23 @@ __global__ void __launch_bounds__(SG_TILE, (K3MinBlocks<TASK, NP, TAB>::value))
     rare(kind, lane);
   }
 
-  // The rare lanes, together: the resets first, then the resamples, one lane
-  // a thread.
+  // The block's end, one lane a thread: the deferred lanes from the last
+  // thread down (their rows staged again, the rest of the common path from
+  // the bracket), beside the resets, then the resamples, from thread 0 up.
+  // A deferred lane's reset is its entry in the list of done lanes: it
+  // writes other outputs than the finish and reads only the operands, so
+  // the two run side by side, on other warps where the lists are short.
   __syncthreads();
-  const int nd = min(count[0], S::LIST), nr = min(count[1], S::LIST);
+  const int nq = sg_list_size(L), nd = min(count[0], S::LIST), nr = min(count[1], S::LIST);
   SG_K3_MARK(K3_SYNC);
+  for (int s = T - 1 - tid; s < nq; s += T) {
+    const int l = sg_list_lane(L, s);
+    sg_stage_lane<S>(P, A, n, l, stage + tid);
+    SgBracket<TAB> b;  // taken after the staging, which holds many loads in flight
+    sg_list_take(L, s, b);
+    float yq[6];
+    sg_step_common<TASK, NP, NT, COLS, TAB>(P, A, stage + tid, l, n, true, b, yq, true);
+  }
   for (int i = tid; i < nd + nr; i += T)
     rare(i < nd ? 1 : 2, i < nd ? list[i] : list[S::LIST + i - nd]);
   SG_K3_CLOCK_END();
@@ -662,13 +746,14 @@ static int launch(const FullParams& P, const FullStepArgs& A, int* info) {
   auto k = full_step_kernel<ROWS, TASK, NP, NT, COLS, TAB>;
   static int known_dev = -1, per_sm = 0;
   int resident = 0;
-  const int e = sg_resident_blocks(k, SG_TILE, S::SMEM, known_dev, per_sm, &resident);
+  constexpr int smem = SgList<TAB>::SMEM + S::SMEM;
+  const int e = sg_resident_blocks(k, SG_TILE, smem, known_dev, per_sm, &resident);
   if (e) return e;
   K3Args args{P, A, (A.B + SG_TILE - 1) / SG_TILE};
   const int per_block = (args.tiles + resident - 1) / resident;
   const int grid = (args.tiles + per_block - 1) / per_block;
-  if (info) return sg_kernel_info(k, grid, SG_TILE, S::SMEM, args.tiles, info);
-  return sg_launch(k, grid, SG_TILE, S::SMEM, A.stream, args);
+  if (info) return sg_kernel_info(k, grid, SG_TILE, smem, args.tiles, info);
+  return sg_launch(k, grid, SG_TILE, smem, A.stream, args);
 }
 
 template <class ROWS, int TASK, int NP, int NT, int COLS>

@@ -11,10 +11,11 @@
 //   * one joint refinement of the earliest crossing by safeguarded Illinois
 //     false position on the dense interpolant, exactly the reference rule
 //     (pallas_step.py:226-239), grazing-crossing stall included;
-//   * state returned at the event time; angle wrapped into [0, 2pi).
+//   * state returned at the event time; angle wrapped into [0, 2pi) by the
+//     caller (sg_wrap_angle).
 //
-// The two marks of the phase clock (csrc/step_clock.cuh) compile to nothing
-// without -DSG_PHASE_CLOCK.
+// The phase clock's mark (csrc/step_clock.cuh) compiles to nothing without
+// -DSG_PHASE_CLOCK.
 //
 // Design: one thread per lane, everything in registers, the planet count and
 // the tableau as template parameters so every stage loop unrolls.  Operations
@@ -27,9 +28,9 @@
 // is frozen there), and a lane with no sign change skips the refinement.
 // The step is two parts, sg_integrate (up to the substep whose events fire,
 // and that substep's bracket) and sg_refine (the bracket to the state at the
-// event); sg_physics runs both in place, the env kernels K1 and K2 may hand a
-// bracket to another thread (csrc/env_lanes.cuh).  Either way the same
-// operations on the same values give the same bits.
+// event; the caller wraps the angle); the env kernels K1, K2 and K3 refine in
+// place or hand the bracket to another thread (csrc/env_lanes.cuh).  Either
+// way the same operations on the same values give the same bits.
 #pragma once
 
 #include <math_constants.h>
@@ -175,8 +176,8 @@ __device__ __forceinline__ float sg_m_norm(const bool* active, const float* sgn,
 // substep (sg_refine): the substep's dense-output coefficients and start
 // state, the sign-normalised event minimum at its two ends, and in `bits`
 // the active events (bits 0-7), the events negative at its start (8-15) and
-// the substep's index (16 on).  Kept in registers (sg_physics), or saved to a
-// list and finished by another thread (the env kernels, csrc/env_lanes.cuh).
+// the substep's index (16 on).  Kept in registers, or saved to a list and
+// finished by another thread (the env kernels, csrc/env_lanes.cuh).
 template <int TAB>
 struct SgBracket {
   static constexpr int NPW = Tab<TAB>::NPW;
@@ -348,17 +349,4 @@ __device__ __forceinline__ void sg_refine(const PhysParams& P, const SgBracket<T
     for (int m = 1; m < NPW; ++m) acc = acc + br.Q[c][m] * pw[m];
     yf[c] = h * acc + br.comp[c];
   }
-}
-
-// Integrates one control step.  y0: the lane's state; yf: the state at the
-// step's end or at the earliest event.  Returns `terminated`.
-template <int NP, int TAB>
-__device__ bool sg_physics(const PhysParams& P, const float* y0, const float* px, const float* py,
-                           float ae, float at, float* yf) {
-  SgBracket<TAB> br;
-  const bool terminated = sg_integrate<NP, TAB>(P, y0, px, py, ae, at, yf, br);
-  if (terminated) sg_refine<NP, TAB>(P, br, px, py, yf);
-  SG_K3_MARK(K3_REFINE);
-  yf[2] = sg_wrap_angle(yf[2]);
-  return terminated;
 }

@@ -8,8 +8,10 @@
 // lanes that reach a mark in separate divergent passes each add their own
 // interval, so a warp's counters always sum to its elapsed cycles.  At the
 // block's end its threads add the block's counters to the device's.  The
-// counts (lanes, lanes that reached their goal, done lanes or lanes whose
-// events fire, warp tiles and those with such a lane) are added the same way.
+// counts (lanes, lanes that reached their goal, done lanes, lanes whose
+// events fire and those of them that refine in place because their block's
+// list of deferred lanes is full, warp tiles and those with such a lane) are
+// added the same way.
 #pragma once
 
 #define SG_K3_MARKS(X)                                                                   \
@@ -19,7 +21,7 @@
   X(K3_OBSERVE, "observe + reward")                                                      \
   X(K3_STORES, "stores")                                                                 \
   X(K3_SYNC, "rare-lane lists, block barrier")                                           \
-  X(K3_DEFER, "deferred lanes: refinement, observe + reward")                           \
+  X(K3_DEFER, "deferred lanes: loads, refinement, observe + reward, stores")            \
   X(K3_RESAMPLE, "Goal resample")                                                        \
   X(K3_RESET, "auto-reset + second observe")
 #define SG_K3_COUNTS(X)                                                                  \
@@ -27,7 +29,8 @@
   X(K3_DONE, "lanes done") X(K3_WARPS, "warp tiles")                                     \
   X(K3_WARPS_RARE, "warp tiles with a lane that reached its goal or is done")              \
   X(K3_FIRED, "lanes whose events fire")                                                 \
-  X(K3_WARPS_FIRED, "warp tiles with a lane whose events fire")
+  X(K3_WARPS_FIRED, "warp tiles with a lane whose events fire")                          \
+  X(K3_INPLACE, "lanes whose events fire and refine in place")
 #define SG_K3_ID(id, name) id,
 #define SG_K3_NAME(id, name) name,
 enum K3Mark { SG_K3_MARKS(SG_K3_ID) K3_NMARKS };
@@ -77,17 +80,18 @@ __device__ __forceinline__ void sg_k3_count(bool lane_ok, bool reached, bool don
     atomicAdd(&a[K3_WARPS_RARE], (re | dn) ? 1ull : 0ull);
   }
 }
-// The warp's counts in K1 and K2: `lane_ok` the lanes in range, `fire` those
-// whose events fire; by every lane of the warp.
-__device__ __forceinline__ void sg_k3_count_fire(bool lane_ok, bool fire) {
+// The warp's counts of lanes whose events fire: `fire` (of the lanes in
+// range, `lane_ok`), and of those the ones not `deferred` to the block's
+// list; by every lane of the warp.
+__device__ __forceinline__ void sg_k3_count_fire(bool lane_ok, bool fire, bool deferred) {
   const unsigned m = 0xFFFFFFFFu;
-  const unsigned ok = __ballot_sync(m, lane_ok), fi = __ballot_sync(m, lane_ok && fire);
+  const unsigned fi = __ballot_sync(m, lane_ok && fire),
+                 ip = __ballot_sync(m, lane_ok && fire && !deferred);
   if (threadIdx.x % 32 == 0) {
     unsigned long long* a = sg_k3_clock().acc + K3_NMARKS;
-    atomicAdd(&a[K3_LANES], (unsigned long long)__popc(ok));
     atomicAdd(&a[K3_FIRED], (unsigned long long)__popc(fi));
-    atomicAdd(&a[K3_WARPS], ok ? 1ull : 0ull);
     atomicAdd(&a[K3_WARPS_FIRED], fi ? 1ull : 0ull);
+    atomicAdd(&a[K3_INPLACE], (unsigned long long)__popc(ip));
   }
 }
 // After the last mark, by every thread of the block.
@@ -99,7 +103,7 @@ __device__ __forceinline__ void sg_k3_clock_end() {
 #define SG_K3_CLOCK_START() sg_k3_clock_start()
 #define SG_K3_MARK(id) sg_k3_mark(id)
 #define SG_K3_COUNT(ok, reached, done) sg_k3_count(ok, reached, done)
-#define SG_K3_COUNT_FIRE(ok, fire) sg_k3_count_fire(ok, fire)
+#define SG_K3_COUNT_FIRE(ok, fire, deferred) sg_k3_count_fire(ok, fire, deferred)
 #define SG_K3_CLOCK_END() sg_k3_clock_end()
 // `sg_k3_phase_read(out)` copies the marks' cycles, then the counts, out and
 // zeroes them; `sg_k3_phase_name(i, out, n)` writes the name of entry i.
@@ -118,7 +122,7 @@ __device__ __forceinline__ void sg_k3_clock_end() {
 #define SG_K3_CLOCK_START() ((void)0)
 #define SG_K3_MARK(id) ((void)0)
 #define SG_K3_COUNT(ok, reached, done) ((void)0)
-#define SG_K3_COUNT_FIRE(ok, fire) ((void)0)
+#define SG_K3_COUNT_FIRE(ok, fire, deferred) ((void)0)
 #define SG_K3_CLOCK_END() ((void)0)
 #define SG_K3_CLOCK_ENTRIES()
 #endif

@@ -200,6 +200,31 @@ def test_cuda_env_kernels_defer_firing_lanes(env_id, batch, tableau, substeps, r
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tableau,substeps,refine", [("bs3", 1, 8), ("dp5", 2, 12)])
+@pytest.mark.parametrize("env_id", ["GoalContinuous2P-v0", "GoalContinuous4P-v0"])
+@pytest.mark.parametrize("batch", [150001, 333])
+def test_cuda_full_step_defers_firing_lanes(env_id, batch, tableau, substeps, refine):
+    """K3 where three lanes in four fire, against the plain twin, and a
+    second launch in equal bits.  At B=150001 blocks walk two tiles or more,
+    so their firing lanes are more than a block's list of deferred lanes
+    holds: it fills and the rest refine in place; every deferred lane is
+    finished and reset at its block's end."""
+    _need_card()
+    cfg = get_config(env_id)
+    full = FullStep(cfg, substeps, refine, tableau)
+    rows = firing_operands(cfg, batch, seed=8, device="cuda", raw_action=True)
+    got = [o.cpu() for o in full.step_rows(*rows)]
+    again = [o.cpu() for o in full.step_rows(*rows)]
+    want = full.step_rows(*[r.cpu() for r in rows])
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again))
+    assert torch.equal(got[-1], want[-1]) and int(want[-1][0].sum()) > batch // 2
+    assert torch.equal(got[-2], want[-2])
+    for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
+        tol = TOL_REWARD if i == 7 else TOL_STATE
+        assert torch.allclose(g, w, rtol=0, atol=tol, equal_nan=True), i
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["threefry", "philox"])
 @pytest.mark.parametrize("env_id,batch", [("GoalContinuous2P-v0", 1000),
                                           ("GoalContinuous4P-v0", 129),

@@ -34,7 +34,8 @@ from space_gym_torch.ops.kernel_params import TABLEAU_IDS, TASK_IDS
 from space_gym_torch.ops.rng_plain import key_words
 from space_gym_torch.utils.cuda_build import CSRC
 
-from .torch_scenarios import one_torch_thread, pattern_operands  # noqa: F401 (autouse)
+from .torch_scenarios import (firing_operands, one_torch_thread,  # noqa: F401 (autouse)
+                              pattern_operands)
 
 TOL_STATE = 1e-5
 TOL_REWARD = 1e-3
@@ -123,20 +124,24 @@ def test_host_built_full_step_matches_plain_twin(host_lib, rng, env_id, tableau,
 
 def test_host_build_launch_geometry(host_lib):
     """The persistent grid: min(tiles, resident blocks) blocks, an equal
-    share of the tiles each; the shared memory of the two list counts, the
-    two rare-lane lists and one stage of the input rows."""
+    share of the tiles each; the shared memory of the list of deferred lanes
+    (its count, then 6 * NPW + 10 words a slot, 128 slots: csrc/env_lanes.cuh),
+    the two rare-lane lists' counts, the two lists and one stage of the input
+    rows."""
     cfg = get_config("GoalContinuous2P-v0")
     full = FullStep(cfg, 1, 8, "bs3")
-    out = (ctypes.c_int * 8)()
-    for B, sms, grid in ((676, 2, 2), (677, 1, 1), (100, 4, 1), (128 * 9, 4, 3)):
-        host_lib.host_set_sms(sms)
-        assert host_lib.sg_full_step_info(TASK_IDS["goal"], 2, 4, 2, TABLEAU_IDS["bs3"], B,
-                                          out) == 0
-        info = dict(zip(FullStep.INFO_KEYS, out))
-        assert info["tiles"] == -(-B // 128) and info["grid"] == grid, (B, info)
-        assert info["threads"] == 128 and info["sms"] == sms
     rows = sum(full.in_rows()) - full.in_rows()[6]
-    assert info["smem_bytes"] == 2 * 4 + 2 * 384 * 4 + rows * 128 * 4
+    out = (ctypes.c_int * 8)()
+    for tab, npw in (("bs3", 3), ("dp5", 4)):
+        for B, sms, grid in ((676, 2, 2), (677, 1, 1), (100, 4, 1), (128 * 9, 4, 3)):
+            host_lib.host_set_sms(sms)
+            assert host_lib.sg_full_step_info(TASK_IDS["goal"], 2, 4, 2, TABLEAU_IDS[tab], B,
+                                              out) == 0
+            info = dict(zip(FullStep.INFO_KEYS, out))
+            assert info["tiles"] == -(-B // 128) and info["grid"] == grid, (B, info)
+            assert info["threads"] == 128 and info["sms"] == sms
+        assert info["smem_bytes"] == (16 + (6 * npw + 10) * 128 * 4
+                                      + 2 * 4 + 2 * 384 * 4 + rows * 128 * 4), tab
 
 
 @pytest.mark.parametrize("env_id", ["GoalContinuous2P-v0", "KeplerRandomOrbits-v0"])
@@ -156,6 +161,36 @@ def test_host_built_full_step_when_the_lists_fill(host_lib, env_id):
     for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
         tol = TOL_REWARD if i == 7 else TOL_STATE
         assert torch.allclose(g, w, rtol=0, atol=tol, equal_nan=True), i
+
+
+@pytest.mark.parametrize("tableau,substeps,refine", [("bs3", 1, 8), ("dp5", 2, 12)])
+@pytest.mark.parametrize("env_id,rng", [("GoalContinuous2P-v0", False),
+                                        ("KeplerRandomOrbits-v0", "philox")],
+                         ids=["goal2p-mem", "kepler-philox"])
+def test_host_built_full_step_defers_firing_lanes(host_lib, env_id, rng, tableau, substeps,
+                                                  refine):
+    """Three lanes in four head into planet 0 (`firing_operands`): a block's
+    firing lanes (about 288 on each of two blocks of three tiles at B = 676,
+    about 508 on one block of six at B = 677) are more than its list of
+    deferred lanes holds (128), so the list fills, the lanes past it refine
+    in place and the list's lanes are finished, and reset, by the block's
+    threads at its end.  Every row and flag as the plain twin's."""
+    cfg = get_config(env_id)
+    full = FullStep(cfg, substeps, refine, tableau, in_kernel_rng=rng)
+    for B, sms in BATCHES:
+        rows = firing_operands(cfg, B, seed=B, raw_action=True)
+        if rng:
+            rows[6] = key_words([0x5EED0001 + B, 0x0000C0DE])
+        want = full.step_rows(*rows)
+        got = host_step(host_lib, full, rows, sms)
+        assert torch.equal(got[-1], want[-1]), f"B={B}: flags"
+        assert torch.equal(got[-2], want[-2]), f"B={B}: integer rows"
+        for i, (g, w) in enumerate(zip(got[:-2], want[:-2])):
+            tol = TOL_REWARD if i == 7 else TOL_STATE
+            assert torch.allclose(g, w, rtol=0, atol=tol, equal_nan=True), (B, i)
+        block = (torch.arange(B) // 128) % sms  # the block that walks each lane's tile
+        fired = [int(want[-1][0][block == b].sum()) for b in range(sms)]
+        assert min(fired) > 128, f"B={B}: lanes whose events fire in each block {fired}"
 
 
 @pytest.mark.parametrize("rng", ["threefry", "philox"])

@@ -141,12 +141,13 @@ def pattern_operands(cfg, B, seed, device="cpu", raw_action=False):
     return [t.to(device) for t in rows]
 
 
-def firing_operands(cfg, B, seed, device="cpu"):
+def firing_operands(cfg, B, seed, device="cpu", raw_action=False):
     """`pattern_operands` in which three lanes of every four sit just outside
     planet 0's surface heading into it: their events fire, more of them
-    than a block's list of deferred lanes in K1 and K2 holds (128 lanes
-    where a block walks two tiles or more)."""
-    rows = pattern_operands(cfg, B, seed, device)
+    than a block's list of deferred lanes in K1, K2 and K3 holds (128 lanes
+    where a block walks two tiles or more).  `raw_action`: as for
+    `pattern_operands` (K3's action)."""
+    rows = pattern_operands(cfg, B, seed, device, raw_action=raw_action)
     y, p = rows[0], rows[2]
     crash = torch.arange(B, device=device) % 4 != 3
     y[0, crash] = p[0, crash] + cfg.planet_radii[0] + 0.02
